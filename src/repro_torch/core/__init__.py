@@ -1,0 +1,14 @@
+"""Exact single-device betweenness centrality (MGBC), ported to PyTorch.
+
+  operators.py    operator layer — dense / sparse / fused-kernel level steps
+  engine.py       engine layer — the forward/backward level loops
+  driver.py       driver layer — traversal_round + the BCDriver round loop
+  bc.py           single-device entry point
+  scheduler.py    source rounds
+  heuristics/     1-degree reduction and 2-degree DMF
+  brandes_ref.py  numpy oracle (Algorithm 1)
+"""
+from .bc import ENGINE_KINDS, BCResult, betweenness_centrality
+from .brandes_ref import brandes_reference
+
+__all__ = ["ENGINE_KINDS", "BCResult", "betweenness_centrality", "brandes_reference"]

@@ -1,0 +1,189 @@
+"""Single-device betweenness centrality entry point.
+
+Composes the round scheduler, the operator layer and the driver into the
+full exact (or source-sampled) BC computation on one device.  The engine
+names differ from the JAX package's where the thing differs:
+``"fused"``/``"fused_bf16"`` run the hand-written CUDA level kernels
+where the JAX package ran its Pallas kernels; :data:`REFERENCE_ENGINE`
+maps each port engine to its JAX counterpart for the parity tests.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from ..graphs.graph import Graph
+from ..serving.sampling import SamplePlan, eligible_roots, plan_sampling
+from .driver import BCDriver, BCResult, traversal_round
+from .operators import DenseOperator, FusedDenseOperator, SparseOperator, TraversalOperator
+from .scheduler import build_schedule
+
+__all__ = [
+    "BCResult",
+    "betweenness_centrality",
+    "make_round_fn",
+    "make_operator",
+    "device_adjacency",
+    "apply_sampling_rescale",
+    "ENGINE_KINDS",
+    "REFERENCE_ENGINE",
+]
+
+#: the single source of truth for the port's ``--engine`` choices:
+#: "dense" (torch.matmul), "sparse" (index_select + index_add_), "fused"
+#: (CUDA level kernels, f32 adjacency), "fused_bf16" (same, bf16 adjacency)
+ENGINE_KINDS = ("dense", "sparse", "fused", "fused_bf16")
+
+#: port engine -> the JAX package's engine computing the same thing
+REFERENCE_ENGINE = {
+    "dense": "dense",
+    "sparse": "sparse",
+    "fused": "pallas",
+    "fused_bf16": "pallas_bf16",
+}
+
+
+def device_adjacency(graph: Graph, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[n, n] 0/1 adjacency built on the device from the arc list (the
+    host never holds the n² matrix)."""
+    a = torch.zeros((graph.n, graph.n), dtype=dtype, device=device)
+    src = torch.from_numpy(graph.src).to(device=device, dtype=torch.int64)
+    dst = torch.from_numpy(graph.dst).to(device=device, dtype=torch.int64)
+    a[src, dst] = 1
+    return a
+
+
+def make_operator(residual: Graph, engine_kind: str, device: torch.device) -> TraversalOperator:
+    """The level operator of an engine kind over the residual graph; the
+    graph-constant operands are built once per call, on ``device``."""
+    if engine_kind == "dense":
+        return DenseOperator(device_adjacency(residual, torch.float32, device))
+    if engine_kind == "sparse":
+        src_p, dst_p, _ = residual.padded_arcs(multiple=8)
+        return SparseOperator(
+            torch.from_numpy(src_p).to(device=device, dtype=torch.int64),
+            torch.from_numpy(dst_p).to(device=device, dtype=torch.int64),
+            residual.n,
+        )
+    if engine_kind in ("fused", "fused_bf16"):
+        dtype = torch.float32 if engine_kind == "fused" else torch.bfloat16
+        return FusedDenseOperator(device_adjacency(residual, dtype, device))
+    raise ValueError(f"unknown engine {engine_kind!r}; expected one of {ENGINE_KINDS}")
+
+
+def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | None = None):
+    """``(sources, derived) -> traversal_round(op, ...)`` for the driver."""
+
+    def round_fn(sources, derived):
+        return traversal_round(op, sources, derived, omega, num_levels=num_levels)
+
+    return round_fn
+
+
+def _not_ported(name: str, where: str):
+    raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1, {where})")
+
+
+def betweenness_centrality(
+    graph: Graph,
+    batch_size: int = 32,
+    heuristics: str = "h0",
+    engine_kind: str = "dense",
+    num_levels: int | None = None,
+    ledger=None,
+    checkpoint=None,
+    overlap: str = "none",
+    straggler: str = "none",
+    sampling: str = "off",
+    sample_frac: float | None = None,
+    sample_k: int | None = None,
+    sample_seed: int = 0,
+    stop_rule=None,
+    weighted: bool = False,
+    delta: float | None = None,
+    device: str | torch.device | None = None,
+) -> BCResult:
+    """Exact or source-sampled BC of an undirected graph (paper
+    conventions: unnormalized, both traversal directions counted).
+
+    Args:
+      graph:       input graph.
+      batch_size:  concurrent sources per round (multi-source width).
+      heuristics:  one of ``HEURISTICS_MODES`` ("h0" … "h3t").
+      engine_kind: one of :data:`ENGINE_KINDS`.
+      num_levels:  optional static level bound (≥ graph diameter + 1).
+      ledger:      optional RoundLedger — committed rounds are skipped.
+      sampling:    "off" (exact) or "fixed" (seeded k-root subset,
+                   rescaled by N/k; requires ``heuristics="h0"``).
+      sample_frac / sample_k / sample_seed: the sample size and its seed.
+      stop_rule:   ``(bc_running, rounds_done) -> bool`` early stop
+                   (requires ``sampling != "off"``).
+      device:      None → the CUDA card (raises without one); "cpu" runs
+                   the plain PyTorch versions of every kernel.
+      checkpoint, overlap, straggler, weighted, delta: accepted for
+                   signature parity with the JAX package; anything but
+                   their defaults raises until its slice is ported.
+    """
+    if checkpoint is not None:
+        _not_ported("checkpoint (BCCheckpoint resume)", "slice 2")
+    if overlap != "none":
+        raise ValueError(
+            "overlap schedules are a distributed-engine feature; "
+            "single-device engines have no collectives to pipeline"
+        )
+    if straggler != "none":
+        raise ValueError(
+            "straggler scheduling is a sub-cluster feature; a single "
+            "device has no replicas to steal rounds from or re-deal to"
+        )
+    if weighted or delta is not None:
+        _not_ported("weighted BC (weighted=, delta=)", "weighted delta-stepping")
+    if engine_kind not in ENGINE_KINDS:
+        raise ValueError(f"unknown engine {engine_kind!r}; expected one of {ENGINE_KINDS}")
+    dev = resolve_device(device)
+    plan = plan_sampling(eligible_roots(graph), sampling, sample_frac, sample_k, sample_seed)
+    if plan.mode != "off" and heuristics != "h0":
+        raise ValueError(
+            "sampling requires heuristics='h0': the 1-/2-degree analytic "
+            "corrections are not per-root additive, so a sampled run "
+            "could not be rescaled into an unbiased estimator"
+        )
+    if stop_rule is not None and plan.mode == "off":
+        raise ValueError(
+            "a stop_rule truncates the schedule, which is only meaningful "
+            "as a rescaled estimate; pass sampling='fixed'"
+        )
+    schedule, prep, residual, omega_np = build_schedule(
+        graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots
+    )
+    omega = torch.from_numpy(omega_np).to(device=dev, dtype=torch.float32)
+    op = make_operator(residual, engine_kind, dev)
+    driver = BCDriver(
+        make_round_fn(op, omega, num_levels),
+        schedule,
+        n=graph.n,
+        device=dev,
+        prep=prep,
+        ledger=ledger,
+        stop_rule=stop_rule,
+    )
+    return apply_sampling_rescale(driver.run(), plan)
+
+
+def apply_sampling_rescale(result: BCResult, plan: SamplePlan) -> BCResult:
+    """Rescale a sampled run's BC by N / roots_accumulated (in place)."""
+    if plan.mode == "off":
+        return result
+    denom = result.roots_accumulated
+    scale = plan.num_eligible / denom if denom else 1.0
+    if scale != 1.0:
+        result.bc = result.bc * scale
+    result.sampling_stats = {
+        "mode": plan.mode,
+        "seed": plan.seed,
+        "num_eligible": plan.num_eligible,
+        "k_planned": plan.k,
+        "roots_accumulated": denom,
+        "scale": scale,
+    }
+    return result

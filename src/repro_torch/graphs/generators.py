@@ -1,0 +1,159 @@
+"""Graph generators (host-side numpy).
+
+Every generator draws from ``numpy.random.default_rng(seed)`` in the same
+order as the JAX package's, so the same seed gives the same graph in both
+packages.  ``rmat_graph`` is the paper's synthetic workload (R-MAT with
+a=0.57, b=0.19, c=0.19, d=0.05; SCALE/EF parameterization, §4.1); the
+structured generators have closed-form BC scores; ``road_like_graph`` and
+``suburb_graph`` are the long-diameter regimes the heuristics target.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .graph import Graph
+
+__all__ = [
+    "rmat_graph",
+    "path_graph",
+    "cycle_graph",
+    "star_graph",
+    "complete_graph",
+    "grid_graph",
+    "gnp_graph",
+    "disjoint_union",
+    "road_like_graph",
+    "suburb_graph",
+    "skewed_depth_graph",
+]
+
+
+def rmat_graph(
+    scale: int,
+    edge_factor: int,
+    seed: int = 0,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+) -> Graph:
+    """R-MAT generator (Chakrabarti et al.), paper parameters by default.
+
+    n = 2**scale vertices, m = edge_factor * n undirected edge samples
+    (duplicates / self-loops dropped, as in Graph500 practice).
+    """
+    n = 1 << scale
+    m = edge_factor * n
+    rng = np.random.default_rng(seed)
+    src = np.zeros(m, dtype=np.int64)
+    dst = np.zeros(m, dtype=np.int64)
+    for bit in range(scale):
+        r = rng.random(m)
+        # quadrant probabilities: a | b / c | d
+        src_bit = r >= a + b
+        dst_bit = ((r >= a) & (r < a + b)) | (r >= a + b + c)
+        src |= src_bit.astype(np.int64) << bit
+        dst |= dst_bit.astype(np.int64) << bit
+    # permute vertex ids so degree is not correlated with id
+    perm = rng.permutation(n)
+    return Graph.from_edges(n, np.stack([perm[src], perm[dst]], axis=1))
+
+
+def path_graph(n: int) -> Graph:
+    e = np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)
+    return Graph.from_edges(n, e)
+
+
+def cycle_graph(n: int) -> Graph:
+    e = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
+    return Graph.from_edges(n, e)
+
+
+def star_graph(n_leaves: int) -> Graph:
+    """Vertex 0 is the hub; 1..n_leaves are leaves."""
+    e = np.stack([np.zeros(n_leaves, np.int64), np.arange(1, n_leaves + 1)], axis=1)
+    return Graph.from_edges(n_leaves + 1, e)
+
+
+def complete_graph(n: int) -> Graph:
+    iu = np.triu_indices(n, k=1)
+    return Graph.from_edges(n, np.stack(iu, axis=1))
+
+
+def grid_graph(rows: int, cols: int) -> Graph:
+    """2-D lattice — the canonical long-diameter road-like topology."""
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    horiz = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    vert = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
+    return Graph.from_edges(rows * cols, np.concatenate([horiz, vert]))
+
+
+def gnp_graph(n: int, p: float, seed: int = 0) -> Graph:
+    rng = np.random.default_rng(seed)
+    mask = np.triu(rng.random((n, n)) < p, k=1)
+    u, v = np.nonzero(mask)
+    return Graph.from_edges(n, np.stack([u, v], axis=1))
+
+
+def disjoint_union(*graphs: Graph) -> Graph:
+    """Multi-component graphs (the 1-degree heuristic's hard case)."""
+    offset = 0
+    parts = []
+    for g in graphs:
+        parts.append(np.stack([g.src + offset, g.dst + offset], axis=1))
+        offset += g.n
+    edges = np.concatenate(parts) if parts else np.zeros((0, 2), np.int64)
+    return Graph.from_edges(offset, edges)
+
+
+def skewed_depth_graph(pairs: int, block: int) -> Graph:
+    """``2 · pairs`` components of ``block`` vertices in alternating
+    vertex-id order: even blocks are paths (depth ≈ block), odd blocks
+    complete graphs (depth 1) — the maximally depth-skewed round deal."""
+    parts = []
+    for i in range(2 * pairs):
+        parts.append(path_graph(block) if i % 2 == 0 else complete_graph(block))
+    return disjoint_union(*parts)
+
+
+def road_like_graph(
+    rows: int, cols: int, spur_fraction: float = 0.3, seed: int = 0
+) -> Graph:
+    """Grid backbone + dangling spur paths: long diameter, rich in 1- and
+    2-degree vertices — the regime of the paper's Table 5 / Fig. 12."""
+    rng = np.random.default_rng(seed)
+    base = grid_graph(rows, cols)
+    n = base.n
+    n_spurs = int(spur_fraction * n)
+    anchors = rng.integers(0, n, size=n_spurs)
+    lengths = rng.integers(1, 4, size=n_spurs)
+    edges = [np.stack([base.src, base.dst], axis=1)]
+    nxt = n
+    for anchor, length in zip(anchors, lengths):
+        prev = int(anchor)
+        for _ in range(int(length)):
+            edges.append(np.array([[prev, nxt]]))
+            prev = nxt
+            nxt += 1
+    return Graph.from_edges(nxt, np.concatenate(edges))
+
+
+def suburb_graph(rows: int, cols: int, leaf_fraction: float = 0.5, seed: int = 0) -> Graph:
+    """Grid with every edge subdivided (chain vertices of degree 2) and
+    single leaves attached to a fraction of the chain vertices — the
+    paper's §4.4 regime where h3 derives strictly more than h2."""
+    rng = np.random.default_rng(seed)
+    base = grid_graph(rows, cols)
+    nxt = base.n
+    edges = []
+    mids = []
+    for u, v in zip(base.src, base.dst):
+        if u < v:  # each undirected edge once
+            edges.append([int(u), nxt])
+            edges.append([nxt, int(v)])
+            mids.append(nxt)
+            nxt += 1
+    for m in mids:
+        if rng.random() < leaf_fraction:
+            edges.append([m, nxt])
+            nxt += 1
+    return Graph.from_edges(nxt, np.array(edges))

@@ -1,0 +1,139 @@
+"""Undirected graph container (host-side numpy).
+
+The graph is stored as a *symmetric directed arc list*: every undirected
+edge {u, v} appears as both (u, v) and (v, u), sorted by (src, dst).
+This is the layout every traversal engine of :mod:`repro_torch.core`
+consumes — the dense engines build their [n, n] adjacency on the device
+from it, the sparse engine gathers and scatters along it.
+
+``w`` (optional float32 per arc, symmetric like the arc list) is carried
+so that graphs round-trip between packages (:mod:`repro_torch.interop`);
+the weighted traversal is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["Graph"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Immutable undirected graph.
+
+    Attributes:
+      n:    number of vertices (vertex ids are ``0 .. n-1``).
+      src:  int32 [m2] source endpoint of each directed arc.
+      dst:  int32 [m2] destination endpoint of each directed arc.
+            ``m2 == 2 * num_undirected_edges``; the arc list is symmetric
+            and sorted by (src, dst).
+      w:    optional float32 [m2] arc weights aligned with src/dst;
+            ``None`` means unweighted.
+    """
+
+    n: int
+    src: np.ndarray
+    dst: np.ndarray
+    w: np.ndarray | None = None
+
+    @staticmethod
+    def from_edges(
+        n: int, edges: np.ndarray, weights: np.ndarray | None = None
+    ) -> "Graph":
+        """Build from an [e, 2] array of (possibly duplicated, possibly
+        self-looped, possibly one-directional) undirected edge pairs.
+
+        ``weights`` (optional [e] floats, one per input edge row) must be
+        strictly positive and finite; duplicate undirected pairs keep the
+        weight of the first occurrence.
+        """
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        if weights is not None:
+            weights = np.asarray(weights, dtype=np.float32).reshape(-1)
+            if weights.shape[0] != edges.shape[0]:
+                raise ValueError(
+                    f"weights has {weights.shape[0]} entries for "
+                    f"{edges.shape[0]} edges"
+                )
+            if weights.size and (not np.all(np.isfinite(weights)) or weights.min() <= 0):
+                raise ValueError("edge weights must be strictly positive and finite")
+        if edges.size:
+            if edges.min() < 0 or edges.max() >= n:
+                raise ValueError("edge endpoint out of range")
+        keep = edges[:, 0] != edges[:, 1]  # drop self loops
+        edges = edges[keep]
+        if weights is not None:
+            weights = weights[keep]
+        # canonicalize + dedupe undirected pairs
+        lo = np.minimum(edges[:, 0], edges[:, 1])
+        hi = np.maximum(edges[:, 0], edges[:, 1])
+        _, idx = np.unique(lo * n + hi, return_index=True)
+        lo, hi = lo[idx], hi[idx]
+        # symmetrize
+        src = np.concatenate([lo, hi]).astype(np.int32)
+        dst = np.concatenate([hi, lo]).astype(np.int32)
+        order = np.lexsort((dst, src))
+        if weights is None:
+            return Graph(n=n, src=src[order], dst=dst[order])
+        wu = weights[idx]
+        w = np.concatenate([wu, wu]).astype(np.float32)
+        return Graph(n=n, src=src[order], dst=dst[order], w=w[order])
+
+    @property
+    def num_arcs(self) -> int:
+        """Number of directed arcs (= 2x undirected edges)."""
+        return int(self.src.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        """Number of undirected edges."""
+        return self.num_arcs // 2
+
+    def degrees(self) -> np.ndarray:
+        """int64 [n] vertex degrees."""
+        return np.bincount(self.src, minlength=self.n).astype(np.int64)
+
+    def dense_adjacency(self, dtype=np.float32) -> np.ndarray:
+        """[n, n] symmetric 0/1 adjacency matrix on the host (small graphs
+        only; the engines build theirs on the device)."""
+        a = np.zeros((self.n, self.n), dtype=dtype)
+        a[self.src, self.dst] = 1
+        return a
+
+    def adjacency_lists(self) -> list[np.ndarray]:
+        """Per-vertex sorted neighbor arrays (oracle / scheduler use)."""
+        order = np.argsort(self.src, kind="stable")
+        src, dst = self.src[order], self.dst[order]
+        starts = np.searchsorted(src, np.arange(self.n))
+        ends = np.searchsorted(src, np.arange(self.n), side="right")
+        return [dst[s:e] for s, e in zip(starts, ends)]
+
+    def connected_components(self) -> np.ndarray:
+        """int64 [n] component label per vertex (host-side union-find)."""
+        parent = np.arange(self.n, dtype=np.int64)
+
+        def find(x: int) -> int:
+            root = x
+            while parent[root] != root:
+                root = parent[root]
+            while parent[x] != root:
+                parent[x], x = root, parent[x]
+            return root
+
+        for u, v in zip(self.src, self.dst):
+            ru, rv = find(int(u)), find(int(v))
+            if ru != rv:
+                parent[max(ru, rv)] = min(ru, rv)
+        return np.array([find(i) for i in range(self.n)], dtype=np.int64)
+
+    def padded_arcs(self, multiple: int) -> tuple[np.ndarray, np.ndarray, int]:
+        """Arc list padded to a multiple with self-referencing sentinel
+        arcs pointing at vertex slot ``n`` (callers allocate n+1 slots so
+        the sentinel accumulates into a discarded row)."""
+        m2 = self.num_arcs
+        pad = (-m2) % multiple
+        src = np.concatenate([self.src, np.full(pad, self.n, np.int32)])
+        dst = np.concatenate([self.dst, np.full(pad, self.n, np.int32)])
+        return src, dst, m2

@@ -1,0 +1,82 @@
+"""Carry state across from the JAX package's objects.
+
+BC has no weights: the state both packages must share is the graph and
+the round schedule.  These functions take the *numpy fields* of the JAX
+package's ``Graph`` and ``Round`` objects (so this module imports nothing
+of that package) and give the port's equivalents:
+
+    g = graph_from_arrays(jg.n, jg.src, jg.dst, jg.w)
+    sched = schedule_from_arrays(
+        [(r.sources, r.derived) for r in js.rounds], js.batch_size,
+        js.derived_per_round, ...)
+
+With these, one schedule can be fed through both packages'
+``traversal_round`` round by round.
+"""
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import numpy as np
+
+from .core.scheduler import Round, Schedule
+from .graphs.graph import Graph
+
+__all__ = ["graph_from_arrays", "schedule_from_arrays"]
+
+
+def graph_from_arrays(
+    n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray | None = None
+) -> Graph:
+    """The port's :class:`Graph` from a symmetric, (src, dst)-sorted arc list."""
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError(f"src/dst must be equal 1-D arrays, got {src.shape}, {dst.shape}")
+    if src.size and (min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= n):
+        raise ValueError(f"arc endpoint out of range for n = {n}")
+    if w is not None:
+        w = np.asarray(w, np.float32)
+        if w.shape != src.shape:
+            raise ValueError(f"w must align with the arcs, got {w.shape}")
+    return Graph(n=int(n), src=src, dst=dst, w=w)
+
+
+def schedule_from_arrays(
+    rounds: Sequence[tuple[np.ndarray, np.ndarray]],
+    batch_size: int,
+    derived_per_round: int,
+    *,
+    num_leaf_skipped: int = 0,
+    num_isolated_omega: int = 0,
+    analytic_corrections: np.ndarray | None = None,
+    round_depths: np.ndarray | None = None,
+) -> Schedule:
+    """The port's :class:`Schedule` from ``(sources i32 [s], derived i32
+    [k, 3])`` pairs, one per round; the explicit/derived counts are
+    recomputed from the rounds."""
+    port_rounds = []
+    for sources, derived in rounds:
+        sources = np.asarray(sources, np.int32)
+        derived = np.asarray(derived, np.int32).reshape(-1, 3)
+        if sources.shape != (batch_size,) or derived.shape != (derived_per_round, 3):
+            raise ValueError(
+                f"round shapes {sources.shape}, {derived.shape} do not match "
+                f"batch_size={batch_size}, derived_per_round={derived_per_round}"
+            )
+        port_rounds.append(Round(sources=sources, derived=derived))
+    return Schedule(
+        rounds=port_rounds,
+        batch_size=int(batch_size),
+        derived_per_round=int(derived_per_round),
+        num_explicit=sum(int((r.sources >= 0).sum()) for r in port_rounds),
+        num_derived=sum(int((r.derived[:, 0] >= 0).sum()) for r in port_rounds),
+        num_leaf_skipped=int(num_leaf_skipped),
+        num_isolated_omega=int(num_isolated_omega),
+        analytic_corrections=(
+            np.zeros((0, 2), np.float64)
+            if analytic_corrections is None
+            else np.asarray(analytic_corrections, np.float64).reshape(-1, 2)
+        ),
+        round_depths=None if round_depths is None else np.asarray(round_depths, np.int64),
+    )

@@ -24,6 +24,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

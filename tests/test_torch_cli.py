@@ -1,0 +1,81 @@
+"""The port's CLI (``python -m repro_torch.launch.bc``) on the CPU, against
+the numpy oracle (rtol 1e-5 / atol 1e-5) and the JAX launcher's graphs."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.graphs as jg
+import repro_torch.graphs as pg
+from repro_torch.core import ENGINE_KINDS, brandes_reference
+from repro_torch.launch import bc as cli
+
+REPO = Path(__file__).resolve().parents[1]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("engine", list(ENGINE_KINDS))
+def test_cli_engines_match_oracle(engine, tmp_path, capsys):
+    out = tmp_path / "bc.npy"
+    cli.main(["--grid", "4x5", "--engine", engine, "--heuristics", "h3",
+              "--batch-size", "8", "--device", "cpu", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert "grid_4x5: n=20" in text and "done in" in text and "GTEPS_bc" in text
+    np.testing.assert_allclose(np.load(out), brandes_reference(pg.grid_graph(4, 5)), **TOL)
+
+
+def test_cli_sampling_fixed(tmp_path, capsys):
+    out = tmp_path / "bc.npy"
+    cli.main(["--rmat-scale", "6", "--edge-factor", "4", "--engine", "fused",
+              "--sampling", "fixed", "--sample-k", "20", "--device", "cpu",
+              "--out", str(out)])
+    text = capsys.readouterr().out
+    assert "sampling[fixed]: 20/" in text
+    assert np.load(out).shape == (64,)
+
+
+def test_cli_rejects_sample_size_without_sampling():
+    with pytest.raises(SystemExit):
+        cli.main(["--grid", "3x3", "--sample-k", "4", "--device", "cpu"])
+
+
+def test_cli_needs_a_card_without_device_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--grid", "3x3", "--engine", "fused"])
+
+
+@pytest.mark.parametrize(
+    "argv,builder",
+    [
+        (["--rmat-scale", "6", "--edge-factor", "4"], lambda m: m.rmat_graph(6, 4, seed=1)),
+        (["--road", "4x5"], lambda m: m.road_like_graph(4, 5, seed=1)),
+    ],
+)
+def test_cli_graphs_are_the_jax_launchers(argv, builder, tmp_path):
+    """Same flags, same seed (1), same graph as ``repro.launch.bc``."""
+    jgraph, pgraph = builder(jg), builder(pg)
+    np.testing.assert_array_equal(jgraph.src, pgraph.src)
+    np.testing.assert_array_equal(jgraph.dst, pgraph.dst)
+    out = tmp_path / "bc.npy"
+    cli.main(argv + ["--heuristics", "h1", "--device", "cpu", "--out", str(out)])
+    np.testing.assert_allclose(np.load(out), brandes_reference(pgraph), **TOL)
+
+
+def test_cli_runs_as_a_module(tmp_path):
+    out = tmp_path / "bc.npy"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.bc", "--road", "3x3", "--engine",
+         "fused_bf16", "--heuristics", "h3t", "--device", "cpu", "--out", str(out)],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "done in" in proc.stdout
+    np.testing.assert_allclose(
+        np.load(out), brandes_reference(pg.road_like_graph(3, 3, seed=1)), **TOL
+    )
