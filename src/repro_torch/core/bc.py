@@ -72,10 +72,14 @@ def make_operator(residual: Graph, engine_kind: str, device: torch.device) -> Tr
 
 
 def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | None = None):
-    """``(sources, derived) -> traversal_round(op, ...)`` for the driver."""
+    """The driver's one-lane round function: ``(sources [1, s], derived
+    [1, k, 3]) -> traversal_round(op, ...)`` with a leading lane dim."""
 
     def round_fn(sources, derived):
-        return traversal_round(op, sources, derived, omega, num_levels=num_levels)
+        bc, ns, roots, levels = traversal_round(
+            op, sources[0], derived[0], omega, num_levels=num_levels
+        )
+        return bc[None], ns[None], roots[None], [levels]
 
     return round_fn
 

@@ -7,10 +7,12 @@ written against the :class:`repro_torch.core.operators.TraversalOperator`
 protocol.
 
 :class:`BCDriver` is the host round loop: it deals the schedule's rounds
-one at a time, skips rounds a :class:`RoundLedger` has committed, adds
-each round's contribution into an f32 accumulator on the device, reads
-the round's n_s and roots back to the host (the 1-degree corrections
-need them), and fetches the accumulator once at the end as f64.
+in *dispatch blocks* of ``rounds_per_dispatch`` (1 on a single device;
+the sub-cluster count ``fr`` on a grid, one round per replica), skips
+rounds a :class:`RoundLedger` has committed, adds each block's
+contribution into an f32 accumulator on the device, reads the block's n_s
+and roots back to the host (the 1-degree corrections need them), and
+fetches the accumulator once at the end as f64, summing the replicas.
 Straggler scheduling, chaos, integrity audits, the watchdog and durable
 checkpoints belong to later slices of the port.
 """
@@ -50,8 +52,8 @@ def traversal_round(
       bc_local  f32 [n_rows] — this round's BC contribution,
       ns        f32 [s+k]    — per-column component size n_s (§3.4.1),
       roots     i32 [s+k]    — root vertex of every column (-1 padding),
-      levels    int          — traversal depth of this round (0 for an
-                all-padding round).
+      levels    int          — traversal depth of this round on its own
+                grid (``reduce_max_grid``; 0 for an all-padding round).
     """
     row_ids = op.row_ids()
 
@@ -69,7 +71,11 @@ def traversal_round(
     depth_all = torch.cat([fwd.depth, depth_c], dim=1)
 
     # ---------------------------------------------------------- backward
-    max_depth = int(op.reduce_max(depth_all.max()))  # one readback per round
+    # decomposed max: grid first (this replica's own depth, the round's
+    # levels), then the replica-lockstep extension for the loop bound (a
+    # no-op on every ported schedule); one readback per round
+    grid_max = op.reduce_max_grid(depth_all.max())
+    max_depth = int(op.reduce_max_sync(grid_max))
     delta = engine.backward_accumulation(
         op, sigma_all, depth_all, omega, max_depth, num_levels=num_levels
     )
@@ -82,7 +88,7 @@ def traversal_round(
 
     # per-column component size  n_s = Σ_{d ≥ 0} (1 + ω)   (paper §3.4.1)
     ns = op.reduce_sum(((depth_all >= 0) * (1.0 + omega)[:, None]).sum(dim=0))
-    return bc_local, ns, roots, max_depth + 1
+    return bc_local, ns, roots, int(grid_max) + 1
 
 
 def apply_reduction_corrections(
@@ -133,13 +139,16 @@ class BCResult:
 class BCDriver:
     """Host round loop (see module docstring).
 
-    ``round_fn(sources i32 [s], derived i32 [k, 3])`` (tensors on the
-    run's device) must return ``(bc_round f32 [n], ns f32 [s+k],
-    roots i32 [s+k], levels int)``, as :func:`traversal_round` does.
-    ``ledger`` skips committed rounds and commits each round once its
-    contribution is accumulated.  ``stop_rule(bc_running f64 [n],
-    rounds_done) -> bool`` is consulted after every round; True halts
-    the loop with everything run so far kept.  ``checkpoint``,
+    ``round_fn(sources i32 [fr, s], derived i32 [fr, k, 3])`` (tensors on
+    the run's device, one round per lane, ``fr = rounds_per_dispatch``)
+    must return ``(bc_block f32 [fr, ≥n], ns f32 [fr, s+k],
+    roots i32 [fr, s+k], levels [fr])`` — per lane what
+    :func:`traversal_round` returns.  A short last block and rounds the
+    ``ledger`` has committed are dealt as all-padding lanes (sources -1),
+    which contribute nothing and report 0 levels; the ledger commits each
+    round once its block is accumulated.  ``stop_rule(bc_running f64 [n],
+    blocks_done) -> bool`` is consulted after every block; True halts the
+    loop with everything run so far kept.  ``checkpoint``,
     ``straggler``, ``integrity`` and ``dispatch_deadline_s`` (the
     watchdog) keep the JAX driver's signature and raise
     ``NotImplementedError`` until their slices are ported.
@@ -155,6 +164,7 @@ class BCDriver:
         prep: OneDegreeReduction | None = None,
         ledger: RoundLedger | None = None,
         stop_rule: Callable[[np.ndarray, int], bool] | None = None,
+        rounds_per_dispatch: int = 1,
         checkpoint=None,
         straggler: str = "none",
         integrity: str = "off",
@@ -177,19 +187,33 @@ class BCDriver:
         self.prep = prep
         self.ledger = ledger
         self.stop_rule = stop_rule
+        self.fr = max(1, int(rounds_per_dispatch))
 
     def _blocks(self):
-        """Yield ``(sources, derived, round_id)`` for every uncommitted
-        round, as int32 tensors on the device (one round per dispatch
-        block on a single device)."""
-        for rid, rnd in enumerate(self.schedule.rounds):
-            if self.ledger is not None and self.ledger.is_committed(rid):
-                continue  # already accumulated by a previous run
-            yield (
-                torch.from_numpy(rnd.sources).to(self.device),
-                torch.from_numpy(rnd.derived).to(self.device),
-                rid,
-            )
+        """Yield ``(sources [fr, s], derived [fr, k, 3], live)`` dispatch
+        blocks as int32 tensors on the device, ``live`` listing the
+        ``(lane, round_id)`` pairs that carry an uncommitted round; blocks
+        with none are skipped."""
+        s = self.schedule.batch_size
+        k = self.schedule.derived_per_round
+        rounds = self.schedule.rounds
+        for start in range(0, len(rounds), self.fr):
+            srcs = np.full((self.fr, s), -1, np.int32)
+            ders = np.full((self.fr, k, 3), -1, np.int32)
+            live = []
+            for lane, rnd in enumerate(rounds[start : start + self.fr]):
+                rid = start + lane
+                if self.ledger is not None and self.ledger.is_committed(rid):
+                    continue  # already accumulated by a previous run
+                srcs[lane] = rnd.sources
+                ders[lane] = rnd.derived
+                live.append((lane, rid))
+            if live:
+                yield (
+                    torch.from_numpy(srcs).to(self.device),
+                    torch.from_numpy(ders).to(self.device),
+                    live,
+                )
 
     def _count_roots(self, rids) -> int:
         """Root columns (explicit + derived) across the given rounds."""
@@ -201,10 +225,11 @@ class BCDriver:
         )
 
     def _collect_bc(self, bc_acc: torch.Tensor | None) -> np.ndarray:
-        """The f32 device accumulator as per-vertex f64 host scores."""
+        """The f32 device accumulator as per-vertex f64 host scores (the
+        replica lanes are additive, paper §3.3)."""
         if bc_acc is None:
             return np.zeros(self.n, np.float64)
-        return bc_acc.cpu().numpy().astype(np.float64)[: self.n]
+        return bc_acc.cpu().numpy().astype(np.float64).sum(axis=0)[: self.n]
 
     def _finalize(self, bc_acc, ns_by_root) -> np.ndarray:
         bc = self._collect_bc(bc_acc)
@@ -222,26 +247,32 @@ class BCDriver:
         round_levels: list[int] = []
         fwd_cols = bwd_cols = 0
         stopped_early = False
+        blocks_done = 0
         t_start = time.perf_counter()
-        for sources, derived, rid in self._blocks():
-            bc_r, ns, roots, levels = self.round_fn(sources, derived)
-            bc_acc = bc_r if bc_acc is None else bc_acc.add_(bc_r)
-            for root, nv in zip(roots.cpu().numpy(), ns.cpu().numpy().astype(np.float64)):
-                if root >= 0:
-                    ns_by_root[int(root)] = float(nv)
-            if self.ledger is not None:
-                self.ledger.try_commit(rid)
-            committed.append(rid)
-            round_levels.append(int(levels))
-            rnd = self.schedule.rounds[rid]
-            fwd_cols += int((rnd.sources >= 0).sum())
-            bwd_cols += int((rnd.sources >= 0).sum() + (rnd.derived[:, 0] >= 0).sum())
+        for sources, derived, live in self._blocks():
+            bc_blk, ns, roots, levels = self.round_fn(sources, derived)
+            bc_acc = bc_blk if bc_acc is None else bc_acc.add_(bc_blk)
+            roots_np = roots.cpu().numpy()
+            ns_np = ns.cpu().numpy().astype(np.float64)
+            for lane, rid in live:
+                for root, nv in zip(roots_np[lane], ns_np[lane]):
+                    if root >= 0:
+                        ns_by_root[int(root)] = float(nv)
+                if self.ledger is not None:
+                    self.ledger.try_commit(rid)
+                committed.append(rid)
+                round_levels.append(int(levels[lane]))
+                rnd = self.schedule.rounds[rid]
+                fwd_cols += int((rnd.sources >= 0).sum())
+                bwd_cols += int((rnd.sources >= 0).sum() + (rnd.derived[:, 0] >= 0).sum())
+            blocks_done += 1
             if self.stop_rule is not None and self.stop_rule(
-                self._collect_bc(bc_acc), len(committed)
+                self._collect_bc(bc_acc), blocks_done
             ):
                 stopped_early = True
                 logger.info(
-                    "stop rule fired after %d rounds; halting dispatch", len(committed)
+                    "stop rule fired after %d dispatch blocks (%d rounds committed); "
+                    "halting dispatch", blocks_done, len(committed),
                 )
                 break
         bc = self._finalize(bc_acc, ns_by_root)  # the fetch synchronises

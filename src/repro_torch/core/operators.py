@@ -8,25 +8,33 @@ layer (:mod:`repro_torch.core.driver`) the per-round algebra and the
 round loop, and operators everything below a level:
 
   apply(x)              A @ x over the rows this operator holds
+  apply_backward(g)     A @ g in the dependency sweep (payload-split hook)
   forward_level(...)    one forward BFS level (default: masked product
-                        via ``apply``; the fused operator launches K1)
-  backward_level(...)   one dependency level (the fused operator: K2)
+                        via ``apply``; the fused operators launch K1/K3)
+  backward_level(...)   one dependency level (the fused operators: K2/K4)
   reduce_any/max/sum    agreement on liveness, max depth and additive
-                        per-column facts (identity on one device)
+                        per-column facts (identity on one device,
+                        ``all_reduce`` over the grid group on a 2-D grid)
   row_ids / level_cap   which vertices the rows are; worst-case levels
   root_omega            ω at the round's root vertices
 
 Implementations: :class:`DenseOperator` (``torch.matmul`` on a dense
 0/1 adjacency), :class:`SparseOperator` (``index_select`` +
 ``index_add_`` over the padded arc list) and :class:`FusedDenseOperator`
-(the hand-written level kernels, kernels/ops.py).
+(the hand-written level kernels K1/K2, kernels/ops.py) on one device;
+:class:`DistributedOperator` (the paper's 2-D decomposition, §3.2: expand
+→ arc-list local compute → fold over ``torch.distributed`` groups) and
+:class:`DistributedFusedOperator` (the same collectives around the
+partial kernels K3/K4 on the device's dense block) on a grid.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.groups import GridGroups, all_gather, reduce_scatter
 from ..kernels import ops
 
 __all__ = [
@@ -34,6 +42,8 @@ __all__ = [
     "DenseOperator",
     "SparseOperator",
     "FusedDenseOperator",
+    "DistributedOperator",
+    "DistributedFusedOperator",
     "as_operator",
 ]
 
@@ -59,7 +69,7 @@ def _backward_level(op: "TraversalOperator", lvl: int, sigma, depth, omega, delt
     """
     safe_sigma = torch.where(sigma > 0, sigma, 1.0)
     g = torch.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe_sigma, 0.0)
-    t = op.apply(g)
+    t = op.apply_backward(g)
     return delta + torch.where(depth == lvl, sigma * t, 0.0)
 
 
@@ -71,6 +81,10 @@ class TraversalOperator:
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x for the local rows."""
         raise NotImplementedError
+
+    def apply_backward(self, g: torch.Tensor) -> torch.Tensor:
+        """A @ g in the dependency sweep (hook for payload-split modes)."""
+        return self.apply(g)
 
     def forward_level(self, lvl: int, sigma, depth):
         """(σ, d) -> (σ', d', alive) for one forward level; ``alive`` is a
@@ -85,6 +99,17 @@ class TraversalOperator:
         return alive
 
     def reduce_max(self, value: torch.Tensor) -> torch.Tensor:
+        return value
+
+    def reduce_max_grid(self, value: torch.Tensor) -> torch.Tensor:
+        """Max over this traversal's own devices only: the replica's own
+        depth, even where the loop bound is synced across replicas."""
+        return self.reduce_max(value)
+
+    def reduce_max_sync(self, value: torch.Tensor) -> torch.Tensor:
+        """Extend a grid max over the replicas that share loop bounds
+        (``reduce_max == reduce_max_sync ∘ reduce_max_grid``); identity
+        wherever replicas need no lockstep, as on every ported schedule."""
         return value
 
     def reduce_sum(self, value: torch.Tensor) -> torch.Tensor:
@@ -183,3 +208,154 @@ class FusedDenseOperator(TraversalOperator):
 
     def backward_level(self, lvl, sigma, depth, omega, delta):
         return ops.dependency_spmm(self.adjacency, sigma, depth, delta, omega, lvl)
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class DistributedOperator(TraversalOperator):
+    """2-D-decomposed operator (paper §3.2) of one rank of a
+    :class:`~repro_torch.distributed.groups.GridGroups` grid — the
+    counterpart of the JAX package's ``DistributedOperator``, barrier
+    schedule only.
+
+    Per application:
+      expand (Alg. 2 line 15):  ``all_gather`` over the rank's column group
+          delivers the frontier slice of grid column j, ``[R·chunk, s]``.
+      local compute:            gather ``x_col[src_local]`` and
+          ``index_add_`` into ``dst_local`` (a ``C·chunk + 1`` accumulator
+          whose last row takes the padding arcs).
+      fold (Alg. 2 line 19):    ``reduce_scatter`` over the row group sums
+          the C partials and delivers each rank its owned chunk.
+
+    Only the frontier-σ / g tensor travels; the depth test of the far
+    endpoint is folded into it.  ``split_backward`` splits the backward
+    exchange into two half-width collectives (the paper's unfused σ/d
+    exchange, the Fig. 9 benchmark mode).  The ring schedules
+    (``overlap != "none"``) and replica lockstep (``sync_axes``) are not
+    ported yet and raise.
+    """
+
+    def __init__(
+        self,
+        src_local: torch.Tensor | None,  # int64 [max_arcs] — into the gathered column
+        dst_local: torch.Tensor | None,  # int64 [max_arcs] — into the C*chunk partial
+        *,
+        chunk: int,
+        groups: GridGroups,
+        split_backward: bool = False,
+        overlap: str = "none",
+        sync_axes: tuple[str, ...] = (),
+    ):
+        if overlap != "none":
+            raise _not_ported(f"overlap={overlap!r} (the ring schedules)", 7)
+        if sync_axes:
+            raise _not_ported("sync_axes (replica lockstep under a ring schedule)", 7)
+        self.src_local = src_local
+        self.dst_local = dst_local
+        self.chunk = chunk
+        self.groups = groups
+        self.R, self.C = groups.R, groups.C
+        self.split_backward = split_backward
+        self.n_rows = chunk
+        self.device = None if src_local is None else src_local.device
+
+    # ---------------------------------------------- collective skeleton
+    def _expand(self, x_owned: torch.Tensor) -> torch.Tensor:
+        return all_gather(x_owned, self.groups.column)
+
+    def _fold(self, partial: torch.Tensor) -> torch.Tensor:
+        return reduce_scatter(partial, self.groups.row)
+
+    def _local(self, x_col: torch.Tensor) -> torch.Tensor:
+        rows = self.C * self.chunk
+        msgs = x_col.index_select(0, self.src_local)
+        out = x_col.new_zeros((rows + 1,) + tuple(x_col.shape[1:]))
+        return out.index_add_(0, self.dst_local, msgs)[:rows]
+
+    def apply(self, x_owned):
+        return self._fold(self._local(self._expand(x_owned)))
+
+    def apply_backward(self, g):
+        if not self.split_backward:
+            return self.apply(g)
+        half = g.shape[1] // 2  # paper-style split payload (benchmark mode)
+        return torch.cat([self.apply(g[:, :half]), self.apply(g[:, half:])], dim=1)
+
+    # ------------------------------------------- collective agreements
+    def _all_reduce(self, value: torch.Tensor, op) -> torch.Tensor:
+        out = value.reshape(1).clone()
+        dist.all_reduce(out, op=op, group=self.groups.grid)
+        return out[0]
+
+    def reduce_any(self, alive):
+        return self._all_reduce(alive.to(torch.int32), dist.ReduceOp.SUM) > 0
+
+    def reduce_max(self, value):
+        return self._all_reduce(value, dist.ReduceOp.MAX)
+
+    def reduce_sum(self, value):
+        out = value.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.groups.grid)
+        return out
+
+    # ------------------------------------------------------- geometry
+    def row_ids(self):
+        base = (self.groups.j * self.R + self.groups.i) * self.chunk  # first owned vertex
+        return base + torch.arange(self.chunk, dtype=torch.int32, device=self.device)
+
+    def level_cap(self):
+        return self.chunk * self.R * self.C  # n_pad
+
+    def root_omega(self, roots, omega):
+        owned = self.row_ids()
+        local = torch.where(roots[None, :] == owned[:, None], omega[:, None], 0.0).sum(dim=0)
+        return self.reduce_sum(local)
+
+
+class DistributedFusedOperator(DistributedOperator):
+    """The 2-D decomposition with the partial kernels K3/K4 as block-local
+    compute — the counterpart of the JAX package's
+    ``DistributedPallasOperator`` (barrier schedule).
+
+    ``block`` is the rank's dense adjacency block A[rows_i, cols_j],
+    ``[C·chunk, R·chunk]`` (f32, or bf16: 0/1 values are exact).  The
+    kernels fuse the frontier mask / g recompute into the block product;
+    the state update needs the t summed over the grid row, so it runs in
+    torch after the fold.  The exchanges therefore carry (σ, d) forward
+    and (σ, d, δ, ω) backward — the paper's §3.2 exchange set — instead of
+    the arc-list operator's one pre-masked tensor.
+    """
+
+    def __init__(
+        self,
+        block: torch.Tensor,
+        *,
+        chunk: int,
+        groups: GridGroups,
+        overlap: str = "none",
+        sync_axes: tuple[str, ...] = (),
+    ):
+        super().__init__(None, None, chunk=chunk, groups=groups, overlap=overlap,
+                         sync_axes=sync_axes)
+        self.block = block
+        self.device = block.device
+
+    def forward_level(self, lvl, sigma, depth):
+        partial = ops.frontier_spmm_partial(
+            self.block, self._expand(sigma), self._expand(depth), lvl
+        )  # [C*chunk, s]
+        t = self._fold(partial)  # [chunk, s]
+        newly = (t > 0) & (depth < 0)
+        depth = torch.where(newly, lvl, depth)
+        sigma = sigma + torch.where(newly, t, 0.0)
+        return sigma, depth, newly.any()
+
+    def backward_level(self, lvl, sigma, depth, omega, delta):
+        partial = ops.dependency_spmm_partial(
+            self.block, self._expand(sigma), self._expand(depth), self._expand(delta),
+            self._expand(omega), lvl,
+        )
+        t = self._fold(partial)
+        return delta + torch.where(depth == lvl, sigma * t, 0.0)

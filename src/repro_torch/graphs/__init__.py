@@ -1,5 +1,7 @@
-"""Graph substrate: the container and the seeded generators (numpy)."""
+"""Graph substrate: the container, the seeded generators and the 2-D
+partition (numpy)."""
 from .graph import Graph
+from .partition import TwoDPartition, partition_2d, partition_arcs_2d
 from .generators import (
     complete_graph,
     cycle_graph,
@@ -16,6 +18,9 @@ from .generators import (
 
 __all__ = [
     "Graph",
+    "TwoDPartition",
+    "partition_2d",
+    "partition_arcs_2d",
     "rmat_graph",
     "path_graph",
     "cycle_graph",

@@ -10,8 +10,12 @@ of that package) and give the port's equivalents:
         [(r.sources, r.derived) for r in js.rounds], js.batch_size,
         js.derived_per_round, ...)
 
+    part = partition_from_arrays(jp.R, jp.C, jp.n, jp.chunk, jp.src_local,
+                                 jp.dst_local, jp.arc_counts, jp.arc_perm)
+
 With these, one schedule can be fed through both packages'
-``traversal_round`` round by round.
+``traversal_round`` round by round, and one 2-D partition through both
+packages' distributed operators.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import numpy as np
 
 from .core.scheduler import Round, Schedule
 from .graphs.graph import Graph
+from .graphs.partition import TwoDPartition
 
-__all__ = ["graph_from_arrays", "schedule_from_arrays"]
+__all__ = ["graph_from_arrays", "schedule_from_arrays", "partition_from_arrays"]
 
 
 def graph_from_arrays(
@@ -79,4 +84,37 @@ def schedule_from_arrays(
             else np.asarray(analytic_corrections, np.float64).reshape(-1, 2)
         ),
         round_depths=None if round_depths is None else np.asarray(round_depths, np.int64),
+    )
+
+
+def partition_from_arrays(
+    R: int,
+    C: int,
+    n: int,
+    chunk: int,
+    src_local: np.ndarray,
+    dst_local: np.ndarray,
+    arc_counts: np.ndarray,
+    arc_perm: np.ndarray | None = None,
+) -> TwoDPartition:
+    """The port's :class:`TwoDPartition` from the numpy fields of the JAX
+    package's one (same layout: ``[R, C, max_arcs]`` local arc indices,
+    sentinel destination ``C·chunk``)."""
+    src_local = np.asarray(src_local, np.int32)
+    dst_local = np.asarray(dst_local, np.int32)
+    if src_local.shape != dst_local.shape or src_local.shape[:2] != (R, C):
+        raise ValueError(
+            f"arc arrays must be [{R}, {C}, max_arcs], got {src_local.shape}, {dst_local.shape}"
+        )
+    if chunk * R * C < n:
+        raise ValueError(f"chunk {chunk} on a {R}x{C} grid cannot hold n = {n}")
+    return TwoDPartition(
+        R=int(R),
+        C=int(C),
+        n=int(n),
+        chunk=int(chunk),
+        src_local=src_local,
+        dst_local=dst_local,
+        arc_counts=np.asarray(arc_counts, np.int64),
+        arc_perm=None if arc_perm is None else np.asarray(arc_perm, np.int64),
     )

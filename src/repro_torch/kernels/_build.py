@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libbc_kernels.so"
 
 # sm_90a: Hopper with its architecture-specific features.  No
-# --use_fast_math: K2 divides, and the reference divides in IEEE f32.
+# --use_fast_math: K2 and K4 divide, and the reference divides in IEEE f32.
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
 
@@ -37,11 +37,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _FRONTIER_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 # (A, σ, d, δ, ω, δ_out, n, s, lvl, device, stream)
 _DEPENDENCY_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# (A, σ, d, t_in or NULL, t_out, m, k, s, lvl, device, stream)
+_FRONTIER_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# (A, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, lvl, device, stream)
+_DEPENDENCY_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
     "frontier_spmm_f32": _FRONTIER_ARGS,
     "frontier_spmm_bf16": _FRONTIER_ARGS,
     "dependency_spmm_f32": _DEPENDENCY_ARGS,
     "dependency_spmm_bf16": _DEPENDENCY_ARGS,
+    "frontier_partial_f32": _FRONTIER_PARTIAL_ARGS,
+    "frontier_partial_bf16": _FRONTIER_PARTIAL_ARGS,
+    "dependency_partial_f32": _DEPENDENCY_PARTIAL_ARGS,
+    "dependency_partial_bf16": _DEPENDENCY_PARTIAL_ARGS,
 }
 
 _lock = threading.Lock()

@@ -18,23 +18,6 @@
 
 namespace {
 
-struct DependencyOperand {
-  const float* sigma;
-  const int* depth;
-  const float* delta;
-  const float* omega;
-  int s;
-  int next;  // lvl + 1
-
-  __device__ __forceinline__ float operator()(int k, int j) const {
-    const size_t o = static_cast<size_t>(k) * s + j;
-    if (depth[o] != next) return 0.f;
-    const float sg = sigma[o];
-    const float safe = sg > 0.f ? sg : 1.f;
-    return (1.f + delta[o] + omega[k]) / safe;
-  }
-};
-
 template <typename AT>
 __global__ void __launch_bounds__(bc::THREADS)
     dependency_spmm_kernel(const AT* __restrict__ A, const float* __restrict__ sigma,
@@ -44,8 +27,8 @@ __global__ void __launch_bounds__(bc::THREADS)
   const int row0 = blockIdx.y * bc::BM;
   const int col0 = blockIdx.x * bc::BS;
   float acc[bc::TM][bc::TN];
-  bc::tile_product(A, n, s, row0, col0,
-                   DependencyOperand{sigma, depth, delta, omega, s, lvl + 1}, acc);
+  bc::tile_product(A, n, n, s, row0, col0,
+                   bc::DependencyOperand{sigma, depth, delta, omega, s, lvl + 1}, acc);
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;

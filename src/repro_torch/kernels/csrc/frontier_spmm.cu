@@ -19,18 +19,6 @@
 
 namespace {
 
-struct FrontierOperand {
-  const float* sigma;
-  const int* depth;
-  int s;
-  int prev;  // lvl - 1
-
-  __device__ __forceinline__ float operator()(int k, int j) const {
-    const size_t o = static_cast<size_t>(k) * s + j;
-    return depth[o] == prev ? sigma[o] : 0.f;
-  }
-};
-
 template <typename AT>
 __global__ void __launch_bounds__(bc::THREADS)
     frontier_spmm_kernel(const AT* __restrict__ A, const float* __restrict__ sigma,
@@ -39,7 +27,8 @@ __global__ void __launch_bounds__(bc::THREADS)
   const int row0 = blockIdx.y * bc::BM;
   const int col0 = blockIdx.x * bc::BS;
   float acc[bc::TM][bc::TN];
-  bc::tile_product(A, n, s, row0, col0, FrontierOperand{sigma, depth, s, lvl - 1}, acc);
+  bc::tile_product(A, n, n, s, row0, col0, bc::FrontierOperand{sigma, depth, s, lvl - 1},
+                   acc);
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;

@@ -1,9 +1,10 @@
-// Shared main loop of the two fused BC level kernels (frontier_spmm.cu,
-// dependency_spmm.cu): a classic shared-memory tiled SGEMM in which the
-// right-hand operand is *computed while it is loaded* instead of being
+// Shared main loop of the BC level kernels (frontier_spmm.cu and
+// dependency_spmm.cu on a square adjacency, partial_spmm.cu on a
+// rectangular 2-D block): a classic shared-memory tiled SGEMM in which
+// the right-hand operand is *computed while it is loaded* instead of being
 // read from device memory.
 //
-// One thread block owns one [BM x BS] tile of the [n, s] output.  The
+// One thread block owns one [BM x BS] tile of the [m, s] output.  The
 // loop over k inside the block takes the place of the TPU kernels'
 // sequential k grid axis and VMEM accumulator: on Hopper blocks run in
 // parallel in no order, so nothing carries over between them.  Each step
@@ -47,11 +48,46 @@ __device__ __forceinline__ int frag_offset(int t, int i) {
   return (i < 4) ? t * 4 + i : 64 + t * 4 + (i - 4);
 }
 
+// The operand of a forward level: the masked frontier σ ⊙ [d == lvl-1]
+// of a row-major [k, s] state.
+struct FrontierOperand {
+  const float* sigma;
+  const int* depth;
+  int s;
+  int prev;  // lvl - 1
+
+  __device__ __forceinline__ float operator()(int k, int j) const {
+    const size_t o = static_cast<size_t>(k) * s + j;
+    return depth[o] == prev ? sigma[o] : 0.f;
+  }
+};
+
+// The operand of a dependency level: g = (1 + δ + ω) / σ̂ on d == lvl+1
+// (0 elsewhere; σ̂ = σ, or 1 where σ ≤ 0), divided in IEEE f32.
+struct DependencyOperand {
+  const float* sigma;
+  const int* depth;
+  const float* delta;
+  const float* omega;
+  int s;
+  int next;  // lvl + 1
+
+  __device__ __forceinline__ float operator()(int k, int j) const {
+    const size_t o = static_cast<size_t>(k) * s + j;
+    if (depth[o] != next) return 0.f;
+    const float sg = sigma[o];
+    const float safe = sg > 0.f ? sg : 1.f;
+    return (1.f + delta[o] + omega[k]) / safe;
+  }
+};
+
 // acc[i][j] = sum_k A[row0 + frag_offset(ty, i), k] * op(k, col0 + frag_offset(tx, j))
-// with tx = threadIdx.x % 16, ty = threadIdx.x / 16.  Rows >= n, columns
-// >= s and k >= n contribute zero, so any n and any s are accepted.
+// with tx = threadIdx.x % 16, ty = threadIdx.x / 16, for a row-major A of
+// m rows and kdim columns (row stride kdim).  Rows >= m, columns >= s and
+// k >= kdim contribute zero, so any shape is accepted; the square level
+// kernels pass m = kdim = n.
 template <typename AT, typename Operand>
-__device__ __forceinline__ void tile_product(const AT* __restrict__ A, int n, int s,
+__device__ __forceinline__ void tile_product(const AT* __restrict__ A, int m, int kdim, int s,
                                              int row0, int col0, const Operand& op,
                                              float (&acc)[TM][TN]) {
   // +4 padding: the transposed A store hits 2-way instead of 16-way bank
@@ -68,17 +104,17 @@ __device__ __forceinline__ void tile_product(const AT* __restrict__ A, int n, in
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
+  for (int k0 = 0; k0 < kdim; k0 += BK) {
 #pragma unroll
     for (int r = 0; r < (BM * BK) / THREADS; ++r) {
       const int e = tid + r * THREADS;
-      const int m = e / BK;   // neighbouring threads walk along k: coalesced
+      const int tr = e / BK;  // neighbouring threads walk along k: coalesced
       const int kk = e % BK;
-      const int gr = row0 + m;
+      const int gr = row0 + tr;
       const int gk = k0 + kk;
       float v = 0.f;
-      if (gr < n && gk < n) v = to_f32(A[static_cast<size_t>(gr) * n + gk]);
-      As[kk][m] = v;
+      if (gr < m && gk < kdim) v = to_f32(A[static_cast<size_t>(gr) * kdim + gk]);
+      As[kk][tr] = v;
     }
 #pragma unroll
     for (int r = 0; r < (BK * BS) / THREADS; ++r) {
@@ -87,7 +123,7 @@ __device__ __forceinline__ void tile_product(const AT* __restrict__ A, int n, in
       const int j = e % BS;   // neighbouring threads walk along s: coalesced
       const int gk = k0 + kk;
       const int gj = col0 + j;
-      Bs[kk][j] = (gk < n && gj < s) ? op(gk, gj) : 0.f;
+      Bs[kk][j] = (gk < kdim && gj < s) ? op(gk, gj) : 0.f;
     }
     __syncthreads();
 
@@ -108,10 +144,10 @@ __device__ __forceinline__ void tile_product(const AT* __restrict__ A, int n, in
   }
 }
 
-inline dim3 level_grid(int n, int s) {
+inline dim3 level_grid(int m, int s) {
   // columns fastest: the blocks that share one A row-tile run side by
   // side, so a second column tile (s > BS) finds that tile in L2
-  return dim3((s + BS - 1) / BS, (n + BM - 1) / BM);
+  return dim3((s + BS - 1) / BS, (m + BM - 1) / BM);
 }
 
 }  // namespace bc

@@ -1,0 +1,119 @@
+// K3 and K4 — pre-fold partial level products on one device's block of a
+// 2-D decomposed adjacency (the block-local compute of the distributed
+// fused engines, one launch per level and device).
+//
+// Replaces the TPU kernels of the JAX package
+//   K3  kernels/frontier_spmm.py:frontier_partial_kernel and
+//       frontier_partial_acc_kernel (wrapper frontier_partial_pallas,
+//       padding in ops.frontier_spmm_partial);
+//   K4  kernels/dependency_spmm.py:dependency_partial_kernel and
+//       dependency_partial_acc_kernel (wrapper dependency_partial_pallas,
+//       padding in ops.dependency_spmm_partial).
+// On the [m, k] block A_blk (m = C·chunk fold rows, k = R·chunk gathered
+// columns) and the gathered [k, s] state:
+//
+//     K3:  t = A_blk @ (σ ⊙ [d == lvl-1])
+//     K4:  t = A_blk @ g,   g = (1 + δ + ω) / σ̂ on d == lvl+1
+//     acc mode (t_in non-null):  t = t_in + A_blk @ operand
+//
+// There is no epilogue beyond the store: the state update needs the t
+// summed over the grid row, so it runs after the fold.  The operand is
+// formed while its tile loads (level_tile.cuh), so neither the masked
+// frontier nor g reaches device memory; the acc mode is the running
+// combine of the ring-pipelined expand, added in the store instead of as
+// a separate [m, s] pass.  Ragged m, k and s are masked in the kernel
+// (the JAX wrapper's padding of A, σ with 0 and d with -1 becomes those
+// masks); nothing is padded on the host.
+//
+// Bound: 2·m·k·s FLOP of f32 FFMA.  At the 1×1 grid of n = 65536 this is
+// K1's/K2's work (16.4 ms per level at s = 128 on an H100, against 5.1 ms
+// to stream an f32 A); at the [32768, 16384] block of a 2×4 grid it is
+// 2.05 ms against 0.64 ms of A — f32 compute either way, so the design is
+// K1's: no tensor cores (σ holds exact integer path counts), 8x8 register
+// micro-tiles fed from float4 shared-memory reads.  K4 divides in IEEE
+// f32 (no --use_fast_math), as the reference does.
+#include "level_tile.cuh"
+
+namespace {
+
+template <typename AT, typename Operand>
+__global__ void __launch_bounds__(bc::THREADS)
+    partial_spmm_kernel(const AT* __restrict__ A, Operand op, const float* __restrict__ t_in,
+                        float* __restrict__ t_out, int m, int kdim, int s) {
+  const int row0 = blockIdx.y * bc::BM;
+  const int col0 = blockIdx.x * bc::BS;
+  float acc[bc::TM][bc::TN];
+  bc::tile_product(A, m, kdim, s, row0, col0, op, acc);
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < bc::TM; ++i) {
+    const int r = row0 + bc::frag_offset(ty, i);
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < bc::TN; ++j) {
+      const int c = col0 + bc::frag_offset(tx, j);
+      if (c >= s) continue;
+      const size_t o = static_cast<size_t>(r) * s + c;
+      t_out[o] = t_in != nullptr ? t_in[o] + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+template <typename AT, typename Operand>
+int launch(const void* A, const Operand& op, const void* t_in, void* t_out, int m, int kdim,
+           int s, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partial_spmm_kernel<AT, Operand><<<bc::level_grid(m, s), bc::THREADS, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const AT*>(A), op, static_cast<const float*>(t_in),
+      static_cast<float*>(t_out), m, kdim, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bc::FrontierOperand frontier(const void* sigma, const void* depth, int s, int lvl) {
+  return bc::FrontierOperand{static_cast<const float*>(sigma), static_cast<const int*>(depth),
+                             s, lvl - 1};
+}
+
+bc::DependencyOperand dependency(const void* sigma, const void* depth, const void* delta,
+                                 const void* omega, int s, int lvl) {
+  return bc::DependencyOperand{static_cast<const float*>(sigma), static_cast<const int*>(depth),
+                               static_cast<const float*>(delta),
+                               static_cast<const float*>(omega), s, lvl + 1};
+}
+
+}  // namespace
+
+// t_in may be NULL (plain mode); otherwise the acc mode adds it to the product.
+extern "C" int frontier_partial_f32(const void* A, const void* sigma, const void* depth,
+                                    const void* t_in, void* t_out, int m, int kdim, int s,
+                                    int lvl, int device, void* stream) {
+  return launch<float>(A, frontier(sigma, depth, s, lvl), t_in, t_out, m, kdim, s, device,
+                       stream);
+}
+
+extern "C" int frontier_partial_bf16(const void* A, const void* sigma, const void* depth,
+                                     const void* t_in, void* t_out, int m, int kdim, int s,
+                                     int lvl, int device, void* stream) {
+  return launch<__nv_bfloat16>(A, frontier(sigma, depth, s, lvl), t_in, t_out, m, kdim, s,
+                               device, stream);
+}
+
+extern "C" int dependency_partial_f32(const void* A, const void* sigma, const void* depth,
+                                      const void* delta, const void* omega, const void* t_in,
+                                      void* t_out, int m, int kdim, int s, int lvl, int device,
+                                      void* stream) {
+  return launch<float>(A, dependency(sigma, depth, delta, omega, s, lvl), t_in, t_out, m, kdim,
+                       s, device, stream);
+}
+
+extern "C" int dependency_partial_bf16(const void* A, const void* sigma, const void* depth,
+                                       const void* delta, const void* omega, const void* t_in,
+                                       void* t_out, int m, int kdim, int s, int lvl, int device,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(A, dependency(sigma, depth, delta, omega, s, lvl), t_in, t_out,
+                               m, kdim, s, device, stream);
+}

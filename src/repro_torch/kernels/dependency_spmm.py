@@ -1,12 +1,17 @@
-"""K2 — the fused backward dependency level kernel, launched on the card.
+"""K2 — the fused backward dependency level kernel — and K4 — its
+pre-fold partial on a rectangular 2-D block — launched on the card.
 
-Replaces ``kernels/dependency_spmm.py:dependency_spmm_kernel`` of the JAX
-package (a Pallas TPU kernel).  The CUDA source is
-``csrc/dependency_spmm.cu`` over the shared tiled main loop of
-``csrc/level_tile.cuh``; its note gives the bound (f32 compute) and the
-design.  The plain version is
-:func:`repro_torch.kernels.ref.dependency_spmm_ref`; the public, checked
-entry point is :func:`repro_torch.kernels.ops.dependency_spmm`.
+K2 replaces ``kernels/dependency_spmm.py:dependency_spmm_kernel`` of the
+JAX package (a Pallas TPU kernel); its CUDA source is
+``csrc/dependency_spmm.cu``.  K4 replaces ``dependency_partial_kernel`` /
+``dependency_partial_acc_kernel`` of the same file; its source is
+``csrc/partial_spmm.cu``.  Both run over the shared tiled main loop of
+``csrc/level_tile.cuh``; the notes in the sources give the bound (f32
+compute) and the design.  The plain versions are
+:func:`repro_torch.kernels.ref.dependency_spmm_ref` and
+:func:`~repro_torch.kernels.ref.dependency_partial_ref`; the public,
+checked entry points are :func:`repro_torch.kernels.ops.dependency_spmm`
+and :func:`~repro_torch.kernels.ops.dependency_spmm_partial`.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import torch
 
 from . import _build
 
-__all__ = ["dependency_spmm_cuda"]
+__all__ = ["dependency_spmm_cuda", "dependency_partial_cuda"]
 
 
 def dependency_spmm_cuda(
@@ -45,3 +50,34 @@ def dependency_spmm_cuda(
     if err != 0:
         raise RuntimeError(f"dependency_spmm kernel launch failed: CUDA error {err}")
     return delta_out
+
+
+def dependency_partial_cuda(
+    adjacency: torch.Tensor,
+    sigma: torch.Tensor,
+    depth: torch.Tensor,
+    delta: torch.Tensor,
+    omega: torch.Tensor,
+    lvl: int,
+    acc: torch.Tensor | None,
+) -> torch.Tensor:
+    """Launch K4 on already-validated CUDA tensors (see
+    ops.dependency_spmm_partial): t = [acc +] A_blk @ g."""
+    m, kdim = adjacency.shape
+    s = sigma.shape[1]
+    t_out = torch.empty((m, s), dtype=torch.float32, device=sigma.device)
+    lib = _build.library()
+    fn = (
+        lib.dependency_partial_bf16
+        if adjacency.dtype == torch.bfloat16
+        else lib.dependency_partial_f32
+    )
+    err = fn(
+        adjacency.data_ptr(), sigma.data_ptr(), depth.data_ptr(), delta.data_ptr(),
+        omega.data_ptr(), None if acc is None else acc.data_ptr(), t_out.data_ptr(),
+        m, kdim, s, int(lvl),
+        sigma.device.index, torch.cuda.current_stream(sigma.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"dependency_spmm_partial kernel launch failed: CUDA error {err}")
+    return t_out

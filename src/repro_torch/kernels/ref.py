@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the fused level kernels K1 and K2.
+"""Plain PyTorch versions of the level kernels K1–K4.
 
 These are the semantics the CUDA kernels must match; the wrappers in
 :mod:`repro_torch.kernels.ops` run them for tensors on the CPU, and the
@@ -8,7 +8,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["frontier_spmm_ref", "dependency_spmm_ref"]
+__all__ = [
+    "frontier_spmm_ref",
+    "dependency_spmm_ref",
+    "frontier_partial_ref",
+    "dependency_partial_ref",
+]
 
 
 def frontier_spmm_ref(
@@ -56,3 +61,47 @@ def dependency_spmm_ref(
     g = torch.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe_sigma, 0.0)
     t = adjacency.to(torch.float32) @ g
     return delta + torch.where(depth == lvl, sigma * t, 0.0)
+
+
+def frontier_partial_ref(
+    adjacency: torch.Tensor,
+    sigma: torch.Tensor,
+    depth: torch.Tensor,
+    lvl: int,
+    acc: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pre-fold forward partial on a rectangular adjacency block (K3).
+
+    Args:
+      adjacency: [m, k] 0/1 block (f32 or bf16).
+      sigma:     f32 [k, s] gathered path counts (contraction side).
+      depth:     i32 [k, s] gathered discovery levels.
+      lvl:       the level being expanded.
+      acc:       optional f32 [m, s] running sum of a ring step.
+
+    Returns t f32 [m, s] = [acc +] A_block @ (σ ⊙ [d = lvl-1]); the state
+    update happens after the fold (operators.DistributedFusedOperator).
+    """
+    t = adjacency.to(torch.float32) @ (sigma * (depth == lvl - 1))
+    return t if acc is None else acc + t
+
+
+def dependency_partial_ref(
+    adjacency: torch.Tensor,
+    sigma: torch.Tensor,
+    depth: torch.Tensor,
+    delta: torch.Tensor,
+    omega: torch.Tensor,
+    lvl: int,
+    acc: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pre-fold backward partial on a rectangular adjacency block (K4).
+
+    Args as :func:`frontier_partial_ref`, plus delta f32 [k, s] and omega
+    f32 [k].  Returns t f32 [m, s] = [acc +] A_block @ g with
+    g = (1 + δ + ω) / σ on d = lvl+1 (σ ≤ 0 replaced by 1).
+    """
+    safe_sigma = torch.where(sigma > 0, sigma, 1.0)
+    g = torch.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe_sigma, 0.0)
+    t = adjacency.to(torch.float32) @ g
+    return t if acc is None else acc + t

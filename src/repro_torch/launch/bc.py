@@ -1,10 +1,15 @@
-"""BC launcher: exact (or source-sampled) betweenness centrality on one device.
+"""BC launcher: exact (or source-sampled) betweenness centrality on one
+device or on a 2-D grid of devices.
 
     PYTHONPATH=src python -m repro_torch.launch.bc --rmat-scale 10 --edge-factor 16 \
         --heuristics h3 --batch-size 128 --engine fused
     PYTHONPATH=src python -m repro_torch.launch.bc --rmat-scale 16 --edge-factor 16 \
         --engine fused_bf16 --batch-size 128 --sampling fixed --sample-k 512
     PYTHONPATH=src python -m repro_torch.launch.bc --grid 8x8 --device cpu --out bc.npy
+    # the paper's 2-D decomposition (R×C grid, or FR×R×C with sub-clusters):
+    PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x4 --device cpu
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.bc \
+        --rmat-scale 16 --edge-factor 16 --mesh 2x4 --engine fused
 
 The graphs are the JAX launcher's, with the same seeds (R-MAT, grid and
 road-like; seed 1), so both launchers score the same graph.  ``--engine``
@@ -12,17 +17,29 @@ picks one of ``ENGINE_KINDS`` (``fused``/``fused_bf16`` are the CUDA
 level kernels); ``--device`` defaults to the CUDA card and the run fails
 without one unless ``--device cpu`` is given.  TEPS is reported per the
 paper's Eq. 7 (m·n / seconds).
+
+``--mesh`` runs :func:`~repro_torch.core.distributed.distributed_betweenness_centrality`
+with one process per grid device.  On cards, run the launcher under
+``torchrun`` (NCCL, the device from ``LOCAL_RANK``).  With ``--device
+cpu`` and no ``torchrun`` environment the launcher spawns the FR·R·C gloo
+processes itself.  As in the JAX launcher, the arc-list engines (``dense``,
+``sparse``) map to the distributed ``sparse`` engine; rank 0 prints the
+summary and writes ``--out``.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
+from ..core.distributed import distributed_betweenness_centrality
 from ..core.scheduler import HEURISTICS_MODES
+from ..distributed.groups import GridGroups, run_gloo
 from ..graphs import grid_graph, rmat_graph, road_like_graph
 from ..serving.sampling import SAMPLING_MODES
 
@@ -36,6 +53,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--heuristics", default="h0", choices=list(HEURISTICS_MODES))
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--engine", default="dense", choices=list(ENGINE_KINDS))
+    ap.add_argument(
+        "--mesh",
+        default=None,
+        help="RxC or FRxRxC: the 2-D decomposed path on FR·R·C ranks "
+        "(torchrun on the card; spawned gloo processes with --device cpu)",
+    )
     ap.add_argument(
         "--sampling",
         default="off",
@@ -52,6 +75,42 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default=None, help="save the BC scores (.npy)")
     ap.add_argument("--top", type=int, default=10)
     return ap
+
+
+def _mesh_rank(groups: GridGroups, graph, kwargs: dict):
+    """One rank of a ``--mesh`` run: (bc, rounds, sampling stats, seconds)
+    on rank 0, None elsewhere.  Module-level, so spawned gloo processes
+    import only this package."""
+    t0 = time.perf_counter()
+    res = distributed_betweenness_centrality(graph, groups, full_result=True, **kwargs)
+    dt = time.perf_counter() - t0  # the result is on the host: the run has synchronised
+    if groups.rank != 0:
+        return None
+    return res.bc, res.rounds_run, res.sampling_stats, dt
+
+
+def _run_mesh(graph, mesh_shape: tuple[int, ...], kwargs: dict):
+    """Rank 0's ``_mesh_rank`` result (None on the other ranks)."""
+    fr, R, C = (1,) * (3 - len(mesh_shape)) + tuple(mesh_shape)
+    world = fr * R * C
+    on_cpu = kwargs["device"] == "cpu"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(
+                f"--mesh {'x'.join(map(str, mesh_shape))} needs {world} ranks, "
+                f"torchrun started {os.environ['WORLD_SIZE']}"
+            )
+        dist.init_process_group("gloo" if on_cpu else "nccl", init_method="env://")
+        try:
+            return _mesh_rank(GridGroups(fr, R, C), graph, kwargs)
+        finally:
+            dist.destroy_process_group()
+    if on_cpu:
+        return run_gloo(_mesh_rank, fr, R, C, (graph, kwargs))[0]
+    raise SystemExit(
+        f"--mesh on the card runs one process per device: launch with "
+        f"torchrun --standalone --nproc-per-node {world}"
+    )
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -71,6 +130,14 @@ def main(argv: list[str] | None = None) -> None:
         name = f"road_{r}x{c}"
     else:
         raise SystemExit("pick --rmat-scale, --grid or --road")
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(d) for d in args.mesh.split("x"))
+        except ValueError:
+            mesh_shape = ()
+        if len(mesh_shape) not in (2, 3) or min(mesh_shape) < 1:
+            raise SystemExit("--mesh takes RxC or FRxRxC (positive integers)")
 
     sampling_kw: dict = {}
     if args.sampling != "off":
@@ -85,24 +152,29 @@ def main(argv: list[str] | None = None) -> None:
             "--sample-frac/--sample-k size a sampled run; pass --sampling fixed"
         )
 
-    print(
-        f"{name}: n={graph.n} m={graph.num_edges} heuristics={args.heuristics} "
-        f"engine={args.engine} sampling={args.sampling} device={args.device or 'cuda'}"
-    )
+    kwargs = dict(batch_size=args.batch_size, heuristics=args.heuristics,
+                  device=args.device, **sampling_kw)
+    is_rank0 = int(os.environ.get("RANK", 0)) == 0
+    if is_rank0:
+        print(
+            f"{name}: n={graph.n} m={graph.num_edges} heuristics={args.heuristics} "
+            f"engine={args.engine} sampling={args.sampling} device={args.device or 'cuda'}"
+            + (f" mesh={args.mesh}" if mesh_shape else "")
+        )
     t0 = time.time()
-    res = betweenness_centrality(
-        graph,
-        batch_size=args.batch_size,
-        heuristics=args.heuristics,
-        engine_kind=args.engine,
-        device=args.device,
-        **sampling_kw,
-    )
-    dt = time.time() - t0  # the result is on the host: the run has synchronised
-    bc = res.bc
+    if mesh_shape is not None:
+        # the arc-list engines map to the distributed arc-list engine
+        engine = "sparse" if args.engine in ("dense", "sparse") else args.engine
+        out = _run_mesh(graph, mesh_shape, dict(kwargs, engine_kind=engine))
+        if out is None:  # not rank 0 of a torchrun grid
+            return
+        bc, rounds, samp, dt = out
+    else:
+        res = betweenness_centrality(graph, engine_kind=args.engine, **kwargs)
+        dt = time.time() - t0  # the result is on the host: the run has synchronised
+        bc, rounds, samp = res.bc, res.rounds_run, res.sampling_stats
     teps = graph.num_edges * graph.n / max(dt, 1e-9)
-    print(f"done in {dt:.2f}s — {res.rounds_run} rounds, {teps/1e9:.3f} GTEPS_bc")
-    samp = res.sampling_stats
+    print(f"done in {dt:.2f}s — {rounds} rounds, {teps/1e9:.3f} GTEPS_bc")
     if samp:
         print(
             f"sampling[{samp['mode']}]: "

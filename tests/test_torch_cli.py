@@ -79,3 +79,45 @@ def test_cli_runs_as_a_module(tmp_path):
     np.testing.assert_allclose(
         np.load(out), brandes_reference(pg.road_like_graph(3, 3, seed=1)), **TOL
     )
+
+
+def test_cli_mesh_spawns_a_gloo_grid(tmp_path, capsys):
+    """``--mesh 2x2 --device cpu`` spawns four gloo ranks; rank 0's scores
+    match the oracle."""
+    out = tmp_path / "bc.npy"
+    cli.main(["--grid", "4x5", "--mesh", "2x2", "--engine", "fused", "--heuristics", "h3",
+              "--batch-size", "8", "--device", "cpu", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert "mesh=2x2" in text and "GTEPS_bc" in text
+    np.testing.assert_allclose(np.load(out), brandes_reference(pg.grid_graph(4, 5)), **TOL)
+
+
+@pytest.mark.parametrize("mesh", ["2", "2x0", "axb", "1x2x3x4"])
+def test_cli_rejects_a_malformed_mesh(mesh):
+    with pytest.raises(SystemExit):
+        cli.main(["--grid", "3x3", "--mesh", mesh, "--device", "cpu"])
+
+
+def test_cli_mesh_on_the_card_needs_torchrun(monkeypatch):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="torchrun --standalone --nproc-per-node 8"):
+        cli.main(["--grid", "3x3", "--mesh", "2x4"])
+
+
+def test_cli_mesh_under_torchrun(tmp_path):
+    """Under torchrun every rank runs the launcher; rank 0 alone prints
+    and writes ``--out``."""
+    out = tmp_path / "bc.npy"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.bc", "--road", "3x4", "--mesh", "1x2", "--engine", "sparse",
+         "--heuristics", "h3", "--batch-size", "8", "--device", "cpu", "--out", str(out)],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("done in") == 1
+    np.testing.assert_allclose(
+        np.load(out), brandes_reference(pg.road_like_graph(3, 4, seed=1)), **TOL
+    )

@@ -1,4 +1,6 @@
-"""The port's fused level kernels (K1 frontier_spmm, K2 dependency_spmm).
+"""The port's level kernels: K1 frontier_spmm and K2 dependency_spmm on a
+square adjacency, K3 frontier_spmm_partial and K4 dependency_spmm_partial
+on a rectangular 2-D block.
 
 On the CPU the wrappers run the plain PyTorch versions; these are held
 against the JAX package's Pallas kernels in interpret mode on the same
@@ -6,7 +8,8 @@ numpy inputs, over the shapes of tests/test_kernels.py and both
 adjacency types.  Tolerances are the JAX kernel tests' own: σ rtol 1e-6
 and depth exact (integer path counts are exact in f32 either way); δ
 rtol 1e-5 / atol 1e-6 (g is fractional, and the two products sum in
-different orders).  The CUDA kernels themselves are tested on
+different orders).  K3's partial is an integer-valued sum and is held
+exactly; K4's at rtol 1e-6.  The CUDA kernels themselves are tested on
 the card by tests/test_torch_gpu.py.
 """
 import re
@@ -94,6 +97,100 @@ def test_frontier_spmm_full_level_sequence():
     assert torch.equal(bare.sigma, want.sigma) and bare.max_depth == want.max_depth
 
 
+# (m, k, s): ragged rectangular blocks — m != k, neither a multiple of 128,
+# s not a multiple of 128 — plus the square case and a 2x4-grid-like block
+PARTIAL_SHAPES = [(8, 16, 4), (130, 70, 33), (40, 200, 24), (257, 129, 130), (64, 64, 8)]
+
+
+def _partial_state(m, k, s, seed, lvl):
+    """A [m, k] block of a gnp adjacency and a [k, s] gathered state."""
+    A, sigma, depth, delta, omega = _bc_state(max(m, k), s, seed=seed, lvl=lvl)
+    acc = np.random.default_rng(seed + 1).integers(0, 7, size=(m, s)).astype(np.float32)
+    return (np.ascontiguousarray(A[:m, :k]), sigma[:k], depth[:k], delta[:k], omega[:k], acc)
+
+
+@pytest.mark.parametrize("m,k,s", PARTIAL_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("with_acc", [False, True], ids=["plain", "acc"])
+def test_frontier_partial_matches_jax_kernel(m, k, s, dtype, with_acc):
+    lvl = 2
+    A, sigma, depth, _, _, acc = _partial_state(m, k, s, seed=m + k + s, lvl=lvl)
+    tdt, jdt = DTYPES[dtype]
+    want = jops.frontier_spmm_partial(
+        jnp.asarray(A, jdt), jnp.asarray(sigma), jnp.asarray(depth), lvl,
+        acc=jnp.asarray(acc) if with_acc else None, interpret=True,
+    )
+    At, st, dt_, acc_t = _torch(A, tdt, sigma, depth, acc)
+    got = ops.frontier_spmm_partial(At, st, dt_, lvl, acc=acc_t if with_acc else None)
+    assert got.dtype == torch.float32 and got.shape == (m, s)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("m,k,s", PARTIAL_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("with_acc", [False, True], ids=["plain", "acc"])
+def test_dependency_partial_matches_jax_kernel(m, k, s, dtype, with_acc):
+    lvl = 1
+    A, sigma, depth, delta, omega, acc = _partial_state(m, k, s, seed=2 * m + k + s, lvl=lvl)
+    tdt, jdt = DTYPES[dtype]
+    want = jops.dependency_spmm_partial(
+        jnp.asarray(A, jdt), jnp.asarray(sigma), jnp.asarray(depth), jnp.asarray(delta),
+        jnp.asarray(omega), lvl, acc=jnp.asarray(acc) if with_acc else None, interpret=True,
+    )
+    At, st, dt_, dl, om, acc_t = _torch(A, tdt, sigma, depth, delta, omega, acc)
+    got = ops.dependency_spmm_partial(At, st, dt_, dl, om, lvl, acc=acc_t if with_acc else None)
+    assert got.dtype == torch.float32 and got.shape == (m, s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_partials_fold_to_the_fused_level():
+    """Column blocks' K3/K4 partials summed, then the epilogue, give K1/K2:
+    the 2-D fold reassembles the single-device level."""
+    A, sigma, depth, delta, omega = _bc_state(96, 12, seed=5, lvl=2)
+    At, st, dt_, dl, om = _torch(A, torch.float32, sigma, depth, delta, omega)
+    cols = [slice(0, 40), slice(40, 96)]
+    t = sum(ops.frontier_spmm_partial(At[:, c].contiguous(), st[c], dt_[c], 2) for c in cols)
+    newly = (t > 0) & (dt_ < 0)
+    want_s, want_d = ops.frontier_spmm(At, st, dt_, 2)
+    assert torch.equal(torch.where(newly, 2, dt_), want_d)
+    assert torch.equal(st + torch.where(newly, t, 0.0), want_s)
+    t = None
+    for c in cols:  # the ring schedule's running combine (acc mode)
+        t = ops.dependency_spmm_partial(At[:, c].contiguous(), st[c], dt_[c], dl[c], om[c], 1,
+                                        acc=t)
+    torch.testing.assert_close(dl + torch.where(dt_ == 1, st * t, 0.0),
+                               ops.dependency_spmm(At, st, dt_, dl, om, 1), rtol=1e-6, atol=1e-6)
+
+
+def _bad_partial_operands():
+    m, k, s = 6, 8, 4
+    A = torch.zeros(m, k)
+    sg = torch.zeros(k, s)
+    dp = torch.zeros(k, s, dtype=torch.int32)
+    dl = torch.zeros(k, s)
+    om = torch.zeros(k)
+    acc = torch.zeros(m, s)
+    return {
+        "A_int": ((A.to(torch.int32), sg, dp), (A.to(torch.int32), sg, dp, dl, om)),
+        "A_3d": ((A[None], sg, dp), (A[None], sg, dp, dl, om)),
+        "k_mismatch": ((A, sg[:7], dp[:7]), (A, sg[:7], dp[:7], dl[:7], om[:7])),
+        "omega_rows": ((A, sg, dp.long()), (A, sg, dp, dl, om[:m])),
+        "acc_shape": ((A, sg, dp, 1, acc[:5]), (A, sg, dp, dl, om, 1, acc[:, :3])),
+        "acc_f64": ((A, sg, dp, 1, acc.double()), (A, sg, dp, dl, om, 1, acc.double())),
+        "acc_strided": ((A, sg, dp, 1, torch.zeros(s, m).t()),
+                        (A, sg, dp, dl, om, 1, torch.zeros(s, m).t())),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_partial_operands()))
+def test_partial_wrappers_reject_bad_operands(case):
+    fwd_args, bwd_args = _bad_partial_operands()[case]
+    with pytest.raises((TypeError, ValueError)):
+        ops.frontier_spmm_partial(*fwd_args, *(() if len(fwd_args) > 3 else (1,)))
+    with pytest.raises((TypeError, ValueError)):
+        ops.dependency_spmm_partial(*bwd_args, *(() if len(bwd_args) > 5 else (1,)))
+
+
 def _bad_operands():
     n, s = 8, 4
     A = torch.zeros(n, n)
@@ -132,6 +229,8 @@ def test_cpu_wrappers_count_no_launches():
     before = dict(ops.LAUNCHES)
     ops.frontier_spmm(*_torch(A, torch.float32, sigma, depth), 1)
     ops.dependency_spmm(*_torch(A, torch.float32, sigma, depth, delta, omega), 1)
+    ops.frontier_spmm_partial(*_torch(A, torch.float32, sigma, depth), 1)
+    ops.dependency_spmm_partial(*_torch(A, torch.float32, sigma, depth, delta, omega), 1)
     assert ops.LAUNCHES == before
 
 
@@ -142,6 +241,12 @@ def test_plain_versions_are_the_wrappers_cpu_path():
         assert torch.equal(got, want)
     args = _torch(A, torch.bfloat16, sigma, depth, delta, omega)
     assert torch.equal(ops.dependency_spmm(*args, 2), ref.dependency_spmm_ref(*args, 2))
+    blk = (args[0][:10].contiguous(),) + args[1:]
+    acc = torch.ones(10, 5)
+    assert torch.equal(ops.frontier_spmm_partial(*blk[:3], 2, acc=acc),
+                       ref.frontier_partial_ref(*blk[:3], 2, acc))
+    assert torch.equal(ops.dependency_spmm_partial(*blk, 2, acc=acc),
+                       ref.dependency_partial_ref(*blk, 2, acc))
 
 
 def test_column_tile_matches_kernel_source():
