@@ -7,15 +7,22 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases:
+Phases (run in the order 1–5, 8, 6, 7: phase 8 shares phase 5's NCCL
+process group, and phase 7's kernel table carries phase 8's launches):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
-  2. build K1–K4 from kernels/csrc with nvcc (ptxas report, build seconds);
+  2. build K1–K6 from kernels/csrc with nvcc, one process per source
+     (ptxas report, build seconds);
   3. kernel parity on the card against the plain PyTorch versions, f32 and
      bf16 adjacency: K1/K2 at the unit-test shapes and the main-path
      shapes (depth exact, σ rtol 1e-6, δ rtol 1e-5 / atol 1e-6); K3/K4 in
      plain and acc mode at ragged rectangular shapes, at the 1×1 grid's
      [65536, 65536] block and at the [32768, 16384] block of a 2×4 grid
-     (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6);
+     (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6); K5/K6
+     in plain and acc mode on random tile lists (bm, bk in {5, 8, 32,
+     128}, bm != bk, ragged s, fillers, empty tile-rows, trailing pad
+     tiles) and on the real 1×1 cell layouts of phase 8 (R-MAT scale 16 at
+     tiles 128 and 32, the strip graph at tile 128): K5 exact, K6 rtol
+     1e-5 / atol 1e-6;
   4. the main path at full width through ``betweenness_centrality``:
      rmat_graph(16, 16, seed=1) (n = 65536, the paper's edge factor),
      batch 128, h0, sampling="fixed" with 512 roots (4 rounds), on the
@@ -32,9 +39,22 @@ Phases:
   6. exact BC against the port's numpy oracle (rmat 10, road 20x20; h0
      and h3t; rtol 1e-5 / atol 1e-5) and h3 on rmat 13 against dense;
   7. kernel times with CUDA events at the main-path shapes (K3/K4 also at
-     the 2×4 block), beside the plain versions, one torch.matmul as the
-     library yardstick, and the bound (larger of bytes / 3.35 TB/s and
-     FLOP / 67 TFLOP/s f32).
+     the 2×4 block, K5/K6 at phase 8's three layouts), beside the plain
+     versions, one library call as the yardstick (torch.matmul for
+     K1–K4, torch.sparse.mm of the cell as a CSR tensor for K5/K6), and
+     the bound (larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s f32);
+  8. the BCSR path at full width through
+     ``distributed_betweenness_centrality`` on the 1×1 NCCL grid:
+     (a) phase 4's graph and roots on fused_sparse at the default tile
+     (128) and at 32×32, and on fused_hybrid at threshold 1.0 (the bytes
+     model picks BCSR for this cell), each matching the single-device
+     dense BC (rtol 1e-5 / atol 1e-5); (b) 86 disjoint 3×1024 lattices
+     (n = 264 192, a long-diameter road-like graph whose 260 GiB dense
+     block no card holds): the memory guard must refuse ``fused`` before
+     allocating, then fused_sparse, h0, one round of 128 fixed roots,
+     matching the arc-list engine (rtol 1e-5 / atol 1e-5); every
+     run launches K5 and K6 and none of K1–K4; then (b) once under
+     torch.profiler (busy share, K5/K6/NCCL shares).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -65,6 +85,17 @@ TEST_SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64)]
 # multiple of 128, s not a multiple of 128
 PARTIAL_SHAPES = [(8, 16, 4), (130, 70, 33), (300, 1000, 192), (1000, 260, 128), (257, 129, 130)]
 BLOCK_GRID = (2, 4)  # K3/K4 are also checked and timed at this grid's per-device block
+# (tile-rows, tile-cols, bm, bk, s) random BCSR lists for K5/K6: bm != bk,
+# each of the kernel's row blocks (32, 64, 128), ragged s
+SPARSE_SHAPES = [(6, 5, 5, 8, 33), (4, 7, 8, 5, 130), (40, 30, 32, 128, 128),
+                 (20, 50, 128, 32, 192), (12, 9, 128, 8, 257)]
+# phase 8 (b): 86 disjoint 3 x 1024 lattices (n = 264 192, ~10^3 levels),
+# one round of 128 roots.  Not one 512 x 512 lattice: its path counts reach
+# C(1022, 511) ~ 1e306 and overflow f32 σ (BC turns non-finite in the port
+# and the JAX package alike); a 3-row strip keeps every count <= C(1025, 2)
+# < 2^24, exact in f32.
+STRIPS, STRIP_SHAPE, STRIP_SAMPLE_K = 86, (3, 1024), 128
+SPARSE_TILE = 32  # phase 8 (a) also runs fused_sparse at this square tile
 
 
 def fail(msg: str) -> None:
@@ -115,8 +146,10 @@ def gpu_clocks() -> str:
 def trace_run(tag: str, run, shares: dict[str, str] | None = None) -> None:
     """``run()`` once more under torch.profiler: device time per kernel and
     the device's busy share of the traced wall time (the untraced runs give
-    the end-to-end numbers).  ``shares`` maps a label to a substring of
-    kernel names whose summed share of device time is printed."""
+    the end-to-end numbers).  ``shares`` maps a label to a substring (or a
+    tuple of substrings, all required) of kernel names whose summed share
+    of device time is printed."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -125,16 +158,24 @@ def trace_run(tag: str, run, shares: dict[str, str] | None = None) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    rows = [(ev.key, ev.count, ev.self_device_time_total) for ev in prof.key_averages()
-            if ev.self_device_time_total > 0]
+    # device activities only, as the profiler's own table sums them: a host
+    # op (aten::copy_) and a user annotation on the device timeline
+    # (nccl:_all_gather_base) repeat the device time of what they enclose.
+    # The annotations still give the collectives' share.
+    events = [(ev.key, ev.count, ev.self_device_time_total,
+               getattr(ev, "is_user_annotation", False)) for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows = [r[:3] for r in events if not r[3]]
     busy_us = sum(r[2] for r in rows)
     check(busy_us > 0, f"the traced {tag} run recorded no device time")
     print(f"{tag} traced: wall {wall_us / 1e6:.3f}s, device busy "
           f"{busy_us / 1e6:.3f}s ({100 * busy_us / wall_us:.1f}%), idle "
           f"{100 * (1 - busy_us / wall_us):.1f}%")
     for label, needle in (shares or {}).items():
-        us = sum(r[2] for r in rows if needle in r[0])
-        n = sum(r[1] for r in rows if needle in r[0])
+        needles = (needle,) if isinstance(needle, str) else needle  # all must match
+        mine = [r for r in events if all(x in r[0] for x in needles)]
+        us = sum(r[2] for r in mine)
+        n = sum(r[1] for r in mine)
         print(f"{tag}   share {label}: {us / 1e3:.3f} ms, {100 * us / busy_us:.1f}% of "
               f"device time, x{n}")
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
@@ -145,6 +186,34 @@ def partial_bytes(A, sigma, depth, delta=None, omega=None, acc=None) -> int:
     """Bytes a K3/K4 call must move: each input read once, t written once."""
     ins = [A, sigma, depth] + [x for x in (delta, omega, acc) if x is not None]
     return sum(x.nbytes for x in ins) + A.shape[0] * sigma.shape[1] * 4
+
+
+def tile_list(num_tr: int, num_tc: int, bm: int, bk: int, seed: int, dev, complete: bool,
+              pad: int = 3):
+    """A row-sorted random BCSR list: 0–3 distinct tiles per tile-row, an
+    all-zero filler in an empty row when ``complete`` (else the row stays
+    empty), and ``pad`` zero tiles trailing on the last row."""
+    rng = np.random.default_rng(seed)
+    rows, cols, data = [], [], []
+    for r in range(num_tr):
+        picks = np.sort(rng.choice(num_tc, size=min(num_tc, int(rng.integers(0, 4))),
+                                   replace=False))
+        if picks.size == 0 and complete:
+            rows.append(r), cols.append(0), data.append(np.zeros((bm, bk), np.float32))
+        for c in picks:
+            rows.append(r), cols.append(int(c))
+            data.append((rng.random((bm, bk)) < 0.3).astype(np.float32))
+    for _ in range(pad):
+        rows.append(num_tr - 1), cols.append(0), data.append(np.zeros((bm, bk), np.float32))
+    return tuple(torch.from_numpy(x).to(dev) for x in
+                 (np.stack(data), np.array(rows, np.int32), np.array(cols, np.int32)))
+
+
+def sparse_bytes(tiles, rows, cols, row_ptr, sigma, depth, delta=None, omega=None) -> int:
+    """Bytes a K5/K6 call must move: each input read once, t written once."""
+    ins = [tiles, rows, cols, row_ptr, sigma, depth] + [x for x in (delta, omega) if x is not None]
+    m = (row_ptr.numel() - 1) * tiles.shape[1]
+    return sum(x.nbytes for x in ins) + m * sigma.shape[1] * 4
 
 
 def level_state(n: int, s: int, seed: int, lvl: int, dev):
@@ -168,10 +237,20 @@ def main() -> None:
 
     from repro_torch.core.bc import device_adjacency, betweenness_centrality
     from repro_torch.core.brandes_ref import brandes_reference
-    from repro_torch.core.distributed import distributed_betweenness_centrality
+    from repro_torch.core.distributed import (
+        check_device_memory,
+        distributed_betweenness_centrality,
+    )
     from repro_torch.device import resolve_device
     from repro_torch.distributed import GridGroups
-    from repro_torch.graphs import gnp_graph, partition_2d, rmat_graph, road_like_graph
+    from repro_torch.graphs import (
+        disjoint_union,
+        gnp_graph,
+        grid_graph,
+        partition_2d,
+        rmat_graph,
+        road_like_graph,
+    )
     from repro_torch.kernels import _build, ops, ref
 
     t_all = time.perf_counter()
@@ -301,6 +380,62 @@ def main() -> None:
               f"{err_main[('partial_blk', tag, s_fwd)][1]:.3g} (s={s_fwd})")
     del A_blk
     torch.cuda.empty_cache()
+
+    def sparse_parity(layout, m, st, acc, where) -> tuple[float, float]:
+        """K5/K6 against their plain versions in plain and acc mode; returns
+        the largest K5 and K6 errors."""
+        tiles, rows, cols, row_ptr = layout
+        sigma, depth, delta, omega = st
+        e5 = e6 = 0.0
+        for t_in in (None, acc):
+            mode = "plain" if t_in is None else "acc"
+            ok5, err5 = close(
+                ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in,
+                                         row_ptr=row_ptr),
+                ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m, t_in), 0.0, 0.0)
+            ok6, err6 = close(
+                ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=m,
+                                           acc=t_in, row_ptr=row_ptr),
+                ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m,
+                                          t_in), 1e-5, 1e-6)
+            check(ok5, f"K5 parity ({mode}) at {where}: err {err5:.3g}")
+            check(ok6, f"K6 parity ({mode}) at {where}: err {err6:.3g}")
+            e5, e6 = max(e5, err5), max(e6, err6)
+        return e5, e6
+
+    for num_tr, num_tc, bm, bk, s in SPARSE_SHAPES:
+        m, kdim = num_tr * bm, num_tc * bk
+        st = level_state(kdim, s, kdim + s, 2, dev)
+        acc = torch.randint(0, 7, (m, s), device=dev).to(torch.float32)
+        for complete in (True, False):  # fillers, or empty tile-rows
+            layout = tile_list(num_tr, num_tc, bm, bk, num_tr + s, dev, complete) + (None,)
+            _, e6 = sparse_parity(layout, m, st, acc, f"{layout[0].shape[0]} tiles of {bm}x{bk}, "
+                                  f"m={m} k={kdim} s={s} complete={complete}")
+        print(f"[3] K5/K6 random list {num_tr}x{num_tc} tiles of {bm}x{bk}, s={s}: K5 exact, K6 "
+              f"err {e6:.3g} (plain and acc; filler rows and empty rows)")
+    # the 1×1 cell layouts of phase 8, built as the engine builds them
+    part_1x1 = partition_2d(graph, 1, 1)
+    strips = disjoint_union(*[grid_graph(*STRIP_SHAPE)] * STRIPS)
+    part_strips = partition_2d(strips, 1, 1)
+    strip_states = {s: level_state(strips.n, s, s + 11, 2, dev) for s in (s_fwd, s_bwd)}
+    strip_tag = f"strips {STRIPS}x{STRIP_SHAPE[0]}x{STRIP_SHAPE[1]} 1x1 tile 128"
+    layouts = {  # phase 8 run tag -> (graph, partition, tile, states)
+        "rmat16 1x1 tile 128": (graph, part_1x1, (None, None), states),
+        f"rmat16 1x1 tile {SPARSE_TILE}": (graph, part_1x1, (SPARSE_TILE, SPARSE_TILE), states),
+        strip_tag: (strips, part_strips, (None, None), strip_states),
+    }
+    for tag, (_, part_l, tile, st_map) in layouts.items():
+        layout = part_l.cell_blocked_sparse(0, 0, *tile, device=dev)
+        m = part_l.C * part_l.chunk
+        for s in (s_fwd, s_bwd):
+            acc = torch.randint(0, 7, (m, s), device=dev).to(torch.float32)
+            err_main[("sparse", tag, s)] = sparse_parity(layout, m, st_map[s], acc, f"{tag} s={s}")
+            del acc
+        print(f"[3] K5/K6 {tag}: {layout[0].shape[0]} stored tiles of "
+              f"{layout[0].shape[1]}x{layout[0].shape[2]} ({layout[0].nbytes / 2**30:.2f} GiB), "
+              f"K5 exact, K6 err {err_main[('sparse', tag, s_bwd)][1]:.3g} (s={s_bwd})")
+        del layout
+        torch.cuda.empty_cache()
     print(f"[3] parity ok in {time.perf_counter() - t3:.1f}s")
 
     # ------------------------------------------------ 4. main path, full width
@@ -406,9 +541,95 @@ def main() -> None:
                 torch.cuda.empty_cache()
             trace_run("[5] 2-D 1x1 fused", lambda: run_2d("fused"), {
                 "K3": "FrontierOperand", "K4": "DependencyOperand", "NCCL": "nccl"})
+            print(f"[5] 2-D path ok in {time.perf_counter() - t5:.1f}s")
+
+            # ------------------------- 8. the BCSR path, 1×1 grid, full width
+            t8 = time.perf_counter()
+            total_mem = torch.cuda.get_device_properties(0).total_memory
+            print(f"[8] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
+            k14 = ("frontier_spmm", "dependency_spmm", "frontier_spmm_partial",
+                   "dependency_spmm_partial")
+
+            def run_8(tag, g, want, **kw):
+                """One BCSR run, checked against ``want`` (a BCResult)."""
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                live = torch.cuda.memory_allocated()  # held by this script, not the run
+                ops.reset_launches()
+                t = time.perf_counter()
+                res = distributed_betweenness_centrality(
+                    g, groups, batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed",
+                    sample_seed=0, full_result=True, hbm_limit_bytes=total_mem, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches_2d[tag] = dict(ops.LAUNCHES)
+                check(res.bc.shape == (g.n,) and bool(np.isfinite(res.bc).all()),
+                      f"[8] {tag}: BC must be finite of shape ({g.n},)")
+                ok, err = close(torch.from_numpy(res.bc), torch.from_numpy(want.bc), 1e-5, 1e-5)
+                lay = res.layout_stats
+                foot = lay["footprint"]
+                print(f"[8] {tag} ({kw['engine_kind']}): wall {wall:.3f}s (round loop "
+                      f"{res.wall_s:.3f}s), {res.rounds_run} rounds, levels per round "
+                      f"{res.round_levels}, tile {lay['tile']}, stored tiles "
+                      f"{lay['stored_tiles_max']} ({lay['nnz_tiles_total']} nonzero)"
+                      + (f", dense cells {lay['dense_cells']}" if "dense_cells" in lay else "")
+                      + f", footprint {foot['total_bytes'] / 2**30:.2f} GiB (adjacency "
+                      f"{foot['adjacency_bytes'] / 2**30:.2f}) vs peak allocated by the run "
+                      f"{(torch.cuda.max_memory_allocated() - live) / 2**30:.2f} GiB (above "
+                      f"{live / 2**30:.2f} GiB live before it), launches "
+                      f"{launches_2d[tag]}; max abs err {err:.3g}")
+                check(ok, f"[8] {tag}: BC disagrees with its reference")
+                check(res.round_levels == want.round_levels, f"[8] {tag}: levels per round differ")
+                check(sum(launches_2d[tag][k] for k in k14) == 0, f"[8] {tag}: launched K1-K4")
+                check(launches_2d[tag]["frontier_spmm_sparse"] > 0
+                      and launches_2d[tag]["dependency_spmm_sparse"] > 0,
+                      f"[8] {tag}: the run did not launch K5 and K6")
+                return res
+
+            # (a) the main-path graph and roots, against single-device dense
+            a_kw = dict(sample_k=MAIN_SAMPLE_K)
+            for tag, kw in (("rmat16 1x1 tile 128", dict(engine_kind="fused_sparse")),
+                            (f"rmat16 1x1 tile {SPARSE_TILE}",
+                             dict(engine_kind="fused_sparse", tile=(SPARSE_TILE, SPARSE_TILE))),
+                            ("rmat16 1x1 hybrid", dict(engine_kind="fused_hybrid",
+                                                       hybrid_threshold=1.0))):
+                res = run_8(tag, graph, results["dense"], **a_kw, **kw)
+                if kw["engine_kind"] == "fused_hybrid":
+                    check(res.layout_stats["dense_cells"] == [[0]],
+                          "[8] the bytes model should pick BCSR for the 1x1 R-MAT cell")
+                del res
+                torch.cuda.empty_cache()
+            # (b) a graph whose dense block no card holds
+            b_kw = dict(sample_k=STRIP_SAMPLE_K)
+            before = torch.cuda.memory_allocated()
+            try:
+                check_device_memory(part_strips, "fused", MAIN_BATCH, total_mem)
+                fail("[8] the memory guard let fused through on the strip graph")
+            except MemoryError as err:
+                check("fused_sparse" in str(err), "[8] the guard did not suggest fused_sparse")
+                check(torch.cuda.memory_allocated() == before, "[8] the guard allocated")
+                print(f"[8] {STRIPS} disjoint grid_graph{STRIP_SHAPE} strips, n={strips.n}, "
+                      f"m={strips.num_edges}: memory guard (budget = total_memory "
+                      f"{total_mem / 2**30:.2f} GiB) refused fused before allocating: {err}")
+            t = time.perf_counter()
+            arc = distributed_betweenness_centrality(
+                strips, groups, batch_size=MAIN_BATCH, heuristics="h0", engine_kind="sparse",
+                sampling="fixed", sample_seed=0, full_result=True, **b_kw)
+            print(f"[8] {strip_tag} sparse (arc list, the reference): wall "
+                  f"{time.perf_counter() - t:.3f}s (round loop {arc.wall_s:.3f}s), levels per "
+                  f"round {arc.round_levels}")
+            check(arc.bc.shape == (strips.n,) and bool(np.isfinite(arc.bc).all()),
+                  "[8] the arc-list BC of the strip graph must be finite")
+            run_8(strip_tag, strips, arc, engine_kind="fused_sparse", **b_kw)
+            torch.cuda.empty_cache()
+            trace_run(f"[8] {strip_tag} fused_sparse", lambda: distributed_betweenness_centrality(
+                strips, groups, batch_size=MAIN_BATCH, heuristics="h0", engine_kind="fused_sparse",
+                sampling="fixed", sample_seed=0, **b_kw), {
+                "K5": ("bcsr_spmm_kernel", "FrontierOperand"),
+                "K6": ("bcsr_spmm_kernel", "DependencyOperand"), "NCCL": "nccl"})
+            print(f"[8] BCSR path ok in {time.perf_counter() - t8:.1f}s")
         finally:
             dist.destroy_process_group()
-    print(f"[5] 2-D path ok in {time.perf_counter() - t5:.1f}s")
 
     # ------------------------------------------------------- 6. exact BC
     t6 = time.perf_counter()
@@ -553,6 +774,65 @@ def main() -> None:
         A = A_blk[tag]
         ms = cuda_time_ms(lambda: ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1))
         print(f"[7] dependency_spmm_partial A={tag} 2x4 block s={s_fwd}: kernel {ms:.3f} ms")
+    del A_main, A_blk
+    torch.cuda.empty_cache()
+    # K5/K6 at phase 8's three cell layouts, each at its main-path width
+    for tag, (g_l, part_l, tile, st_map) in layouts.items():
+        tiles, rows, cols, row_ptr = part_l.cell_blocked_sparse(0, 0, *tile, device=dev)
+        num_tiles, bm, bk = tiles.shape
+        m = part_l.C * part_l.chunk
+        # the library yardstick: the same 1x1 cell (A[dst, src] = 1) as a CSR tensor
+        idx = torch.from_numpy(np.stack([g_l.dst, g_l.src])).to(dev, torch.int64)
+        csr = torch.sparse_coo_tensor(idx, torch.ones(idx.shape[1], device=dev),
+                                      (m, m)).coalesce().to_sparse_csr()
+        del idx
+        for kname, s, replaces in (
+            ("frontier_spmm_sparse", s_fwd, "src/repro/kernels/blocked_spmm.py:143"),
+            ("dependency_spmm_sparse", s_bwd, "src/repro/kernels/blocked_spmm.py:145"),
+        ):
+            sigma, depth, delta, omega = st_map[s]
+            if kname == "frontier_spmm_sparse":
+                kern = lambda: ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m,
+                                                        row_ptr=row_ptr)
+                plain = lambda: ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m)
+                operand = sigma * (depth == 1)
+                nbytes = sparse_bytes(tiles, rows, cols, row_ptr, sigma, depth)
+                err = err_main[("sparse", tag, s)][0]
+            else:
+                kern = lambda: ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta,
+                                                          omega, 1, m=m, row_ptr=row_ptr)
+                plain = lambda: ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta,
+                                                          omega, 1, m)
+                operand = torch.where(depth == 2, (1.0 + delta + omega[:, None])
+                                      / torch.where(sigma > 0, sigma, 1.0), 0.0)
+                nbytes = sparse_bytes(tiles, rows, cols, row_ptr, sigma, depth, delta, omega)
+                err = err_main[("sparse", tag, s)][1]
+            ms = cuda_time_ms(kern)
+            plain_ms = cuda_time_ms(plain)
+            lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, operand))
+            t_ops = 2.0 * num_tiles * bm * bk * s / PEAK_F32_FLOP_PER_S * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            entries.append({
+                "name": f"{kname}[{tag}: {num_tiles} tiles of {bm}x{bk}]",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/sparse_spmm.cu",
+                "replaces": replaces,
+                "launches": launches_2d[tag][kname],
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": lib_ms,
+            })
+            print(f"[7] {kname} {tag} ({num_tiles} tiles of {bm}x{bk}) s={s}: kernel {ms:.3f} "
+                  f"ms, plain {plain_ms:.3f} ms, torch.sparse.mm (CSR, {csr.values().numel()} "
+                  f"nonzeros) {lib_ms:.3f} ms, bound {bound:.3f} ms ({entries[-1]['bound_by']}; "
+                  f"ops {t_ops:.3f} / bytes {t_bytes:.3f}), {100 * bound / ms:.1f}% of bound")
+            del operand
+        del tiles, rows, cols, row_ptr, csr
+        torch.cuda.empty_cache()
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
     print(f"[7] total {time.perf_counter() - t_all:.1f}s")
 

@@ -134,6 +134,7 @@ class BCResult:
     roots_accumulated: int = 0  # root columns (explicit + derived) of
     #   every committed round — the k in the sampled estimator's N/k
     sampling_stats: dict | None = None  # set when sampling != "off"
+    layout_stats: dict | None = None  # 2-D path: footprint, BCSR tiles stored
 
 
 class BCDriver:

@@ -10,8 +10,8 @@ round loop, and operators everything below a level:
   apply(x)              A @ x over the rows this operator holds
   apply_backward(g)     A @ g in the dependency sweep (payload-split hook)
   forward_level(...)    one forward BFS level (default: masked product
-                        via ``apply``; the fused operators launch K1/K3)
-  backward_level(...)   one dependency level (the fused operators: K2/K4)
+                        via ``apply``; the fused operators launch K1/K3/K5)
+  backward_level(...)   one dependency level (the fused operators: K2/K4/K6)
   reduce_any/max/sum    agreement on liveness, max depth and additive
                         per-column facts (identity on one device,
                         ``all_reduce`` over the grid group on a 2-D grid)
@@ -25,7 +25,10 @@ Implementations: :class:`DenseOperator` (``torch.matmul`` on a dense
 :class:`DistributedOperator` (the paper's 2-D decomposition, §3.2: expand
 → arc-list local compute → fold over ``torch.distributed`` groups) and
 :class:`DistributedFusedOperator` (the same collectives around the
-partial kernels K3/K4 on the device's dense block) on a grid.
+partial kernels K3/K4 on the device's dense block),
+:class:`DistributedFusedSparseOperator` (around K5/K6 on the block's
+stored BCSR tiles) and :class:`DistributedFusedHybridOperator` (either
+of the two, per cell) on a grid.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch.distributed as dist
 
 from ..distributed.groups import GridGroups, all_gather, reduce_scatter
 from ..kernels import ops
+from ..kernels.blocked_spmm import tile_row_ptr
 
 __all__ = [
     "TraversalOperator",
@@ -44,6 +48,8 @@ __all__ = [
     "FusedDenseOperator",
     "DistributedOperator",
     "DistributedFusedOperator",
+    "DistributedFusedSparseOperator",
+    "DistributedFusedHybridOperator",
     "as_operator",
 ]
 
@@ -325,7 +331,10 @@ class DistributedFusedOperator(DistributedOperator):
     the state update needs the t summed over the grid row, so it runs in
     torch after the fold.  The exchanges therefore carry (σ, d) forward
     and (σ, d, δ, ω) backward — the paper's §3.2 exchange set — instead of
-    the arc-list operator's one pre-masked tensor.
+    the arc-list operator's one pre-masked tensor.  The block product is
+    the ``_partial_forward`` / ``_partial_backward`` hook, which the BCSR
+    and hybrid subclasses replace; the collectives and the epilogue are
+    written once, here.
     """
 
     def __init__(
@@ -342,9 +351,19 @@ class DistributedFusedOperator(DistributedOperator):
         self.block = block
         self.device = block.device
 
+    # ------------------------------------------------------ block hooks
+    def _partial_forward(self, sigma_col, depth_col, lvl):
+        return ops.frontier_spmm_partial(self.block, sigma_col, depth_col, lvl)
+
+    def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
+        return ops.dependency_spmm_partial(
+            self.block, sigma_col, depth_col, delta_col, omega_col, lvl
+        )
+
+    # ------------------------------------------------------ level steps
     def forward_level(self, lvl, sigma, depth):
-        partial = ops.frontier_spmm_partial(
-            self.block, self._expand(sigma), self._expand(depth), lvl
+        partial = self._partial_forward(
+            self._expand(sigma), self._expand(depth), lvl
         )  # [C*chunk, s]
         t = self._fold(partial)  # [chunk, s]
         newly = (t > 0) & (depth < 0)
@@ -353,9 +372,96 @@ class DistributedFusedOperator(DistributedOperator):
         return sigma, depth, newly.any()
 
     def backward_level(self, lvl, sigma, depth, omega, delta):
-        partial = ops.dependency_spmm_partial(
-            self.block, self._expand(sigma), self._expand(depth), self._expand(delta),
+        partial = self._partial_backward(
+            self._expand(sigma), self._expand(depth), self._expand(delta),
             self._expand(omega), lvl,
         )
         t = self._fold(partial)
         return delta + torch.where(depth == lvl, sigma * t, 0.0)
+
+
+class DistributedFusedSparseOperator(DistributedFusedOperator):
+    """The 2-D decomposition with the BCSR partial kernels K5/K6 as
+    block-local compute — the counterpart of the JAX package's
+    ``DistributedPallasSparseOperator`` (barrier schedule).
+
+    The rank's block is its stored tile list (``tiles`` f32 [T, bm, bk],
+    ``tile_rows`` / ``tile_cols`` i32 [T], row-sorted; built on the device
+    by :meth:`~repro_torch.graphs.partition.TwoDPartition.cell_blocked_sparse`),
+    so the rank holds and streams O(T·bm·bk) adjacency bytes instead of
+    the dense block's (C·chunk)·(R·chunk).  ``row_ptr`` (the CSR row
+    pointer the kernels walk) is built once here when not given.
+    """
+
+    def __init__(
+        self,
+        tiles: torch.Tensor,
+        tile_rows: torch.Tensor,
+        tile_cols: torch.Tensor,
+        row_ptr: torch.Tensor | None = None,
+        *,
+        chunk: int,
+        groups: GridGroups,
+        overlap: str = "none",
+        sync_axes: tuple[str, ...] = (),
+    ):
+        DistributedOperator.__init__(self, None, None, chunk=chunk, groups=groups,
+                                     overlap=overlap, sync_axes=sync_axes)
+        self.device = tiles.device
+        self.tiles, self.tile_rows, self.tile_cols = tiles, tile_rows, tile_cols
+        self.m = self.C * chunk
+        self.row_ptr = (
+            tile_row_ptr(tile_rows, self.m // tiles.shape[1]) if row_ptr is None else row_ptr
+        )
+
+    def _partial_forward(self, sigma_col, depth_col, lvl):
+        return ops.frontier_spmm_sparse(
+            self.tiles, self.tile_rows, self.tile_cols, sigma_col, depth_col, lvl,
+            m=self.m, row_ptr=self.row_ptr,
+        )
+
+    def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
+        return ops.dependency_spmm_sparse(
+            self.tiles, self.tile_rows, self.tile_cols, sigma_col, depth_col, delta_col,
+            omega_col, lvl, m=self.m, row_ptr=self.row_ptr,
+        )
+
+
+class DistributedFusedHybridOperator(DistributedFusedSparseOperator):
+    """The 2-D decomposition with a per-cell dense/BCSR kernel choice — the
+    counterpart of the JAX package's ``DistributedPallasHybridOperator``
+    (barrier schedule).
+
+    One rank per device, so each rank knows its own cell's choice on the
+    host: a dense-chosen cell (``dense_cell``) holds only its dense block
+    (``operands = (block,)``) and runs K3/K4, a sparse-chosen cell only its
+    tile list (``operands = (tiles, tile_rows, tile_cols[, row_ptr])``) and
+    runs K5/K6.  The branch is taken in Python, inside the block-local
+    hooks only, so every rank of a mixed grid runs the same collectives.
+    (The JAX package ships both operand sets to every device and branches
+    with ``lax.cond``, because ``shard_map`` needs uniform shapes.)
+    """
+
+    def __init__(
+        self,
+        dense_cell: bool,
+        *operands: torch.Tensor,
+        chunk: int,
+        groups: GridGroups,
+        overlap: str = "none",
+        sync_axes: tuple[str, ...] = (),
+    ):
+        self.dense_cell = bool(dense_cell)
+        kw = dict(chunk=chunk, groups=groups, overlap=overlap, sync_axes=sync_axes)
+        if self.dense_cell:
+            DistributedFusedOperator.__init__(self, *operands, **kw)
+        else:
+            super().__init__(*operands, **kw)
+
+    def _partial_forward(self, sigma_col, depth_col, lvl):
+        cls = DistributedFusedOperator if self.dense_cell else DistributedFusedSparseOperator
+        return cls._partial_forward(self, sigma_col, depth_col, lvl)
+
+    def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
+        cls = DistributedFusedOperator if self.dense_cell else DistributedFusedSparseOperator
+        return cls._partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl)

@@ -1,7 +1,14 @@
 """Graph substrate: the container, the seeded generators and the 2-D
 partition (numpy)."""
 from .graph import Graph
-from .partition import TwoDPartition, partition_2d, partition_arcs_2d
+from .partition import (
+    BlockedSparseLayout,
+    HybridLayout,
+    TwoDPartition,
+    default_tile_dim,
+    partition_2d,
+    partition_arcs_2d,
+)
 from .generators import (
     complete_graph,
     cycle_graph,
@@ -19,6 +26,9 @@ from .generators import (
 __all__ = [
     "Graph",
     "TwoDPartition",
+    "BlockedSparseLayout",
+    "HybridLayout",
+    "default_tile_dim",
     "partition_2d",
     "partition_arcs_2d",
     "rmat_graph",

@@ -4,6 +4,7 @@
   ref.py              plain PyTorch versions (the semantics)
   frontier_spmm.py    K1 launcher (csrc/frontier_spmm.cu), K3 (csrc/partial_spmm.cu)
   dependency_spmm.py  K2 launcher (csrc/dependency_spmm.cu), K4 (csrc/partial_spmm.cu)
+  blocked_spmm.py     K5/K6 launchers (csrc/sparse_spmm.cu), BCSR row pointer
   _build.py           nvcc build at first use + ctypes loading
 
 Importing this package builds nothing and needs no card.
@@ -12,8 +13,10 @@ from .ops import (
     LAUNCHES,
     dependency_spmm,
     dependency_spmm_partial,
+    dependency_spmm_sparse,
     frontier_spmm,
     frontier_spmm_partial,
+    frontier_spmm_sparse,
     reset_launches,
 )
 
@@ -22,6 +25,8 @@ __all__ = [
     "dependency_spmm",
     "frontier_spmm_partial",
     "dependency_spmm_partial",
+    "frontier_spmm_sparse",
+    "dependency_spmm_sparse",
     "LAUNCHES",
     "reset_launches",
 ]

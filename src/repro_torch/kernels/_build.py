@@ -41,6 +41,11 @@ _DEPENDENCY_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _FRONTIER_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 # (A, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, lvl, device, stream)
 _DEPENDENCY_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# (tiles, tile_cols, row_ptr, σ, d, t_in or NULL, t_out, m, k, s, bm, bk, lvl, device, stream)
+_FRONTIER_SPARSE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# (tiles, tile_cols, row_ptr, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, bm, bk, lvl,
+#  device, stream)
+_DEPENDENCY_SPARSE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
     "frontier_spmm_f32": _FRONTIER_ARGS,
     "frontier_spmm_bf16": _FRONTIER_ARGS,
@@ -50,6 +55,8 @@ SIGNATURES = {
     "frontier_partial_bf16": _FRONTIER_PARTIAL_ARGS,
     "dependency_partial_f32": _DEPENDENCY_PARTIAL_ARGS,
     "dependency_partial_bf16": _DEPENDENCY_PARTIAL_ARGS,
+    "frontier_sparse_f32": _FRONTIER_SPARSE_ARGS,
+    "dependency_sparse_f32": _DEPENDENCY_SPARSE_ARGS,
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,9 @@ device or on a 2-D grid of devices.
     PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x4 --device cpu
     PYTHONPATH=src torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.bc \
         --rmat-scale 16 --edge-factor 16 --mesh 2x4 --engine fused
+    # blocked-sparse (BCSR) tiles, or a per-cell dense/BCSR choice:
+    PYTHONPATH=src python -m repro_torch.launch.bc --rmat-scale 8 --mesh 2x4 \
+        --engine fused_hybrid --tile 8 --device cpu
 
 The graphs are the JAX launcher's, with the same seeds (R-MAT, grid and
 road-like; seed 1), so both launchers score the same graph.  ``--engine``
@@ -17,6 +20,14 @@ picks one of ``ENGINE_KINDS`` (``fused``/``fused_bf16`` are the CUDA
 level kernels); ``--device`` defaults to the CUDA card and the run fails
 without one unless ``--device cpu`` is given.  TEPS is reported per the
 paper's Eq. 7 (m·n / seconds).
+
+``--engine fused_sparse`` (K5/K6 over the stored BCSR tiles of each
+block) and ``fused_hybrid`` (dense or BCSR per cell) are distributed
+engines and need ``--mesh``; ``--tile BM[xBK]`` shapes their tiles,
+``--hybrid-threshold`` moves the hybrid's break-even, and ``--hbm-gb``
+arms the memory guard, which refuses an engine whose per-device
+footprint exceeds that budget before anything is allocated.  The
+footprint and the stored-tile count are printed either way.
 
 ``--mesh`` runs :func:`~repro_torch.core.distributed.distributed_betweenness_centrality`
 with one process per grid device.  On cards, run the launcher under
@@ -37,7 +48,7 @@ import numpy as np
 import torch.distributed as dist
 
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
-from ..core.distributed import distributed_betweenness_centrality
+from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centrality
 from ..core.scheduler import HEURISTICS_MODES
 from ..distributed.groups import GridGroups, run_gloo
 from ..graphs import grid_graph, rmat_graph, road_like_graph
@@ -52,12 +63,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--road", default=None, help="RxC road-like graph")
     ap.add_argument("--heuristics", default="h0", choices=list(HEURISTICS_MODES))
     ap.add_argument("--batch-size", type=int, default=32)
-    ap.add_argument("--engine", default="dense", choices=list(ENGINE_KINDS))
+    ap.add_argument(
+        "--engine", default="dense", choices=sorted(set(ENGINE_KINDS) | set(DIST_ENGINE_KINDS))
+    )
     ap.add_argument(
         "--mesh",
         default=None,
         help="RxC or FRxRxC: the 2-D decomposed path on FR·R·C ranks "
         "(torchrun on the card; spawned gloo processes with --device cpu)",
+    )
+    ap.add_argument(
+        "--tile",
+        default=None,
+        help="BCSR tile shape BM or BMxBK (fused_sparse / fused_hybrid; both must "
+        "divide the partition chunk; default: largest divisor <= 128, multiples "
+        "of 8 preferred)",
+    )
+    ap.add_argument(
+        "--hybrid-threshold",
+        type=float,
+        default=1.0,
+        help="fused_hybrid break-even: a cell streams BCSR tiles when their bytes "
+        "are under this fraction of its dense-block bytes (0 forces every cell "
+        "dense, a large value every cell sparse; the choice is logged)",
+    )
+    ap.add_argument(
+        "--hbm-gb",
+        type=float,
+        default=0.0,
+        help="per-device memory budget (GiB) arming the fail-fast memory guard "
+        "(e.g. 80 for an H100); the footprint is always printed",
     )
     ap.add_argument(
         "--sampling",
@@ -86,7 +121,7 @@ def _mesh_rank(groups: GridGroups, graph, kwargs: dict):
     dt = time.perf_counter() - t0  # the result is on the host: the run has synchronised
     if groups.rank != 0:
         return None
-    return res.bc, res.rounds_run, res.sampling_stats, dt
+    return res.bc, res.rounds_run, res.sampling_stats, res.layout_stats, dt
 
 
 def _run_mesh(graph, mesh_shape: tuple[int, ...], kwargs: dict):
@@ -138,6 +173,19 @@ def main(argv: list[str] | None = None) -> None:
             mesh_shape = ()
         if len(mesh_shape) not in (2, 3) or min(mesh_shape) < 1:
             raise SystemExit("--mesh takes RxC or FRxRxC (positive integers)")
+    if args.engine in ("fused_sparse", "fused_hybrid") and mesh_shape is None:
+        raise SystemExit(f"{args.engine} is a distributed engine; pass --mesh RxC")
+    tile = None
+    if args.tile:
+        if mesh_shape is None:
+            raise SystemExit("--tile shapes the blocked-sparse/hybrid layouts; pass --mesh RxC")
+        try:
+            dims = tuple(int(d) for d in args.tile.split("x"))
+        except ValueError:
+            dims = ()
+        if len(dims) not in (1, 2) or min(dims) < 1:
+            raise SystemExit("--tile takes BM or BMxBK (positive integers)")
+        tile = (dims[0], dims[-1])
 
     sampling_kw: dict = {}
     if args.sampling != "off":
@@ -165,10 +213,24 @@ def main(argv: list[str] | None = None) -> None:
     if mesh_shape is not None:
         # the arc-list engines map to the distributed arc-list engine
         engine = "sparse" if args.engine in ("dense", "sparse") else args.engine
-        out = _run_mesh(graph, mesh_shape, dict(kwargs, engine_kind=engine))
+        hbm = args.hbm_gb * 2**30 if args.hbm_gb > 0 else None
+        out = _run_mesh(graph, mesh_shape, dict(
+            kwargs, engine_kind=engine, tile=tile, hybrid_threshold=args.hybrid_threshold,
+            hbm_limit_bytes=hbm))
         if out is None:  # not rank 0 of a torchrun grid
             return
-        bc, rounds, samp, dt = out
+        bc, rounds, samp, layout, dt = out
+        foot = layout["footprint"]
+        print(f"per-device footprint ({engine}): adjacency "
+              f"{foot['adjacency_bytes'] / 2**30:.4g} GiB + state "
+              f"{foot['state_bytes'] / 2**30:.4g} GiB = {foot['total_bytes'] / 2**30:.4g} GiB")
+        if "tile" in layout:
+            bm, bk = layout["tile"]
+            print(f"BCSR tile {bm}x{bk}: stored tiles max {layout['stored_tiles_max']} per "
+                  f"rank, {layout['stored_tiles_total']} in all "
+                  f"({layout['nnz_tiles_total']} nonzero)"
+                  + (f"; dense cells {layout['dense_cells']}" if "dense_cells" in layout
+                     else ""))
     else:
         res = betweenness_centrality(graph, engine_kind=args.engine, **kwargs)
         dt = time.time() - t0  # the result is on the host: the run has synchronised

@@ -121,3 +121,36 @@ def test_cli_mesh_under_torchrun(tmp_path):
     np.testing.assert_allclose(
         np.load(out), brandes_reference(pg.road_like_graph(3, 4, seed=1)), **TOL
     )
+
+
+@pytest.mark.parametrize("engine,extra,line", [
+    ("fused_sparse", ["--tile", "4"], "BCSR tile 4x4: stored tiles max"),
+    ("fused_hybrid", ["--hybrid-threshold", "0"], "dense cells [[1, 1, 1, 1], [1, 1, 1, 1]]"),
+])
+def test_cli_bcsr_engines_on_a_gloo_grid(engine, extra, line, tmp_path, capsys):
+    """The BCSR engines run on ``--mesh`` and print the footprint and the
+    stored tiles; threshold 0 makes every hybrid cell dense."""
+    out = tmp_path / "bc.npy"
+    cli.main(["--grid", "4x8", "--mesh", "2x4", "--engine", engine, *extra, "--heuristics", "h3",
+              "--batch-size", "8", "--device", "cpu", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert f"per-device footprint ({engine}): adjacency" in text and line in text
+    np.testing.assert_allclose(np.load(out), brandes_reference(pg.grid_graph(4, 8)), **TOL)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--engine", "fused_sparse"],
+    ["--engine", "fused_hybrid", "--tile", "4"],
+    ["--engine", "fused", "--tile", "4"],
+    ["--engine", "fused_sparse", "--mesh", "2x2", "--tile", "4x0"],
+    ["--engine", "fused_sparse", "--mesh", "2x2", "--tile", "axb"],
+], ids=["no-mesh", "hybrid-no-mesh", "tile-no-mesh", "zero-tile", "malformed-tile"])
+def test_cli_rejects_bcsr_flags_without_a_mesh(argv):
+    with pytest.raises(SystemExit):
+        cli.main(["--grid", "3x3", "--device", "cpu", *argv])
+
+
+def test_cli_memory_guard_refuses_before_the_run():
+    with pytest.raises(RuntimeError, match="MemoryError"):
+        cli.main(["--grid", "4x8", "--mesh", "1x2", "--engine", "fused", "--hbm-gb", "1e-6",
+                  "--device", "cpu"])

@@ -43,6 +43,7 @@ GRAPHS = {
     "road_spur": lambda m: m.road_like_graph(4, 4, spur_fraction=0.8, seed=3),
     "road4x4": lambda m: m.road_like_graph(4, 4, spur_fraction=0.5, seed=2),
     "rmat6": lambda m: m.rmat_graph(6, 4, seed=5),
+    "rmat8_skew": lambda m: m.rmat_graph(8, 8, seed=0),  # tests/test_hybrid.py's mixed mesh
     "multi": lambda m: m.disjoint_union(
         m.path_graph(7), m.star_graph(5), m.gnp_graph(14, 0.2, seed=3)
     ),
@@ -65,8 +66,18 @@ BC_CASES = {
     "2x4-sparse-h3-multi": ("2x4", "multi", dict(heuristics="h3")),
     "2x4-sparse-sampled": ("2x4", "rmat6", SAMPLED_KW),
     "2x2x2-fused-sampled": ("2x2x2", "rmat6", dict(SAMPLED_KW, engine_kind="fused")),
+    **{f"{mesh}-fused_sparse-h3": (mesh, "gnp26", dict(FUSED_KW, engine_kind="fused_sparse",
+                                                       tile=(4, 4)))
+       for mesh in ("2x4", "4x2")},
+    "2x2x2-fused_sparse-h0": ("2x2x2", "gnp25", dict(heuristics="h0", engine_kind="fused_sparse")),
+    "2x4-fused_hybrid-h3": ("2x4", "rmat8_skew", dict(heuristics="h3", batch_size=64,
+                                                      engine_kind="fused_hybrid", tile=(8, 8))),
+    **{f"2x4-fused_hybrid-threshold{t:g}": ("2x4", "gnp26", dict(
+        FUSED_KW, engine_kind="fused_hybrid", tile=(4, 4), hybrid_threshold=t))
+       for t in (0.0, 1e9)},
 }
-STATE_CASES = [(g, e) for g in ("gnp26", "road4x4") for e in ("sparse", "fused", "fused_bf16")]
+STATE_CASES = [(g, e) for g in ("gnp26", "road4x4")
+               for e in ("sparse", "fused", "fused_bf16", "fused_sparse")]
 
 
 def _cases(mesh):
@@ -110,7 +121,8 @@ def _jax_bc(mesh, graph_name, kw):
 def test_distributed_bc_matches_oracle_and_jax(ranks, case):
     mesh, graph_name, kw = BC_CASES[case]
     got = ranks(mesh)[0][case]
-    tol = 1e-6 if kw.get("engine_kind", "sparse") != "sparse" else 1e-5
+    engine = kw.get("engine_kind", "sparse")
+    tol = 1e-6 if engine != "sparse" else 1e-5
     graph = GRAPHS[graph_name](pg)
     assert got["bc"].shape == (graph.n,) and got["bc"].dtype == np.float64
     if "sampling" not in kw:
@@ -118,7 +130,23 @@ def test_distributed_bc_matches_oracle_and_jax(ranks, case):
     else:
         stats = got["sampling_stats"]
         assert stats["roots_accumulated"] == kw["sample_k"] and stats["scale"] > 1.0
-    np.testing.assert_allclose(got["bc"], _jax_bc(mesh, graph_name, kw), rtol=1e-5, atol=1e-5)
+    jtol = 1e-6 if engine in ("fused_sparse", "fused_hybrid") else 1e-5
+    np.testing.assert_allclose(got["bc"], _jax_bc(mesh, graph_name, kw), rtol=jtol, atol=jtol)
+
+
+def test_hybrid_grids_hold_the_cells_they_chose(ranks):
+    """The skewed R-MAT grid mixes dense and BCSR cells; thresholds 0 and
+    1e9 force every cell dense or every cell BCSR.  Each rank holds only
+    its own cell's choice, and a BCSR rank stores its cell's tiles."""
+    res = ranks("2x4")[0]
+    mixed = np.array(res["2x4-fused_hybrid-h3"]["layout"]["dense_cells"])
+    assert 0 < mixed.sum() < mixed.size
+    assert np.array(res["2x4-fused_hybrid-threshold0"]["layout"]["dense_cells"]).all()
+    forced = res["2x4-fused_hybrid-threshold1e+09"]["layout"]
+    assert not np.array(forced["dense_cells"]).any()
+    sparse = res["2x4-fused_sparse-h3"]["layout"]
+    assert forced["stored_tiles_total"] == sparse["stored_tiles_total"] > 0
+    assert sparse["tile"] == (4, 4) and sparse["footprint"]["engine_kind"] == "fused_sparse"
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -150,7 +178,11 @@ def _jax_state(graph_name, engine_kind):
 
     from repro.compat import shard_map
     from repro.core import engine as jengine
-    from repro.core.operators import DistributedOperator, DistributedPallasOperator
+    from repro.core.operators import (
+        DistributedOperator,
+        DistributedPallasOperator,
+        DistributedPallasSparseOperator,
+    )
     from repro.graphs.partition import partition_2d
 
     graph = GRAPHS[graph_name](jg)
@@ -174,6 +206,17 @@ def _jax_state(graph_name, engine_kind):
 
         graph_args = (jnp.asarray(part.src_local), jnp.asarray(part.dst_local))
         graph_specs = (P("data", "model", None), P("data", "model", None))
+    elif engine_kind == "fused_sparse":
+        def body(tiles, rows, cols, omega, srcs):
+            op = DistributedPallasSparseOperator(tiles[0, 0], rows[0, 0], cols[0, 0],
+                                                 interpret=True, **axes)
+            return run(op, omega, srcs)
+
+        layout = part.blocked_sparse()
+        graph_args = tuple(jnp.asarray(a) for a in (layout.tiles, layout.tile_rows,
+                                                    layout.tile_cols))
+        graph_specs = (P("data", "model", None, None, None), P("data", "model", None),
+                       P("data", "model", None))
     else:
         def body(blocks, omega, srcs):
             op = DistributedPallasOperator(blocks[0, 0], interpret=True, **axes)
@@ -221,8 +264,7 @@ def test_distributed_one_degree_matches_host(ranks):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(overlap="expand"), dict(tile=(8, 8)), dict(hbm_limit_bytes=1e9),
-    dict(straggler="steal"), dict(chaos="seed=1"), dict(integrity="audit"),
+    dict(overlap="expand"), dict(straggler="steal"), dict(chaos="seed=1"), dict(integrity="audit"),
     dict(autotune="on"), dict(checkpoint="ck"), dict(weighted=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_knobs_raise(kwargs):

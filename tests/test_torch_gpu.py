@@ -9,8 +9,8 @@ only PyTorch is installed:
 Tolerances: depth exact, σ rtol 1e-6 (exact integer path counts), δ rtol
 1e-5 / atol 1e-6 (fractional g summed in another order than the plain
 version's matmul), BC rtol 1e-5 / atol 1e-5 against the numpy oracle or
-the single-device dense engine.  K3's partial is an integer-valued sum and
-is held exactly.
+the single-device dense engine.  K3's and K5's partials are integer-valued
+sums and are held exactly.
 """
 import os
 import subprocess
@@ -77,15 +77,21 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     monkeypatch.setattr(ref, "dependency_spmm_ref", refuse)
     monkeypatch.setattr(ref, "frontier_partial_ref", refuse)
     monkeypatch.setattr(ref, "dependency_partial_ref", refuse)
+    monkeypatch.setattr(ref, "frontier_sparse_ref", refuse)
+    monkeypatch.setattr(ref, "dependency_sparse_ref", refuse)
     A, sigma, depth, delta, omega = _state(64, 8, 1, 2, torch.float32, cuda)
+    tiles, rows, cols = _tile_list(5, 4, 8, 16, 0, cuda)
     ops.reset_launches()
     ops.frontier_spmm(A, sigma, depth, 2)
     ops.dependency_spmm(A, sigma, depth, delta, omega, 1)
     ops.frontier_spmm_partial(A[:40].contiguous(), sigma, depth, 2)
     ops.dependency_spmm_partial(A[:40].contiguous(), sigma, depth, delta, omega, 1)
+    ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40)
+    ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=40)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"frontier_spmm": 1, "dependency_spmm": 1,
-                            "frontier_spmm_partial": 1, "dependency_spmm_partial": 1}
+                            "frontier_spmm_partial": 1, "dependency_spmm_partial": 1,
+                            "frontier_spmm_sparse": 1, "dependency_spmm_sparse": 1}
 
 
 def test_cuda_wrappers_reject_mixed_devices(cuda):
@@ -117,6 +123,53 @@ def test_partial_kernels_match_plain_versions(cuda, dtype):
             )
 
 
+def _tile_list(num_tr, num_tc, bm, bk, seed, device, pad=3, complete=True):
+    """A row-sorted random BCSR tile list: 0–3 distinct tiles per tile-row,
+    an all-zero filler in an empty row when ``complete`` (else the row
+    stays empty), and ``pad`` zero tiles trailing on the last row."""
+    rng = np.random.default_rng(seed)
+    rows, cols, data = [], [], []
+    for r in range(num_tr):
+        picks = np.sort(rng.choice(num_tc, size=min(num_tc, int(rng.integers(0, 4))),
+                                   replace=False))
+        if picks.size == 0 and complete:
+            rows.append(r), cols.append(0), data.append(np.zeros((bm, bk), np.float32))
+        for c in picks:
+            rows.append(r), cols.append(int(c))
+            data.append((rng.random((bm, bk)) < 0.3).astype(np.float32))
+    for _ in range(pad):
+        rows.append(num_tr - 1), cols.append(0), data.append(np.zeros((bm, bk), np.float32))
+    return tuple(torch.from_numpy(x).to(device) for x in
+                 (np.stack(data), np.array(rows, np.int32), np.array(cols, np.int32)))
+
+
+# (tile-rows, tile-cols, bm, bk, s): bm != bk, each of the kernel's row
+# blocks (32, 64, 128) and a tile-row split over two blocks (200), ragged s
+SPARSE_SHAPES = [(6, 5, 5, 8, 33), (4, 7, 8, 5, 130), (9, 3, 32, 128, 4), (3, 4, 128, 32, 192),
+                 (5, 6, 64, 20, 128), (2, 3, 200, 8, 257)]
+
+
+@pytest.mark.parametrize("complete", [True, False], ids=["row-complete", "empty-rows"])
+def test_sparse_kernels_match_plain_versions(cuda, complete):
+    for num_tr, num_tc, bm, bk, s in SPARSE_SHAPES:
+        tiles, rows, cols = _tile_list(num_tr, num_tc, bm, bk, num_tr + s, cuda,
+                                       complete=complete)
+        m, kdim = num_tr * bm, num_tc * bk
+        _, sigma, depth, delta, omega = _state(kdim, s, kdim + s, 2, torch.float32, cuda)
+        acc = torch.randint(0, 7, (m, s), device=cuda).to(torch.float32)
+        for t_in in (None, acc):
+            got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in)
+            want = ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m, t_in)
+            assert torch.equal(got, want), (num_tr, num_tc, bm, bk, s)
+            torch.testing.assert_close(
+                ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1,
+                                           m=m, acc=t_in),
+                ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m,
+                                          t_in),
+                rtol=1e-5, atol=1e-6,
+            )
+
+
 @pytest.fixture
 def nccl_1x1(cuda, tmp_path):
     """A world-size-1 NCCL process group: the 1×1 grid one card can hold."""
@@ -128,17 +181,25 @@ def nccl_1x1(cuda, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("engine", ["sparse", "fused", "fused_bf16"])
-def test_2d_path_on_a_1x1_nccl_grid_matches_dense(nccl_1x1, engine):
+@pytest.mark.parametrize("engine,kw", [
+    ("sparse", {}), ("fused", {}), ("fused_bf16", {}), ("fused_sparse", {}),
+    ("fused_sparse", dict(tile=(32, 16))), ("fused_hybrid", dict(hybrid_threshold=0.0)),
+    ("fused_hybrid", dict(hybrid_threshold=1e9)),
+], ids=["sparse", "fused", "fused_bf16", "fused_sparse", "fused_sparse-32x16",
+        "fused_hybrid-dense", "fused_hybrid-bcsr"])
+def test_2d_path_on_a_1x1_nccl_grid_matches_dense(nccl_1x1, engine, kw):
     g = pg.rmat_graph(8, 8, seed=1)
     want = pbc.betweenness_centrality(g, batch_size=32, heuristics="h3", engine_kind="dense")
     ops.reset_launches()
     res = distributed_betweenness_centrality(
-        g, nccl_1x1, batch_size=32, heuristics="h3", engine_kind=engine, full_result=True
+        g, nccl_1x1, batch_size=32, heuristics="h3", engine_kind=engine, full_result=True, **kw
     )
-    fused = engine != "sparse"
-    assert (ops.LAUNCHES["frontier_spmm_partial"] > 0) == fused
-    assert (ops.LAUNCHES["dependency_spmm_partial"] > 0) == fused
+    dense = engine in ("fused", "fused_bf16") or kw.get("hybrid_threshold") == 0.0
+    tiled = engine == "fused_sparse" or kw.get("hybrid_threshold") == 1e9
+    for kname in ("frontier_spmm_partial", "dependency_spmm_partial"):
+        assert (ops.LAUNCHES[kname] > 0) == dense
+    for kname in ("frontier_spmm_sparse", "dependency_spmm_sparse"):
+        assert (ops.LAUNCHES[kname] > 0) == tiled
     assert ops.LAUNCHES["frontier_spmm"] == ops.LAUNCHES["dependency_spmm"] == 0
     assert res.round_levels == want.round_levels
     np.testing.assert_allclose(res.bc, want.bc, rtol=1e-5, atol=1e-5)

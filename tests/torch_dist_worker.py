@@ -15,10 +15,10 @@ from repro_torch.core import engine
 from repro_torch.core.distributed import (
     distributed_betweenness_centrality,
     distributed_graph_arrays,
+    make_distributed_operator,
     make_distributed_round_fn,
     one_degree_reduce_distributed,
 )
-from repro_torch.core.operators import DistributedFusedOperator, DistributedOperator
 from repro_torch.core.scheduler import build_schedule
 from repro_torch.graphs.partition import partition_2d
 
@@ -30,7 +30,7 @@ def _bc(groups, graph, kwargs):
         graph, groups, device="cpu", full_result=True, **kwargs
     )
     return {"bc": res.bc, "round_levels": res.round_levels, "rounds_run": res.rounds_run,
-            "sampling_stats": res.sampling_stats}
+            "sampling_stats": res.sampling_stats, "layout": res.layout_stats}
 
 
 def _state(groups, graph, engine_kind):
@@ -39,10 +39,7 @@ def _state(groups, graph, engine_kind):
     ``_distributed_state`` inputs: sources 0..S-1, ω from seed 7)."""
     part = partition_2d(graph, groups.R, groups.C)
     args = distributed_graph_arrays(part, engine_kind, groups.i, groups.j, "cpu")
-    if engine_kind == "sparse":
-        op = DistributedOperator(*args, chunk=part.chunk, groups=groups)
-    else:
-        op = DistributedFusedOperator(*args, chunk=part.chunk, groups=groups)
+    op = make_distributed_operator(engine_kind, args, chunk=part.chunk, groups=groups)
     omega_pad = np.zeros(part.n_pad, np.float32)
     omega_pad[: graph.n] = np.random.default_rng(7).integers(0, 3, graph.n)
     base = part.owned_vertex_base(groups.i, groups.j)
