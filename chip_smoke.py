@@ -7,14 +7,20 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1–5, 8, 6, 7: phase 8 shares phase 5's NCCL
-process group, and phase 7's kernel table carries phase 8's launches):
+Phases (run in the order 1, 2, 9, 3–5, 8, 6, 7: phase 9 first, while
+nothing else holds device memory, because its tables take 65 GiB; phase
+8 shares phase 5's NCCL process group, and phase 7's kernel table
+carries phase 8's launches and K7's times, which phase 9 takes on its
+tables):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
-  2. build K1–K6 from kernels/csrc with nvcc, one process per source
+  2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
-  3. kernel parity on the card against the plain PyTorch versions, f32 and
-     bf16 adjacency: K1/K2 at the unit-test shapes and the main-path
-     shapes (depth exact, σ rtol 1e-6, δ rtol 1e-5 / atol 1e-6); K3/K4 in
+  3. kernel parity on the card against the plain PyTorch versions: K7 at
+     the JAX test grid (V, D, B, L) and a ragged D, f32 and bf16 tables,
+     with and without weights, a bag of nothing but padding (rtol 1e-6 /
+     atol 1e-6 f32, rtol 2e-2 bf16); with f32 and bf16 adjacency, K1/K2
+     at the unit-test shapes and the main-path shapes (depth exact, σ
+     rtol 1e-6, δ rtol 1e-5 / atol 1e-6); K3/K4 in
      plain and acc mode at ragged rectangular shapes, at the 1×1 grid's
      [65536, 65536] block and at the [32768, 16384] block of a 2×4 grid
      (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6); K5/K6
@@ -39,10 +45,13 @@ process group, and phase 7's kernel table carries phase 8's launches):
   6. exact BC against the port's numpy oracle (rmat 10, road 20x20; h0
      and h3t; rtol 1e-5 / atol 1e-5) and h3 on rmat 13 against dense;
   7. kernel times with CUDA events at the main-path shapes (K3/K4 also at
-     the 2×4 block, K5/K6 at phase 8's three layouts), beside the plain
-     versions, one library call as the yardstick (torch.matmul for
-     K1–K4, torch.sparse.mm of the cell as a CSR tensor for K5/K6), and
-     the bound (larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s f32);
+     the 2×4 block, K5/K6 at phase 8's three layouts, K7 at the
+     serve_bulk lookup on phase 9's tables with click-log and with
+     uniform ids), beside the plain versions, one library call as the
+     yardstick (torch.matmul for K1–K4, torch.sparse.mm of the cell as a
+     CSR tensor for K5/K6, F.embedding_bag for K7), and the bound (larger
+     of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s f32; K7's bytes count
+     each distinct row once);
   8. the BCSR path at full width through
      ``distributed_betweenness_centrality`` on the 1×1 NCCL grid:
      (a) phase 4's graph and roots on fused_sparse at the default tile
@@ -54,7 +63,20 @@ process group, and phase 7's kernel table carries phase 8's launches):
      allocating, then fused_sparse, h0, one round of 128 fixed roots,
      matching the arc-list engine (rtol 1e-5 / atol 1e-5); every
      run launches K5 and K6 and none of K1–K4; then (b) once under
-     torch.profiler (busy share, K5/K6/NCCL shares).
+     torch.profiler (busy share, K5/K6/NCCL shares);
+  9. DLRM-RM2 serving at full width on one card, through the port's
+     cells (``build_dlrm_cell``): the [26, 10 485 760, 64] f32 tables
+     (65.0 GiB) made on the card from a seeded generator, after checking
+     that less than 2 GiB is allocated; click-log requests from
+     ``ClickLogStream(cfg, batch, seed=0)``: serve_p99 (512 examples, 50
+     steps, latency p50/p99), serve_bulk (262 144 examples, 3 steps,
+     examples/s) and retrieval_cand (1 query, 1 000 448 candidates, top
+     100).  Every forward must launch K7 exactly once; K7 equals its
+     plain version on a serve_p99 and a serve_bulk batch (rtol 1e-6);
+     64 requests' logits recomputed in numpy float64 from host copies of
+     the rows they touch (rtol 1e-4 / atol 1e-4, TF32 off); peak memory;
+     one serve_bulk step under torch.profiler (busy share, K7 and GEMM
+     shares).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -108,10 +130,17 @@ def check(cond: bool, msg: str) -> None:
 
 
 def close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> tuple[bool, float]:
-    """(all |got - want| <= atol + rtol·|want|, max abs error)."""
-    diff = (got.double() - want.double()).abs()
-    ok = bool((diff <= atol + rtol * want.double().abs()).all())
-    return ok, float(diff.max()) if diff.numel() else 0.0
+    """(all |got - want| <= atol + rtol·|want|, max abs error), in float64,
+    2^26 elements at a time (a whole [B·F, 64] lookup in float64 would not
+    fit beside the DLRM tables)."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    ok, worst, step = True, 0.0, 1 << 26
+    for i in range(0, got.numel(), step):
+        g, w = got[i:i + step].double(), want[i:i + step].double()
+        diff = (g - w).abs()
+        ok = ok and bool((diff <= atol + rtol * w.abs()).all())
+        worst = max(worst, float(diff.max()))
+    return ok, worst
 
 
 def nvidia_smi_line() -> str:
@@ -227,6 +256,269 @@ def level_state(n: int, s: int, seed: int, lvl: int, dev):
     return tuple(torch.from_numpy(x).to(dev) for x in (sigma, depth, delta, omega))
 
 
+# K7 parity cases (V, D, B, L): the JAX kernel test's grid, then a ragged D
+BAG_CASES = [(32, 8, 4, 3), (64, 128, 8, 5), (128, 96, 16, 10), (1000, 64, 32, 26), (50, 13, 6, 4)]
+# phase 9: DLRM-RM2 serving at full width
+P99_STEPS, BULK_STEPS, RETRIEVAL_REPS = 50, 3, 3
+CHECK_REQUESTS = 64  # logits recomputed in float64 on the host
+GIB = 2**30
+
+
+def segment_bag_parity(dev) -> None:
+    """Phase 3's K7 cases: f32 and bf16 tables, with and without weights,
+    the first bag all padding; rtol 1e-6 / atol 1e-6 (f32), rtol 2e-2
+    (bf16)."""
+    from repro_torch.kernels import ops, ref
+
+    for V, D, b, L in BAG_CASES:
+        rng = np.random.default_rng(V + D + b + L)
+        table32 = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-1, V, size=(b, L)).astype(np.int32)).to(dev)
+        idx[0] = -1
+        w = torch.from_numpy(rng.random((b, L)).astype(np.float32)).to(dev)
+        errs = []
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            rtol, atol = (1e-6, 1e-6) if tag == "f32" else (2e-2, 1e-5)
+            for weights in (None, w):
+                table = table32.to(dt)
+                got = ops.segment_bag(table, idx, weights)
+                ok, err = close(got, ref.segment_bag_ref(table, idx, weights), rtol, atol)
+                check(ok and float(got[0].abs().sum()) == 0.0,
+                      f"K7 parity at V={V} D={D} B={b} L={L} table={tag} "
+                      f"weighted={weights is not None}: err {err:.3g}")
+                errs.append(err)
+        print(f"[3] K7 V={V} D={D} B={b} L={L}: f32/bf16 table, unweighted/weighted, "
+              f"an all-padding bag: max err {max(errs):.3g}")
+
+
+def flat_bags(sparse: torch.Tensor, v: int) -> torch.Tensor:
+    """The B·F bags K7 gets from ``embedding_bag_lookup``: ids offset by
+    f·V into the flat table, -1 kept."""
+    b, f, bag_len = sparse.shape
+    offs = (torch.arange(f, dtype=torch.int32, device=sparse.device) * v)[None, :, None]
+    return torch.where(sparse >= 0, sparse + offs, -1).reshape(b * f, bag_len)
+
+
+def logits_float64(model, dense: np.ndarray, sparse: np.ndarray) -> np.ndarray:
+    """The DLRM forward in numpy float64, from host copies of only the
+    table rows the requests touch and of the MLP weights."""
+    cfg = model.cfg
+    sp = torch.from_numpy(sparse).to(model.tables.device)
+    fields = torch.arange(cfg.n_sparse, device=sp.device)[None, :, None]
+    rows = model.tables[fields, sp.clamp(min=0).long()].double().cpu().numpy()  # [B, F, L, D]
+    emb = (rows * (sparse >= 0)[..., None]).sum(axis=2)
+
+    def mlp(layers, x, final_act):
+        for i, lin in enumerate(layers):
+            x = x @ lin.weight.detach().double().cpu().numpy().T + lin.bias.detach().double().cpu().numpy()
+            if i < len(layers) - 1 or final_act:
+                x = np.maximum(x, 0.0)
+        return x
+
+    bot = mlp(model.bot, dense.astype(np.float64), True)
+    feats = np.concatenate([bot[:, None, :], emb], axis=1)
+    dots = np.einsum("bif,bjf->bij", feats, feats)
+    iu, ju = np.triu_indices(feats.shape[1], k=1)
+    z = np.concatenate([bot, dots[:, iu, ju]], axis=1)
+    return mlp(model.top, z, False)[:, 0]
+
+
+def dlrm_phase(dev, trace_run) -> list[dict]:
+    """Phase 9: DLRM-RM2 serving at full width on one card, and K7's
+    times (phase 7's K7 rows) while its tables are on the card.  Returns
+    the kernel-table entries of K7."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ClickLogStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import RETRIEVAL_TOP_K, build_dlrm_cell, pad_mult
+
+    t9 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    check(live < 2 * GIB, f"[9] {live / GIB:.2f} GiB still allocated before the tables")
+    torch.cuda.reset_peak_memory_stats()
+    bundle = get_arch("dlrm-rm2")
+    cfg = bundle.arch
+    f, v, d = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
+    table_bytes = f * v * d * 4
+    t = time.perf_counter()
+    cells = {"serve_p99": build_dlrm_cell(bundle, "serve_p99", device="cuda", seed=0)}
+    model = cells["serve_p99"].model
+    torch.cuda.synchronize()
+    print(f"[9] dlrm-rm2 tables [{f}, {v}, {d}] f32 = {table_bytes / GIB:.2f} GiB and MLPs "
+          f"{cfg.n_dense}-{'-'.join(map(str, cfg.bot_mlp))} / "
+          f"{sum(p.numel() for p in model.top.parameters()) + sum(p.numel() for p in model.bot.parameters())} "
+          f"MLP parameters, created on the card from a seeded CUDA generator in "
+          f"{time.perf_counter() - t:.2f}s ({live / GIB:.2f} GiB allocated before)")
+    print(f"[9] TF32 matmul={torch.backends.cuda.matmul.allow_tf32} (off, as resolve_device "
+          f"sets it: TF32's 10-bit mantissa would not pass the float64 check below)")
+    for name in ("serve_bulk", "retrieval_cand"):
+        cells[name] = build_dlrm_cell(bundle, name, device="cuda", model=model)
+    k7_total = 0
+
+    def forward(cell, batch):
+        """One cell call, host clock, ending synchronised; K7 launched once."""
+        nonlocal k7_total
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = cell.fn(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        n = ops.LAUNCHES["segment_bag"]
+        check(n == 1, f"[9] {cell.name}: K7 launched {n} times in one forward, not once")
+        k7_total += n
+        return out, dt
+
+    def lookup_parity(batch, tag) -> float:
+        """K7 against its plain version on this batch's bags (rtol 1e-6;
+        L = 1 and weight 1: the sum is exact)."""
+        bags = flat_bags(torch.from_numpy(batch["sparse"]).to(dev), v)
+        flat = model.tables.view(f * v, d)
+        ok, err = close(ops.segment_bag(flat, bags), ref.segment_bag_ref(flat, bags), 1e-6, 0.0)
+        check(ok, f"[9] K7 disagrees with its plain version on a {tag} batch: err {err:.3g}")
+        print(f"[9] K7 on a {tag} batch ({bags.shape[0]} bags) vs plain version: max err {err:.3g}")
+        return err
+
+    # ---- serve_p99: 512 requests a call, 50 consecutive steps after a warm-up
+    n_p99, n_bulk = bundle.shapes["serve_p99"].batch, bundle.shapes["serve_bulk"].batch
+    stream = ClickLogStream(cfg, n_p99, seed=0)
+    batches = [stream.batch_at(step) for step in range(P99_STEPS + 1)]
+    forward(cells["serve_p99"], batches[0])  # warm-up (cuBLAS handles, first launches)
+    lat, outs = [], []
+    for batch in batches[1:]:
+        out, dt = forward(cells["serve_p99"], batch)
+        check(out.shape == (n_p99,) and bool(torch.isfinite(out).all())
+              and bool(((out >= 0) & (out <= 1)).all()), "[9] serve_p99: bad probabilities")
+        lat.append(dt)
+        outs.append(out)
+    lat_ms = np.array(lat) * 1e3
+    print(f"[9] serve_p99 ({n_p99} requests, steps 1-{P99_STEPS}, batch from the host): latency "
+          f"p50 {np.percentile(lat_ms, 50):.3f} ms, p99 {np.percentile(lat_ms, 99):.3f} ms, "
+          f"mean {lat_ms.mean():.3f} ms, min {lat_ms.min():.3f} ms, max {lat_ms.max():.3f} ms; "
+          f"{n_p99 / np.median(lat):.0f} examples/s at p50")
+    err_p99 = lookup_parity(batches[1], "serve_p99")
+    # the independent check: float64 on the host from the touched rows
+    req = {k: x[:CHECK_REQUESTS] for k, x in batches[1].items()}
+    with torch.inference_mode():
+        logit, _ = model(torch.from_numpy(req["dense"]).to(dev), torch.from_numpy(req["sparse"]).to(dev))
+    want = logits_float64(model, req["dense"], req["sparse"])
+    ok, err = close(logit.cpu(), torch.from_numpy(want), 1e-4, 1e-4)
+    ok_p, err_p = close(outs[0][:CHECK_REQUESTS].cpu(), torch.from_numpy(1 / (1 + np.exp(-want))),
+                        1e-4, 1e-4)
+    print(f"[9] {CHECK_REQUESTS} requests recomputed in float64 on the host: logit max err "
+          f"{err:.3g} (|logit| up to {np.abs(want).max():.3g}), served probability max err "
+          f"{err_p:.3g} (rtol 1e-4 / atol 1e-4)")
+    check(ok and ok_p, "[9] the served logits disagree with the float64 recomputation")
+    del batches, outs
+
+    # ---- serve_bulk: 262 144 examples a call, 3 steps after a warm-up
+    stream = ClickLogStream(cfg, n_bulk, seed=0)
+    t = time.perf_counter()
+    batches = [stream.batch_at(step) for step in range(BULK_STEPS + 1)]
+    print(f"[9] serve_bulk: {BULK_STEPS + 1} click-log batches made on the host in "
+          f"{time.perf_counter() - t:.2f}s (set-up)")
+    forward(cells["serve_bulk"], batches[0])
+    lat = []
+    for batch in batches[1:]:
+        out, dt = forward(cells["serve_bulk"], batch)
+        check(out.shape == (n_bulk,) and bool(torch.isfinite(out).all()),
+              "[9] serve_bulk: bad probabilities")
+        lat.append(dt)
+    flops = cells["serve_bulk"].static_meta["model_flops"]
+    print(f"[9] serve_bulk ({n_bulk} examples, steps 1-{BULK_STEPS}, batch from the host): "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in lat)} ms, "
+          f"{n_bulk * len(lat) / sum(lat):.0f} examples/s, "
+          f"{flops * len(lat) / sum(lat) / 1e12:.2f} TFLOP/s of MLP+interaction "
+          f"({flops / 1e9:.1f} GFLOP a call)")
+    err_bulk = lookup_parity(batches[1], "serve_bulk")
+    trace_run("[9] serve_bulk", lambda: cells["serve_bulk"].fn(batches[1]),
+              {"K7": "segment_bag", "GEMM (MLPs, bmm)": "gemm"})
+
+    # ---- retrieval_cand: 1 query against 1 000 448 candidates, top 100
+    n_pad = pad_mult(bundle.shapes["retrieval_cand"].n_candidates)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cands = torch.randn((n_pad, d), generator=gen, device=dev)
+    rbatch = {**ClickLogStream(cfg, 1, seed=0).batch_at(0), "candidates": cands}
+    forward(cells["retrieval_cand"], rbatch)
+    lat = []
+    for _ in range(RETRIEVAL_REPS):
+        (scores, ids), dt = forward(cells["retrieval_cand"], rbatch)
+        lat.append(dt)
+    check(scores.shape == ids.shape == (1, RETRIEVAL_TOP_K), "[9] retrieval: bad top-k shape")
+    check(bool((scores[:, :-1] >= scores[:, 1:]).all()) and int(ids.min()) >= 0
+          and int(ids.max()) < n_pad, "[9] retrieval: top-k not sorted or ids out of range")
+    with torch.inference_mode():
+        _, feats = model(torch.from_numpy(rbatch["dense"]).to(dev),
+                         torch.from_numpy(rbatch["sparse"]).to(dev))
+    full = cands.double() @ feats.sum(dim=1)[0].double()  # every candidate, float64
+    rescored = full[ids[0]]
+    ok, err = close(scores[0], rescored, 1e-5, 1e-4)
+    above = int((full > float(rescored.min()) + 1e-4).sum())  # clearly above the 100th
+    check(ok and above < RETRIEVAL_TOP_K,
+          f"[9] retrieval disagrees with a float64 rescoring: err {err:.3g}, {above} "
+          f"candidates clearly above the lowest returned")
+    print(f"[9] retrieval_cand (1 query, {n_pad} candidates, top {RETRIEVAL_TOP_K}): "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in lat)} ms; vs float64 scores of every "
+          f"candidate: max err {err:.3g}, {above} candidates clearly above the lowest "
+          f"returned score (< {RETRIEVAL_TOP_K}: no better candidate was missed)")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[9] peak device memory of the serving runs {peak / GIB:.2f} GiB (tables "
+          f"{table_bytes / GIB:.2f} GiB); K7 launched once in each of the {k7_total} forwards")
+    del cands, full
+
+    # ---- phase 7's K7 rows: the serve_bulk lookup on the full tables
+    print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
+    flat = model.tables.view(f * v, d)
+    zipf = flat_bags(torch.from_numpy(batches[1]["sparse"]).to(dev), v)
+    gen.manual_seed(2)
+    uniform = flat_bags(torch.randint(0, v, (n_bulk, f, 1), generator=gen, device=dev,
+                                      dtype=torch.int32), v)
+    entries = []
+    for tag, bags, err in (("click-log Zipf(1.2) ids", zipf, err_bulk),
+                           ("uniform ids", uniform, None)):
+        distinct = int(torch.unique(bags[bags >= 0]).numel())
+        nbytes = distinct * d * 4 + bags.nbytes + bags.shape[0] * d * 4
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2.0 * bags.numel() * d / PEAK_F32_FLOP_PER_S * 1e3
+        if err is None:  # not a click-log batch: hold the kernel here too
+            ok, err = close(ops.segment_bag(flat, bags), ref.segment_bag_ref(flat, bags), 1e-6, 0.0)
+            check(ok, f"[7] K7 disagrees with its plain version on {tag}")
+        safe = bags.clamp(min=0).long()
+        mask = (bags >= 0).float()
+        ms = cuda_time_ms(lambda: ops.segment_bag(flat, bags), reps=20)
+        plain_ms = cuda_time_ms(lambda: ref.segment_bag_ref(flat, bags), reps=20)
+        lib_ms = cuda_time_ms(lambda: F.embedding_bag(safe, flat, mode="sum",
+                                                      per_sample_weights=mask), reps=20)
+        bound = max(t_bytes, t_ops)
+        entries.append({
+            "name": f"segment_bag[serve_bulk {bags.shape[0]} bags x L={bags.shape[1]}, D={d}, "
+                    f"{tag}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_bag.cu",
+            "replaces": "src/repro/kernels/segment_bag.py:29",
+            "launches": k7_total,
+            "max_abs_err": max(err_p99, err),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        })
+        print(f"[7] segment_bag serve_bulk {tag}: {distinct} distinct rows of "
+              f"{bags.shape[0]} bags; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"F.embedding_bag {lib_ms:.3f} ms, bound {bound:.3f} ms (bytes {t_bytes:.3f}: "
+              f"{nbytes / 1e9:.3f} GB / ops {t_ops:.4f}), {100 * bound / ms:.1f}% of bound, "
+              f"{nbytes / ms / 1e6:.0f} GB/s effective; 1 launch per forward")
+        del safe, mask
+    del model, cells, flat, zipf, uniform, batches
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 2 * GIB, "[9] the tables were not released")
+    print(f"[9] DLRM serving ok in {time.perf_counter() - t9:.1f}s")
+    return entries
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
@@ -272,8 +564,13 @@ def main() -> None:
     print(_build.build_log())
     _build.library()
 
+    # ------------------- 9. DLRM-RM2 serving at full width (and K7's times)
+    # first, while nothing else holds memory: the tables take 65 GiB
+    k7_entries = dlrm_phase(dev, trace_run)
+
     # --------------------------------------------------- 3. kernel parity
     t3 = time.perf_counter()
+    segment_bag_parity(dev)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     for n, s in TEST_SHAPES:
         A32 = torch.from_numpy(
@@ -833,6 +1130,7 @@ def main() -> None:
             del operand
         del tiles, rows, cols, row_ptr, csr
         torch.cuda.empty_cache()
+    entries.extend(k7_entries)  # timed in phase 9, on its tables
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
     print(f"[7] total {time.perf_counter() - t_all:.1f}s")
 

@@ -16,18 +16,31 @@ of that package) and give the port's equivalents:
 With these, one schedule can be fed through both packages'
 ``traversal_round`` round by round, and one 2-D partition through both
 packages' distributed operators.
+
+DLRM has weights: :func:`dlrm_params_from_arrays` takes the JAX package's
+parameter dict as numpy arrays and gives the port's module state::
+
+    model.load_state_dict(dlrm_params_from_arrays(
+        {k: np.asarray(v) for k, v in jax_params.items()}))
 """
 from __future__ import annotations
 
+import re
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 from .core.scheduler import Round, Schedule
 from .graphs.graph import Graph
 from .graphs.partition import TwoDPartition
 
-__all__ = ["graph_from_arrays", "schedule_from_arrays", "partition_from_arrays"]
+__all__ = [
+    "graph_from_arrays",
+    "schedule_from_arrays",
+    "partition_from_arrays",
+    "dlrm_params_from_arrays",
+]
 
 
 def graph_from_arrays(
@@ -118,3 +131,32 @@ def partition_from_arrays(
         arc_counts=np.asarray(arc_counts, np.int64),
         arc_perm=None if arc_perm is None else np.asarray(arc_perm, np.int64),
     )
+
+
+_MLP_KEY = re.compile(r"(bot|top)_([wb])(\d+)")
+
+
+def dlrm_params_from_arrays(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The port's :class:`~repro_torch.models.DLRM` state (CPU tensors) from
+    the JAX package's DLRM parameters: ``tables`` [F, V, D] and
+    ``{bot,top}_{w,b}{i}``.  JAX stores each weight as [in, out] for
+    ``x @ W``; ``nn.Linear`` holds [out, in], so weights are transposed."""
+    state = {}
+    for key, value in params.items():
+        arr = np.asarray(value, np.float32)
+        if key == "tables":
+            if arr.ndim != 3:
+                raise ValueError(f"tables must be [F, V, D], got {arr.shape}")
+            state["tables"] = torch.tensor(arr)
+            continue
+        match = _MLP_KEY.fullmatch(key)
+        if match is None:
+            raise ValueError(f"unknown DLRM parameter {key!r}")
+        tag, kind, i = match.groups()
+        if kind == "w":
+            if arr.ndim != 2:
+                raise ValueError(f"{key} must be [in, out], got {arr.shape}")
+            state[f"{tag}.{i}.weight"] = torch.tensor(arr.T)
+        else:
+            state[f"{tag}.{i}.bias"] = torch.tensor(arr)
+    return state

@@ -5,6 +5,7 @@
   frontier_spmm.py    K1 launcher (csrc/frontier_spmm.cu), K3 (csrc/partial_spmm.cu)
   dependency_spmm.py  K2 launcher (csrc/dependency_spmm.cu), K4 (csrc/partial_spmm.cu)
   blocked_spmm.py     K5/K6 launchers (csrc/sparse_spmm.cu), BCSR row pointer
+  segment_bag.py      K7 launcher (csrc/segment_bag.cu), the DLRM EmbeddingBag
   _build.py           nvcc build at first use + ctypes loading
 
 Importing this package builds nothing and needs no card.
@@ -18,6 +19,7 @@ from .ops import (
     frontier_spmm_partial,
     frontier_spmm_sparse,
     reset_launches,
+    segment_bag,
 )
 
 __all__ = [
@@ -27,6 +29,7 @@ __all__ = [
     "dependency_spmm_partial",
     "frontier_spmm_sparse",
     "dependency_spmm_sparse",
+    "segment_bag",
     "LAUNCHES",
     "reset_launches",
 ]

@@ -32,7 +32,7 @@ LIB_NAME = "libbc_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (A, σ, d, σ_out, d_out, n, s, lvl, device, stream)
 _FRONTIER_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 # (A, σ, d, δ, ω, δ_out, n, s, lvl, device, stream)
@@ -46,6 +46,8 @@ _FRONTIER_SPARSE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
 # (tiles, tile_cols, row_ptr, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, bm, bk, lvl,
 #  device, stream)
 _DEPENDENCY_SPARSE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# (table, idx, weights or NULL, out, num_bags, L, D, device, stream)
+_SEGMENT_BAG_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _P]
 SIGNATURES = {
     "frontier_spmm_f32": _FRONTIER_ARGS,
     "frontier_spmm_bf16": _FRONTIER_ARGS,
@@ -57,6 +59,8 @@ SIGNATURES = {
     "dependency_partial_bf16": _DEPENDENCY_PARTIAL_ARGS,
     "frontier_sparse_f32": _FRONTIER_SPARSE_ARGS,
     "dependency_sparse_f32": _DEPENDENCY_SPARSE_ARGS,
+    "segment_bag_f32": _SEGMENT_BAG_ARGS,
+    "segment_bag_bf16": _SEGMENT_BAG_ARGS,
 }
 
 _lock = threading.Lock()
@@ -81,7 +85,7 @@ def find_nvcc() -> str:
             return str(cand)
     raise RuntimeError(
         "nvcc not found: set CUDA_HOME or put nvcc on PATH to build the "
-        "fused level kernels"
+        "port's kernels"
     )
 
 

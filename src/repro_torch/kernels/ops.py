@@ -1,4 +1,5 @@
-"""Public entry points of the level kernels K1–K6.
+"""Public entry points of the level kernels K1–K6 and the EmbeddingBag
+kernel K7.
 
 K1/K2 (:func:`frontier_spmm`, :func:`dependency_spmm`) are the fused
 single-device level steps on a square adjacency; K3/K4
@@ -7,7 +8,8 @@ pre-fold partials on one device's rectangular block of the 2-D
 decomposition, with an optional ``acc`` running sum (the ring schedule's
 combine); K5/K6 (:func:`frontier_spmm_sparse`,
 :func:`dependency_spmm_sparse`) are the same partials over the block's
-stored BCSR tiles only.
+stored BCSR tiles only.  K7 (:func:`segment_bag`) is the DLRM lookup's
+gather-reduce.
 
 Each wrapper checks its operands (device, dtype, shape, contiguity) and
 raises on anything the kernel does not take.  Then:
@@ -28,6 +30,7 @@ from . import ref
 from .blocked_spmm import dependency_sparse_cuda, frontier_sparse_cuda, tile_row_ptr
 from .dependency_spmm import dependency_partial_cuda, dependency_spmm_cuda
 from .frontier_spmm import frontier_partial_cuda, frontier_spmm_cuda
+from .segment_bag import segment_bag_cuda
 
 __all__ = [
     "frontier_spmm",
@@ -36,6 +39,7 @@ __all__ = [
     "dependency_spmm_partial",
     "frontier_spmm_sparse",
     "dependency_spmm_sparse",
+    "segment_bag",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -48,9 +52,11 @@ LAUNCHES = {
     "dependency_spmm_partial": 0,
     "frontier_spmm_sparse": 0,
     "dependency_spmm_sparse": 0,
+    "segment_bag": 0,
 }
 
 ADJACENCY_DTYPES = (torch.float32, torch.bfloat16)
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 # the kernels index rows with a 16-bit-limited grid dimension of 128-row tiles
 MAX_N = 65535 * 128
 
@@ -285,4 +291,44 @@ def dependency_spmm_sparse(
     out = dependency_sparse_cuda(tiles, tile_cols, row_ptr, sigma, depth, delta, omega, lvl, m,
                                  acc)
     LAUNCHES["dependency_spmm_sparse"] += 1
+    return out
+
+
+def segment_bag(
+    table: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """EmbeddingBag, sum mode (K7): returns f32 [B, D], out[b] =
+    Σ_l w[b,l]·table[indices[b,l]], with table [V, D] f32 or bf16, indices
+    i32 [B, L] (a negative id is padding; the others must lie below V) and
+    optional f32 weights [B, L].  See kernels/ref.py:segment_bag_ref for
+    the semantics."""
+    name = "segment_bag"
+    if table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"{name}: table must be float32 or bfloat16, got {table.dtype}")
+    if table.dim() != 2:
+        raise ValueError(f"{name}: table must be [V, D], got {tuple(table.shape)}")
+    if indices.dtype != torch.int32:
+        raise TypeError(f"{name}: indices must be int32, got {indices.dtype}")
+    if indices.dim() != 2:
+        raise ValueError(f"{name}: indices must be [B, L], got {tuple(indices.shape)}")
+    tensors = [table, indices]
+    if weights is not None:
+        if weights.dtype != torch.float32:
+            raise TypeError(f"{name}: weights must be float32, got {weights.dtype}")
+        if weights.shape != indices.shape:
+            raise ValueError(f"{name}: weights must be {tuple(indices.shape)} like indices, "
+                             f"got {tuple(weights.shape)}")
+        tensors.append(weights)
+    if any(t.device != table.device for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {table.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if table.device.type == "cpu":
+        return ref.segment_bag_ref(table, indices, weights)
+    if indices.shape[0] == 0 or table.shape[1] == 0:
+        return torch.zeros((indices.shape[0], table.shape[1]), device=table.device)
+    out = segment_bag_cuda(table, indices, weights)
+    LAUNCHES["segment_bag"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the level kernels K1–K6.
+"""Plain PyTorch versions of the level kernels K1–K6 and of the
+EmbeddingBag kernel K7.
 
 These are the semantics the CUDA kernels must match; the wrappers in
 :mod:`repro_torch.kernels.ops` run them for tensors on the CPU, and the
@@ -16,6 +17,7 @@ __all__ = [
     "tiles_to_dense",
     "frontier_sparse_ref",
     "dependency_sparse_ref",
+    "segment_bag_ref",
 ]
 
 
@@ -184,3 +186,30 @@ def dependency_sparse_ref(
     the block the tiles hold."""
     g = _dependency_operand(sigma, depth, delta, omega, lvl)
     return _tile_product(tiles, tile_rows, tile_cols, g, m, acc)
+
+
+def segment_bag_ref(
+    table: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """EmbeddingBag, sum mode (K7) — the recsys gather-reduce.
+
+    Args:
+      table:   [V, D] embedding rows (f32 or bf16).
+      indices: i32 [B, L] row ids per bag; a negative id is padding
+               (weight 0).
+      weights: optional f32 [B, L] per-sample weights.
+
+    Returns f32 [B, D]: out[b] = Σ_l w[b,l]·table[indices[b,l]].  The sum
+    runs over l in order, one rounded f32 product and one rounded f32 add
+    a term, as K7 takes it, and gathers one [B, D] slice at a time (never
+    the [B, L, D] block).
+    """
+    num_bags, bag_len = indices.shape
+    mask = (indices >= 0).to(torch.float32)
+    if weights is not None:
+        mask = mask * weights
+    safe = indices.clamp(min=0)
+    out = torch.zeros((num_bags, table.shape[1]), dtype=torch.float32, device=table.device)
+    for lane in range(bag_len):
+        out += table.index_select(0, safe[:, lane]).to(torch.float32) * mask[:, lane, None]
+    return out

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.bc``)."""
+"""Entry points of the port: the BC command line (``python -m
+repro_torch.launch.bc``) and the DLRM cell programs (``steps``)."""

@@ -10,7 +10,11 @@ Tolerances: depth exact, σ rtol 1e-6 (exact integer path counts), δ rtol
 1e-5 / atol 1e-6 (fractional g summed in another order than the plain
 version's matmul), BC rtol 1e-5 / atol 1e-5 against the numpy oracle or
 the single-device dense engine.  K3's and K5's partials are integer-valued
-sums and are held exactly.
+sums and are held exactly.  K7 against its plain version: rtol 1e-6 /
+atol 1e-6 for f32 tables, rtol 2e-2 for bf16 (the JAX kernel test's
+values; the two take the same sum in the same order); the reduced DLRM
+forward on the card against the same model on the CPU at rtol 1e-5 /
+atol 1e-5 (f32 matmuls summed in another order, TF32 off).
 """
 import os
 import subprocess
@@ -27,7 +31,10 @@ from repro_torch.core import bc as pbc
 from repro_torch.core import brandes_reference
 from repro_torch.core.distributed import distributed_betweenness_centrality
 from repro_torch.distributed import GridGroups
+from repro_torch.configs import get_arch
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.models import DLRM
 
 SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64), (1000, 192), (300, 260)]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -79,6 +86,7 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     monkeypatch.setattr(ref, "dependency_partial_ref", refuse)
     monkeypatch.setattr(ref, "frontier_sparse_ref", refuse)
     monkeypatch.setattr(ref, "dependency_sparse_ref", refuse)
+    monkeypatch.setattr(ref, "segment_bag_ref", refuse)
     A, sigma, depth, delta, omega = _state(64, 8, 1, 2, torch.float32, cuda)
     tiles, rows, cols = _tile_list(5, 4, 8, 16, 0, cuda)
     ops.reset_launches()
@@ -88,10 +96,12 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     ops.dependency_spmm_partial(A[:40].contiguous(), sigma, depth, delta, omega, 1)
     ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40)
     ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=40)
+    ops.segment_bag(sigma, torch.zeros((3, 2), dtype=torch.int32, device=cuda))
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"frontier_spmm": 1, "dependency_spmm": 1,
                             "frontier_spmm_partial": 1, "dependency_spmm_partial": 1,
-                            "frontier_spmm_sparse": 1, "dependency_spmm_sparse": 1}
+                            "frontier_spmm_sparse": 1, "dependency_spmm_sparse": 1,
+                            "segment_bag": 1}
 
 
 def test_cuda_wrappers_reject_mixed_devices(cuda):
@@ -240,3 +250,75 @@ def test_cli_defaults_to_the_card(cuda, tmp_path):
     np.testing.assert_allclose(
         np.load(out), brandes_reference(pg.grid_graph(6, 6)), rtol=1e-5, atol=1e-5
     )
+
+
+# (V, D, B, L): the JAX test grid, ragged D (odd, not a multiple of 4 or
+# 8, one above a full warp's 16-byte columns), L = 1 and L = 0
+BAG_SHAPES = [(32, 8, 4, 3), (64, 128, 8, 5), (128, 96, 16, 10), (1000, 64, 32, 26),
+              (50, 13, 6, 4), (300, 7, 100, 1), (64, 260, 9, 3), (10, 64, 1000, 1), (10, 8, 5, 0)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_segment_bag_kernel_matches_plain_version(cuda, dtype, weighted):
+    rtol, atol = (2e-2, 1e-5) if dtype == "bf16" else (1e-6, 1e-6)
+    for V, D, b, L in BAG_SHAPES:
+        rng = np.random.default_rng(V + D + b + L)
+        table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)).to(
+            device=cuda, dtype=DTYPES[dtype])
+        idx = torch.from_numpy(rng.integers(-1, V, size=(b, L)).astype(np.int32)).to(cuda)
+        idx[0] = -1  # a bag of nothing but padding
+        w = (torch.from_numpy(rng.random((b, L)).astype(np.float32)).to(cuda)
+             if weighted else None)
+        ops.reset_launches()
+        got = ops.segment_bag(table, idx, w)
+        assert ops.LAUNCHES["segment_bag"] == 1
+        torch.testing.assert_close(got, ref.segment_bag_ref(table, idx, w), rtol=rtol, atol=atol)
+        assert float(got[0].abs().sum()) == 0.0
+    # a table view that starts off the 16-byte alignment takes the scalar path
+    base = torch.randn(101 * 8 + 1, device=cuda).to(DTYPES[dtype])
+    table = base[1:].view(101, 8)
+    idx = torch.randint(-1, 101, (33, 4), device=cuda, dtype=torch.int32)
+    torch.testing.assert_close(ops.segment_bag(table, idx), ref.segment_bag_ref(table, idx),
+                               rtol=rtol, atol=atol)
+
+
+def test_segment_bag_reads_rows_past_2_to_the_31_elements(cuda):
+    """A [35 000 000, 64] f32 table (2.24e9 elements, 9 GB): row·D overflows
+    32 bits for every row above 33 554 431."""
+    V, D = 35_000_000, 64
+    if torch.cuda.get_device_properties(cuda).total_memory < 12 * 2**30:
+        pytest.skip("needs 12 GiB of device memory")
+    table = torch.empty((V, D), device=cuda)
+    rows = torch.arange(V - 4096, V, device=cuda, dtype=torch.int32)  # all above 2^25
+    table[rows.long()] = torch.randn((rows.numel(), D), device=cuda)
+    table[:4096] = 0.0
+    idx = torch.stack([rows, rows.flip(0), torch.full_like(rows, -1)], dim=1)  # [4096, 3]
+    got = ops.segment_bag(table, idx)
+    want = ref.segment_bag_ref(table, idx)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[:, :1], (table[rows.long()] + table[rows.flip(0).long()])[:, :1],
+                               rtol=1e-6, atol=1e-6)
+    del table
+    torch.cuda.empty_cache()
+
+
+def test_reduced_dlrm_on_the_card_matches_the_cpu(cuda):
+    import dataclasses
+
+    resolve_device("cuda")  # TF32 off
+    cfg = dataclasses.replace(get_arch("dlrm-rm2").arch, rows_per_table=1000, hot_size=3)
+    cpu = DLRM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = DLRM(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    dense = torch.from_numpy(rng.standard_normal((64, cfg.n_dense)).astype(np.float32))
+    sparse = torch.from_numpy(
+        rng.integers(-1, cfg.rows_per_table, (64, cfg.n_sparse, cfg.hot_size)).astype(np.int32))
+    with torch.inference_mode():
+        want_logit, want_feats = cpu(dense, sparse)
+        ops.reset_launches()
+        logit, feats = gpu(dense.to(cuda), sparse.to(cuda))
+        assert ops.LAUNCHES["segment_bag"] == 1
+    torch.testing.assert_close(feats.cpu(), want_feats, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logit.cpu(), want_logit, rtol=1e-5, atol=1e-5)
