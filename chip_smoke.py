@@ -26,9 +26,14 @@ tables):
      (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6); K5/K6
      in plain and acc mode on random tile lists (bm, bk in {5, 8, 32,
      128}, bm != bk, ragged s, fillers, empty tile-rows, trailing pad
-     tiles) and on the real 1×1 cell layouts of phase 8 (R-MAT scale 16 at
-     tiles 128 and 32, the strip graph at tile 128): K5 exact, K6 rtol
-     1e-5 / atol 1e-6;
+     tiles), on a skewed list with one row of 20 480 nonzeros over 160
+     tiles (cut into segments) and on the real 1×1 cell layouts of phase
+     8 (R-MAT scale 16 at tiles 128 and 32, the strip graph at tile 128):
+     K5 exact, K6 rtol 1e-5 / atol 1e-6; the random lists again with
+     signed normal tile values (both within 1e-5 of Σ|a·x|, the scale of
+     a sum's rounding error, which cancellation does not shrink); for every case
+     the nonzero index holds as many entries as the tiles have nonzero
+     entries, and two launches give bitwise-equal outputs;
   4. the main path at full width through ``betweenness_centrality``:
      rmat_graph(16, 16, seed=1) (n = 65536, the paper's edge factor),
      batch 128, h0, sampling="fixed" with 512 roots (4 rounds), on the
@@ -49,9 +54,11 @@ tables):
      serve_bulk lookup on phase 9's tables with click-log and with
      uniform ids), beside the plain versions, one library call as the
      yardstick (torch.matmul for K1–K4, torch.sparse.mm of the cell as a
-     CSR tensor for K5/K6, F.embedding_bag for K7), and the bound (larger
-     of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s f32; K7's bytes count
-     each distinct row once);
+     CSR tensor for K5/K6 — also printed with the operand's build
+     included —, F.embedding_bag for K7), and the bound (larger of bytes /
+     3.35 TB/s and FLOP / 67 TFLOP/s f32; K5/K6's bytes count their
+     nonzero index, not the tiles, and the tile-FFMA figure of the TPU
+     design is printed beside; K7's bytes count each distinct row once);
   8. the BCSR path at full width through
      ``distributed_betweenness_centrality`` on the 1×1 NCCL grid:
      (a) phase 4's graph and roots on fused_sparse at the default tile
@@ -62,8 +69,9 @@ tables):
      block no card holds): the memory guard must refuse ``fused`` before
      allocating, then fused_sparse, h0, one round of 128 fixed roots,
      matching the arc-list engine (rtol 1e-5 / atol 1e-5); every
-     run launches K5 and K6 and none of K1–K4; then (b) once under
-     torch.profiler (busy share, K5/K6/NCCL shares);
+     run launches K5 and K6 and none of K1–K4, and prints the size and
+     build time of its nonzero index; then (b) once under torch.profiler
+     (busy share, K5/K6/NCCL shares);
   9. DLRM-RM2 serving at full width on one card, through the port's
      cells (``build_dlrm_cell``): the [26, 10 485 760, 64] f32 tables
      (65.0 GiB) made on the card from a seeded generator, after checking
@@ -118,6 +126,9 @@ SPARSE_SHAPES = [(6, 5, 5, 8, 33), (4, 7, 8, 5, 130), (40, 30, 32, 128, 128),
 # < 2^24, exact in f32.
 STRIPS, STRIP_SHAPE, STRIP_SAMPLE_K = 86, (3, 1024), 128
 SPARSE_TILE = 32  # phase 8 (a) also runs fused_sparse at this square tile
+# phase 3's skewed K5/K6 case: tile-row 0 holds this many 128 x 128 tiles
+# whose first row is all ones, one row of 20 480 nonzeros
+SKEW_TILES = 160
 
 
 def fail(msg: str) -> None:
@@ -143,6 +154,16 @@ def close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> tu
     return ok, worst
 
 
+def close_to_sum(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor,
+                 rtol: float) -> tuple[bool, float]:
+    """(all |got - want| <= rtol·scale, max of |got - want| / scale), with
+    scale = Σ|a·x| of each output: a sum's rounding error is relative to
+    it, which cancellation between signed terms does not shrink."""
+    diff = (got - want).abs()
+    ok = bool((diff <= rtol * scale).all())
+    return ok, float((diff / scale.clamp(min=torch.finfo(torch.float32).tiny)).max())
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -152,9 +173,15 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_time_ms(fn, reps: int = 5) -> float:
+    """Device ms per call of ``fn``: a warm-up, then ``reps`` calls between
+    two CUDA events, queued behind a ~25 ms device sleep so that the host
+    has enqueued them before the first runs — the events time the card's
+    work, not the host's launches (K5/K6 take ~0.2 ms, near a wrapper's
+    host time)."""
     fn()  # warm-up
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -238,11 +265,34 @@ def tile_list(num_tr: int, num_tc: int, bm: int, bk: int, seed: int, dev, comple
                  (np.stack(data), np.array(rows, np.int32), np.array(cols, np.int32)))
 
 
-def sparse_bytes(tiles, rows, cols, row_ptr, sigma, depth, delta=None, omega=None) -> int:
-    """Bytes a K5/K6 call must move: each input read once, t written once."""
-    ins = [tiles, rows, cols, row_ptr, sigma, depth] + [x for x in (delta, omega) if x is not None]
-    m = (row_ptr.numel() - 1) * tiles.shape[1]
+def sparse_bytes(index, sigma, depth, delta=None, omega=None) -> int:
+    """Bytes a K5/K6 call must move: the nonzeros (col, val) and one row
+    structure (ptr) of its index, and each state input, read once, t
+    written once.  The work list (seg, long_ptr) is the kernel's own
+    choice and is not counted."""
+    ins = [index.ptr, index.col, index.val, sigma, depth] + [
+        x for x in (delta, omega) if x is not None]
+    m = index.ptr.numel() - 1
     return sum(x.nbytes for x in ins) + m * sigma.shape[1] * 4
+
+
+def count_nonzero_tiles(tiles) -> int:
+    """Nonzero entries of a tile list, 2^28 elements at a time."""
+    step = max(1, (1 << 28) // (tiles.shape[1] * tiles.shape[2]))
+    return sum(int(torch.count_nonzero(tiles[t:t + step])) for t in range(0, tiles.shape[0], step))
+
+
+def skewed_list(dev, seed: int):
+    """Phase 3's skewed BCSR list: SKEW_TILES 128 x 128 tiles on tile-row 0
+    whose first row is all ones over 2 % random entries, one random tile on
+    each of tile-rows 1-3, and a trailing zero pad tile."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles = (torch.rand((SKEW_TILES + 4, 128, 128), generator=gen, device=dev) < 0.02).float()
+    tiles[:SKEW_TILES, 0, :] = 1.0
+    tiles[-1] = 0.0
+    rows = torch.tensor([0] * SKEW_TILES + [1, 2, 3, 3], dtype=torch.int32, device=dev)
+    cols = torch.tensor(list(range(SKEW_TILES)) + [5, 6, 7, 0], dtype=torch.int32, device=dev)
+    return tiles, rows, cols
 
 
 def level_state(n: int, s: int, seed: int, lvl: int, dev):
@@ -544,6 +594,7 @@ def main() -> None:
         road_like_graph,
     )
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.blocked_spmm import nonzero_index
 
     t_all = time.perf_counter()
     dev = resolve_device("cuda")  # also switches TF32 off for matmul and cuDNN
@@ -678,25 +729,46 @@ def main() -> None:
     del A_blk
     torch.cuda.empty_cache()
 
-    def sparse_parity(layout, m, st, acc, where) -> tuple[float, float]:
-        """K5/K6 against their plain versions in plain and acc mode; returns
-        the largest K5 and K6 errors."""
-        tiles, rows, cols, row_ptr = layout
+    def sparse_parity(layout, m, st, acc, where, signed=False) -> tuple[float, float]:
+        """K5/K6 against their plain versions in plain and acc mode (0/1
+        tiles: K5 exact, K6 rtol 1e-5 / atol 1e-6; ``signed`` tile values:
+        both within 1e-5 of Σ|a·x|, see close_to_sum), launched twice
+        (bitwise equal), on a nonzero index with one entry per nonzero
+        tile entry; returns the largest K5 and K6 errors."""
+        tiles, rows, cols = layout
         sigma, depth, delta, omega = st
+        index = nonzero_index(tiles, rows, cols, m)
+        check(index.col.numel() == count_nonzero_tiles(tiles),
+              f"the nonzero index of {where} does not hold every nonzero tile entry")
         e5 = e6 = 0.0
         for t_in in (None, acc):
             mode = "plain" if t_in is None else "acc"
-            ok5, err5 = close(
-                ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in,
-                                         row_ptr=row_ptr),
-                ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m, t_in), 0.0, 0.0)
-            ok6, err6 = close(
-                ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=m,
-                                           acc=t_in, row_ptr=row_ptr),
-                ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m,
-                                          t_in), 1e-5, 1e-6)
+
+            def k5():
+                return ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m,
+                                                acc=t_in, index=index)
+
+            def k6():
+                return ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1,
+                                                  m=m, acc=t_in, index=index)
+
+            got5, got6 = k5(), k6()
+            want5 = ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m, t_in)
+            want6 = ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m,
+                                              t_in)
+            if signed:  # σ, g and acc are >= 0: the plain version on |A| gives Σ|a·x|
+                pos = tiles.abs()
+                ok5, err5 = close_to_sum(got5, want5, ref.frontier_sparse_ref(
+                    pos, rows, cols, sigma, depth, 2, m, t_in), 1e-5)
+                ok6, err6 = close_to_sum(got6, want6, ref.dependency_sparse_ref(
+                    pos, rows, cols, sigma, depth, delta, omega, 1, m, t_in), 1e-5)
+            else:
+                ok5, err5 = close(got5, want5, 0.0, 0.0)
+                ok6, err6 = close(got6, want6, 1e-5, 1e-6)
             check(ok5, f"K5 parity ({mode}) at {where}: err {err5:.3g}")
             check(ok6, f"K6 parity ({mode}) at {where}: err {err6:.3g}")
+            check(torch.equal(got5, k5()) and torch.equal(got6, k6()),
+                  f"K5/K6 ({mode}) at {where}: two launches differ")
             e5, e6 = max(e5, err5), max(e6, err6)
         return e5, e6
 
@@ -705,11 +777,30 @@ def main() -> None:
         st = level_state(kdim, s, kdim + s, 2, dev)
         acc = torch.randint(0, 7, (m, s), device=dev).to(torch.float32)
         for complete in (True, False):  # fillers, or empty tile-rows
-            layout = tile_list(num_tr, num_tc, bm, bk, num_tr + s, dev, complete) + (None,)
+            layout = tile_list(num_tr, num_tc, bm, bk, num_tr + s, dev, complete)
             _, e6 = sparse_parity(layout, m, st, acc, f"{layout[0].shape[0]} tiles of {bm}x{bk}, "
                                   f"m={m} k={kdim} s={s} complete={complete}")
+            # the same list with non-0/1 values (weighted tiles)
+            gen = torch.Generator(device=dev).manual_seed(num_tr + s)
+            weighted = (layout[0] * torch.randn(layout[0].shape, generator=gen, device=dev),)
+            e5w, e6w = sparse_parity(weighted + layout[1:], m, st, acc,
+                                     f"non-0/1 tiles {bm}x{bk} s={s}", signed=True)
         print(f"[3] K5/K6 random list {num_tr}x{num_tc} tiles of {bm}x{bk}, s={s}: K5 exact, K6 "
-              f"err {e6:.3g} (plain and acc; filler rows and empty rows)")
+              f"err {e6:.3g} (plain and acc; filler rows and empty rows); signed normal tile "
+              f"values: K5 {e5w:.3g}, K6 {e6w:.3g} of Σ|a·x|; index nnz = nonzero tile "
+              f"entries; two launches bitwise equal")
+    skew = skewed_list(dev, seed=3)
+    for s in (MAIN_BATCH, MAIN_BATCH + MAIN_BATCH // 2):
+        m = 4 * 128
+        acc = torch.randint(0, 7, (m, s), device=dev).to(torch.float32)
+        _, e6 = sparse_parity(skew, m, level_state(SKEW_TILES * 128, s, s, 2, dev), acc,
+                              f"skewed list s={s}")
+        index = nonzero_index(*skew, m)
+        longest = int((index.ptr[1:] - index.ptr[:-1]).max())
+        print(f"[3] K5/K6 skewed list ({SKEW_TILES + 4} tiles of 128x128, longest row {longest} "
+              f"nonzeros in {int(index.long_ptr[1])} segments, {index.long_ptr.numel() - 1} long "
+              f"rows) s={s}: K5 exact, K6 err {e6:.3g} (plain and acc)")
+    del skew, index
     # the 1×1 cell layouts of phase 8, built as the engine builds them
     part_1x1 = partition_2d(graph, 1, 1)
     strips = disjoint_union(*[grid_graph(*STRIP_SHAPE)] * STRIPS)
@@ -730,7 +821,8 @@ def main() -> None:
             del acc
         print(f"[3] K5/K6 {tag}: {layout[0].shape[0]} stored tiles of "
               f"{layout[0].shape[1]}x{layout[0].shape[2]} ({layout[0].nbytes / 2**30:.2f} GiB), "
-              f"K5 exact, K6 err {err_main[('sparse', tag, s_bwd)][1]:.3g} (s={s_bwd})")
+              f"K5 exact, K6 err {err_main[('sparse', tag, s_bwd)][1]:.3g} (s={s_bwd}); index "
+              f"nnz = nonzero tile entries; two launches bitwise equal")
         del layout
         torch.cuda.empty_cache()
     print(f"[3] parity ok in {time.perf_counter() - t3:.1f}s")
@@ -865,6 +957,9 @@ def main() -> None:
                 ok, err = close(torch.from_numpy(res.bc), torch.from_numpy(want.bc), 1e-5, 1e-5)
                 lay = res.layout_stats
                 foot = lay["footprint"]
+                ix = lay["index"]
+                print(f"[8] {tag} set-up: nonzero index of the rank's tiles, {ix['nnz']} entries, "
+                      f"{ix['bytes'] / 2**20:.2f} MiB, built in {ix['build_s']:.3f}s")
                 print(f"[8] {tag} ({kw['engine_kind']}): wall {wall:.3f}s (round loop "
                       f"{res.wall_s:.3f}s), {res.rounds_run} rounds, levels per round "
                       f"{res.round_levels}, tile {lay['tile']}, stored tiles "
@@ -922,8 +1017,10 @@ def main() -> None:
             trace_run(f"[8] {strip_tag} fused_sparse", lambda: distributed_betweenness_centrality(
                 strips, groups, batch_size=MAIN_BATCH, heuristics="h0", engine_kind="fused_sparse",
                 sampling="fixed", sample_seed=0, **b_kw), {
-                "K5": ("bcsr_spmm_kernel", "FrontierOperand"),
-                "K6": ("bcsr_spmm_kernel", "DependencyOperand"), "NCCL": "nccl"})
+                "K5 operand pass": ("operand_kernel", "FrontierOperand"),
+                "K6 operand pass": ("operand_kernel", "DependencyOperand"),
+                "K5/K6 gather pass": "gather_kernel<", "K5/K6 combine pass": "combine_kernel(",
+                "NCCL": "nccl"})
             print(f"[8] BCSR path ok in {time.perf_counter() - t8:.1f}s")
         finally:
             dist.destroy_process_group()
@@ -1075,9 +1172,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     # K5/K6 at phase 8's three cell layouts, each at its main-path width
     for tag, (g_l, part_l, tile, st_map) in layouts.items():
-        tiles, rows, cols, row_ptr = part_l.cell_blocked_sparse(0, 0, *tile, device=dev)
+        tiles, rows, cols = part_l.cell_blocked_sparse(0, 0, *tile, device=dev)
         num_tiles, bm, bk = tiles.shape
         m = part_l.C * part_l.chunk
+        index = nonzero_index(tiles, rows, cols, m)
         # the library yardstick: the same 1x1 cell (A[dst, src] = 1) as a CSR tensor
         idx = torch.from_numpy(np.stack([g_l.dst, g_l.src])).to(dev, torch.int64)
         csr = torch.sparse_coo_tensor(idx, torch.ones(idx.shape[1], device=dev),
@@ -1090,28 +1188,38 @@ def main() -> None:
             sigma, depth, delta, omega = st_map[s]
             if kname == "frontier_spmm_sparse":
                 kern = lambda: ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m,
-                                                        row_ptr=row_ptr)
+                                                        index=index)
                 plain = lambda: ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m)
-                operand = sigma * (depth == 1)
-                nbytes = sparse_bytes(tiles, rows, cols, row_ptr, sigma, depth)
+                make_operand = lambda: sigma * (depth == 1)
+                nbytes = sparse_bytes(index, sigma, depth)
                 err = err_main[("sparse", tag, s)][0]
             else:
                 kern = lambda: ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta,
-                                                          omega, 1, m=m, row_ptr=row_ptr)
+                                                          omega, 1, m=m, index=index)
                 plain = lambda: ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta,
                                                           omega, 1, m)
-                operand = torch.where(depth == 2, (1.0 + delta + omega[:, None])
-                                      / torch.where(sigma > 0, sigma, 1.0), 0.0)
-                nbytes = sparse_bytes(tiles, rows, cols, row_ptr, sigma, depth, delta, omega)
+                make_operand = lambda: torch.where(depth == 2, (1.0 + delta + omega[:, None])
+                                                   / torch.where(sigma > 0, sigma, 1.0), 0.0)
+                nbytes = sparse_bytes(index, sigma, depth, delta, omega)
                 err = err_main[("sparse", tag, s)][1]
-            ms = cuda_time_ms(kern)
+            operand = make_operand()
+            ms = cuda_time_ms(kern, reps=20)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                kern()
+            host_ms = (time.perf_counter() - t) / 20 * 1e3
+            torch.cuda.synchronize()
             plain_ms = cuda_time_ms(plain)
-            lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, operand))
-            t_ops = 2.0 * num_tiles * bm * bk * s / PEAK_F32_FLOP_PER_S * 1e3
+            lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, operand), reps=20)
+            lib_build_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, make_operand()), reps=20)
+            nnz = index.col.numel()
+            t_ops = 2.0 * nnz * s / PEAK_F32_FLOP_PER_S * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
+            t_tile = 2.0 * num_tiles * bm * bk * s / PEAK_F32_FLOP_PER_S * 1e3
             entries.append({
-                "name": f"{kname}[{tag}: {num_tiles} tiles of {bm}x{bk}]",
+                "name": f"{kname}[{tag}: {num_tiles} tiles of {bm}x{bk}, {nnz} nonzeros]",
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/sparse_spmm.cu",
                 "replaces": replaces,
@@ -1120,15 +1228,21 @@ def main() -> None:
                 "ms": ms,
                 "plain_ms": plain_ms,
                 "bound_ms": bound,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms,
             })
-            print(f"[7] {kname} {tag} ({num_tiles} tiles of {bm}x{bk}) s={s}: kernel {ms:.3f} "
-                  f"ms, plain {plain_ms:.3f} ms, torch.sparse.mm (CSR, {csr.values().numel()} "
-                  f"nonzeros) {lib_ms:.3f} ms, bound {bound:.3f} ms ({entries[-1]['bound_by']}; "
-                  f"ops {t_ops:.3f} / bytes {t_bytes:.3f}), {100 * bound / ms:.1f}% of bound")
+            print(f"[7] {kname} {tag} ({num_tiles} tiles of {bm}x{bk}, index {nnz} nonzeros, "
+                  f"{index.nbytes() / 1e6:.2f} MB held with its work list) s={s}: the TPU "
+                  f"design's tile-FFMA work 2·T·bm·bk·s would take {t_tile:.3f} ms at the f32 "
+                  f"rate")
+            print(f"[7] {kname} {tag} s={s}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"torch.sparse.mm (CSR, {csr.values().numel()} nonzeros) {lib_ms:.3f} ms "
+                  f"({lib_build_ms:.3f} ms with the operand's build), bound {bound:.4f} ms "
+                  f"({entries[-1]['bound_by']}; bytes {t_bytes:.4f}: {nbytes / 1e6:.1f} MB / ops "
+                  f"{t_ops:.4f}), {100 * bound / ms:.1f}% of bound, {nbytes / ms / 1e6:.0f} GB/s "
+                  f"effective; host time to enqueue one call {host_ms:.3f} ms")
             del operand
-        del tiles, rows, cols, row_ptr, csr
+        del tiles, rows, cols, csr, index
         torch.cuda.empty_cache()
     entries.extend(k7_entries)  # timed in phase 9, on its tables
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")

@@ -14,8 +14,9 @@ distributed/groups.py for the process groups):
         adjacency block through the partial kernels K3/K4
         (kernels/csrc/partial_spmm.cu), f32 or bf16 block;
       * ``engine_kind="fused_sparse"`` — the block's stored (bm × bk)
-        BCSR tiles through K5/K6 (kernels/csrc/sparse_spmm.cu), for
-        graphs whose dense blocks do not fit;
+        BCSR tiles through K5/K6 (kernels/csrc/sparse_spmm.cu, which sum
+        over the tiles' nonzero index), for graphs whose dense blocks do
+        not fit;
       * ``engine_kind="fused_hybrid"`` — per cell, whichever of the two
         the bytes model (:func:`hybrid_cell_choice`) picks.
   fold (Alg. 2 line 19):
@@ -48,6 +49,7 @@ import torch.distributed as dist
 from ..distributed.groups import GridGroups, all_gather, device_for_rank
 from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, partition_2d
+from ..kernels.blocked_spmm import nonzero_index
 from ..roofline.model import cell_kernel_choice, device_hbm_footprint
 from ..serving.sampling import eligible_roots, plan_sampling
 from .bc import apply_sampling_rescale
@@ -241,9 +243,12 @@ def distributed_graph_arrays(
     ``(src_local, dst_local)`` (int64 [max_arcs]) for ``"sparse"``; the
     dense block ``(A[rows_i, cols_j],)`` ([C·chunk, R·chunk], bf16 for
     ``"fused_bf16"``, built on the device) for the dense fused engines;
-    the cell's BCSR list ``(tiles, tile_rows, tile_cols, row_ptr)``
+    the cell's BCSR list and the nonzero index K5/K6 read
+    ``(tiles, tile_rows, tile_cols, index)``
     (:meth:`TwoDPartition.cell_blocked_sparse` at ``tile``, default the
-    largest divisor of chunk ≤ 128, multiples of 8 preferred) for
+    largest divisor of chunk ≤ 128, multiples of 8 preferred;
+    :func:`~repro_torch.kernels.blocked_spmm.nonzero_index` of it, built
+    here once per layout on a CUDA device, None on the CPU) for
     ``"fused_sparse"``; for ``"fused_hybrid"`` whichever of the last two
     ``dense_cells[i, j]`` (the :func:`hybrid_cell_choice`) picks — a rank
     never holds both."""
@@ -258,7 +263,12 @@ def distributed_graph_arrays(
             raise ValueError("fused_hybrid needs dense_cells (hybrid_cell_choice)")
         engine_kind = "fused" if dense_cells[i, j] else "fused_sparse"
     if engine_kind == "fused_sparse":
-        return partition.cell_blocked_sparse(i, j, *(tile or (None, None)), device=device)
+        tiles, rows, cols = partition.cell_blocked_sparse(
+            i, j, *(tile or (None, None)), device=device
+        )
+        m = partition.C * partition.chunk
+        index = nonzero_index(tiles, rows, cols, m) if tiles.device.type == "cuda" else None
+        return tiles, rows, cols, index
     dtype = torch.bfloat16 if engine_kind == "fused_bf16" else torch.float32
     return (partition.cell_dense_block(i, j, dtype, device),)
 
@@ -496,6 +506,9 @@ def distributed_betweenness_centrality(
     graph_args = distributed_graph_arrays(
         part, engine_kind, groups.i, groups.j, dev, tile=tile, dense_cells=dense_cells
     )
+    index = graph_args[3] if len(graph_args) == 4 else None  # a tiled cell's, on the card
+    index_stats = None if index is None else {
+        "nnz": index.col.numel(), "bytes": index.nbytes(), "build_s": index.build_s}
     driver = BCDriver(
         lambda sources, derived: round_fn(graph_args, omega, sources, derived),
         schedule,
@@ -507,14 +520,19 @@ def distributed_betweenness_centrality(
         rounds_per_dispatch=groups.fr,
     )
     result = apply_sampling_rescale(driver.run(), plan)
-    result.layout_stats = _layout_stats(foot, tile_counts, dense_cells)
+    result.layout_stats = _layout_stats(foot, tile_counts, dense_cells, index_stats)
     return result if full_result else (result.bc, schedule)
 
 
-def _layout_stats(foot: dict, tile_counts: dict | None, dense_cells: np.ndarray | None) -> dict:
+def _layout_stats(foot: dict, tile_counts: dict | None, dense_cells: np.ndarray | None,
+                  index_stats: dict | None) -> dict:
     """The run's footprint record and, for the tiled engines, the tile
-    shape and the stored-tile counts of the ranks that hold tiles."""
+    shape and the stored-tile counts of the ranks that hold tiles, and
+    this rank's nonzero index (entries, bytes, build seconds) if it holds
+    tiles."""
     stats = {"footprint": foot}
+    if index_stats is not None:
+        stats["index"] = index_stats
     if tile_counts is not None:
         stored = tile_counts["stored_full_cell"]
         if dense_cells is not None:

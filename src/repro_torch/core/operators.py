@@ -39,7 +39,7 @@ import torch.distributed as dist
 
 from ..distributed.groups import GridGroups, all_gather, reduce_scatter
 from ..kernels import ops
-from ..kernels.blocked_spmm import tile_row_ptr
+from ..kernels.blocked_spmm import NonzeroIndex
 
 __all__ = [
     "TraversalOperator",
@@ -388,9 +388,12 @@ class DistributedFusedSparseOperator(DistributedFusedOperator):
     The rank's block is its stored tile list (``tiles`` f32 [T, bm, bk],
     ``tile_rows`` / ``tile_cols`` i32 [T], row-sorted; built on the device
     by :meth:`~repro_torch.graphs.partition.TwoDPartition.cell_blocked_sparse`),
-    so the rank holds and streams O(T·bm·bk) adjacency bytes instead of
-    the dense block's (C·chunk)·(R·chunk).  ``row_ptr`` (the CSR row
-    pointer the kernels walk) is built once here when not given.
+    so the rank holds O(T·bm·bk) adjacency bytes instead of the dense
+    block's (C·chunk)·(R·chunk).  K5/K6 read the tiles' nonzero ``index``
+    (:func:`~repro_torch.kernels.blocked_spmm.nonzero_index`, built once
+    per layout by :func:`~repro_torch.core.distributed.distributed_graph_arrays`;
+    None on the CPU, where the plain versions read the tiles) instead of
+    the tiles, so a level streams O(nnz) of them.
     """
 
     def __init__(
@@ -398,7 +401,7 @@ class DistributedFusedSparseOperator(DistributedFusedOperator):
         tiles: torch.Tensor,
         tile_rows: torch.Tensor,
         tile_cols: torch.Tensor,
-        row_ptr: torch.Tensor | None = None,
+        index: NonzeroIndex | None,
         *,
         chunk: int,
         groups: GridGroups,
@@ -410,20 +413,18 @@ class DistributedFusedSparseOperator(DistributedFusedOperator):
         self.device = tiles.device
         self.tiles, self.tile_rows, self.tile_cols = tiles, tile_rows, tile_cols
         self.m = self.C * chunk
-        self.row_ptr = (
-            tile_row_ptr(tile_rows, self.m // tiles.shape[1]) if row_ptr is None else row_ptr
-        )
+        self.index = index
 
     def _partial_forward(self, sigma_col, depth_col, lvl):
         return ops.frontier_spmm_sparse(
             self.tiles, self.tile_rows, self.tile_cols, sigma_col, depth_col, lvl,
-            m=self.m, row_ptr=self.row_ptr,
+            m=self.m, index=self.index,
         )
 
     def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
         return ops.dependency_spmm_sparse(
             self.tiles, self.tile_rows, self.tile_cols, sigma_col, depth_col, delta_col,
-            omega_col, lvl, m=self.m, row_ptr=self.row_ptr,
+            omega_col, lvl, m=self.m, index=self.index,
         )
 
 
@@ -435,9 +436,10 @@ class DistributedFusedHybridOperator(DistributedFusedSparseOperator):
     One rank per device, so each rank knows its own cell's choice on the
     host: a dense-chosen cell (``dense_cell``) holds only its dense block
     (``operands = (block,)``) and runs K3/K4, a sparse-chosen cell only its
-    tile list (``operands = (tiles, tile_rows, tile_cols[, row_ptr])``) and
-    runs K5/K6.  The branch is taken in Python, inside the block-local
-    hooks only, so every rank of a mixed grid runs the same collectives.
+    tile list and its nonzero index (``operands = (tiles, tile_rows,
+    tile_cols, index)``) and runs K5/K6.  The branch is taken in Python,
+    inside the block-local hooks only, so every rank of a mixed grid runs
+    the same collectives.
     (The JAX package ships both operand sets to every device and branches
     with ``lax.cond``, because ``shard_map`` needs uniform shapes.)
     """

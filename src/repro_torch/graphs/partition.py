@@ -408,24 +408,23 @@ class TwoDPartition:
 
     def cell_blocked_sparse(
         self, i: int, j: int, bm: int | None = None, bk: int | None = None, device=None
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Cell (i, j)'s BCSR tile list, built on ``device``: ``(tiles f32
-        [T, bm, bk], tile_rows i32 [T], tile_cols i32 [T], row_ptr i32
-        [C·chunk/bm + 1])``, row-sorted and row-complete, with no padding
-        to a uniform T (each rank holds only its own cell).  The host
-        computes only the tile indices; the tile data is written on the
-        device from the cell's arcs, so the host never holds it (15.7 GB at
-        the 1×1 grid of R-MAT scale 16 and tile 128)."""
+        [T, bm, bk], tile_rows i32 [T], tile_cols i32 [T])``, row-sorted
+        and row-complete, with no padding to a uniform T (each rank holds
+        only its own cell).  The host computes only the tile indices; the
+        tile data is written on the device from the cell's arcs, so the
+        host never holds it (15.7 GB at the 1×1 grid of R-MAT scale 16 and
+        tile 128)."""
         bm, bk = self._tile_dims(bm, bk)
         rows, cols, arc_tile = self._cell_tile_order(i, j, bm, bk)
         d, s = self._cell_arcs(i, j)
         flat = (arc_tile * bm + d % bm) * bk + s % bk
         tiles = torch.zeros(rows.size * bm * bk, dtype=torch.float32, device=device)
         tiles[torch.from_numpy(flat).to(device)] = 1
-        row_ptr = np.searchsorted(rows, np.arange(self.C * self.chunk // bm + 1))
         return (
             tiles.view(rows.size, bm, bk),
-            *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (rows, cols, row_ptr)),
+            *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (rows, cols)),
         )
 
 

@@ -4,7 +4,8 @@
   ref.py              plain PyTorch versions (the semantics)
   frontier_spmm.py    K1 launcher (csrc/frontier_spmm.cu), K3 (csrc/partial_spmm.cu)
   dependency_spmm.py  K2 launcher (csrc/dependency_spmm.cu), K4 (csrc/partial_spmm.cu)
-  blocked_spmm.py     K5/K6 launchers (csrc/sparse_spmm.cu), BCSR row pointer
+  blocked_spmm.py     K5/K6 launchers (csrc/sparse_spmm.cu) and the tiles'
+                      nonzero index the kernels read
   segment_bag.py      K7 launcher (csrc/segment_bag.cu), the DLRM EmbeddingBag
   _build.py           nvcc build at first use + ctypes loading
 

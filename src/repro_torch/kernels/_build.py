@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libbc_kernels.so"
 
 # sm_90a: Hopper with its architecture-specific features.  No
-# --use_fast_math: K2 and K4 divide, and the reference divides in IEEE f32.
+# --use_fast_math: K2, K4 and K6 divide, and the reference divides in IEEE f32.
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
 
@@ -41,11 +41,12 @@ _DEPENDENCY_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _FRONTIER_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 # (A, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, lvl, device, stream)
 _DEPENDENCY_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-# (tiles, tile_cols, row_ptr, σ, d, t_in or NULL, t_out, m, k, s, bm, bk, lvl, device, stream)
-_FRONTIER_SPARSE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-# (tiles, tile_cols, row_ptr, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, bm, bk, lvl,
-#  device, stream)
-_DEPENDENCY_SPARSE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# (col, val, seg, long_ptr, σ, d, t_in or NULL, t_out, operand, partials,
+#  m, k, s, n_seg, n_long_rows, lvl, device, stream)
+_FRONTIER_SPARSE_ARGS = [_P] * 10 + [_I] * 7 + [_P]
+# (col, val, seg, long_ptr, σ, d, δ, ω, t_in or NULL, t_out, operand, partials,
+#  m, k, s, n_seg, n_long_rows, lvl, device, stream)
+_DEPENDENCY_SPARSE_ARGS = [_P] * 12 + [_I] * 7 + [_P]
 # (table, idx, weights or NULL, out, num_bags, L, D, device, stream)
 _SEGMENT_BAG_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _P]
 SIGNATURES = {

@@ -1,7 +1,8 @@
 // K5 and K6 — pre-fold partial level products over a blocked-sparse (BCSR)
-// adjacency block: only the stored (bm x bk) tiles of one device's block of
-// the 2-D decomposition are read (the block-local compute of the
-// fused_sparse engine and of the sparse-chosen cells of fused_hybrid).
+// adjacency block (the block-local compute of the fused_sparse engine and
+// of the sparse-chosen cells of fused_hybrid), done as a gather-sum over
+// the block's nonzeros so that a launch's work follows nnz·s, not the
+// stored tile area T·bm·bk·s.
 //
 // Replaces the TPU kernels of the JAX package
 //   K5  kernels/blocked_spmm.py:frontier_sparse_kernel and
@@ -11,154 +12,305 @@
 //   K6  kernels/blocked_spmm.py:dependency_sparse_kernel and
 //       dependency_sparse_acc_kernel (wrapper dependency_sparse_pallas,
 //       ops.dependency_spmm_sparse).
-// With tiles [T, bm, bk] (row-major f32), their operand tile column
-// tile_cols [T] and the CSR row pointer row_ptr [m/bm + 1] of the
-// row-sorted tile list (tile-row r owns tiles [row_ptr[r], row_ptr[r+1])):
+// With the stored tiles A_tile [bm, bk] at tile column tile_cols:
 //
 //     K5:  t = Σ_tiles A_tile @ (σ ⊙ [d == lvl-1])[tile_cols·bk : +bk]
 //     K6:  t = Σ_tiles A_tile @ g[tile_cols·bk : +bk],
 //          g = (1 + δ + ω) / σ̂ on d == lvl+1
 //     acc mode (t_in non-null):  t = t_in + the sum
 //
-// Design.  The Pallas kernels walk a sequential grid over T and carry a
-// VMEM accumulator from the first tile of a tile-row run to its last.
-// Hopper blocks run in no order, so here one thread block owns one
-// (tile-row, 128-column s-block) output tile and loops over its run
-// itself, accumulating each stored tile through the shared main loop of
-// level_tile.cuh: the A tile is loaded once per 16-deep k step, and the
-// [bk, 128] operand tile is built *while it loads* from the gathered rows
-// tile_cols[t]·bk + k of σ/d (and δ, ω), so neither the masked frontier nor
-// g reaches device memory.  Operand rows are gathered by tile_cols, so
-// their reuse between the blocks of a column comes from L2, not from the
-// layout.  The block writes its [bm, 128] output once at the end, adding
-// t_in in acc mode: every output row is written exactly once — also in a
-// tile-row with no tile, or only an all-zero filler — with no atomics, no
-// zero pre-fill and a summation order that is fixed run to run.  The
-// reference's trailing pad tiles (zero data on the last tile-row) add
-// zeros and harm nothing.
+// Input.  Not the tiles but their nonzero index, built once per layout on
+// the device (blocked_spmm.py:nonzero_index): a row-CSR of the block's
+// nonzero entries, col i32 [nnz] (operand row tile_cols·bk + c, ascending
+// within a row) and val f32 [nnz] (the tile entry, so weighted or test
+// tiles stay right), and the work list seg i32 [S, 3] of (row, lo, hi)
+// ranges of col/val: first the segments of the L rows longer than one
+// segment (at most SEGMENT nonzeros each, in row and position order;
+// long_ptr i32 [L + 1] says which belong to which row), then every other
+// row whole, empty rows included.  Fillers and the reference's trailing
+// pad tiles are all zero, so they have no entry and add nothing.
 //
-// Tile shape.  bm and bk are any divisors of the partition chunk (5 in
-// the small CPU cases, 32 at --tile 32, 128 by default).  The kernel is
-// instantiated for TBM = 32, 64 and 128 output rows per block (64, 128
-// and 256 threads, an 8 x 8 micro-tile each) and the launcher takes the
-// smallest TBM >= bm, so a 32-row tile does not pay for 128 rows of FFMA;
-// a tile-row taller than 128 is split over ceil(bm / 128) blocks.  Rows
-// >= bm and k >= bk are masked in the kernel, and a tile is addressed
-// with a size_t offset (256 655 tiles of 128 x 128 are 4.2e9 elements).
+// Design, three launches on the caller's stream:
+//   1. operand pass: the masked frontier (K5) or g (K6) is written once
+//      into a [k, s] f32 scratch (one IEEE division per element for g,
+//      no --use_fast_math).  Gathering σ, d (and δ, ω) per nonzero
+//      instead would read 2 (K5) or 3 (K6) gathered rows per entry and
+//      repeat the division nnz/k times; the pass costs 3·k·s·4 bytes for
+//      K5 (33.5 MB a tensor at R-MAT scale 16, s = 128), 4·k·s·4 + 4·k for K6.
+//   2. gather pass: one warp per work segment walks its entries in index
+//      order: 32 (col, val) pairs load at once, coalesced, and are
+//      broadcast by shuffle; the operand rows of four entries are loaded
+//      before any is summed, so their latencies overlap.  Each lane holds
+//      NV vectors of VEC columns of the [s] sum (float4 at s = 128, 3 x
+//      float2 at s = 192) and accumulates with f32 FMA, no tensor cores
+//      and no TF32: σ holds exact integer path counts.  A whole row is
+//      written to t_out (adding t_in in acc mode); a long row's segment
+//      writes its partial [s] to a scratch slot.  Long rows' segments come
+//      first, so the heaviest work starts first (R-MAT rows are skewed: a
+//      few hold thousands of nonzeros, many none).
+//   3. combine pass (only when L > 0): one block per long row sums its
+//      partials in segment order, adds t_in, writes the row.
+// Every output row is written exactly once, with no atomics and no zero
+// pre-fill, and the summation order is fixed by the index: a launch is
+// bitwise reproducible.  K5's integer sums below 2^24 are exact in any
+// order, so K5 equals its plain version bit for bit; K6 agrees to f32
+// rounding.  Offsets are formed as size_t (col·s reaches 5e7 at the strip
+// graph and the operand has no 2^31 cap).
 //
-// Bound: max(bytes / 3.35 TB/s, 2·stored·bm·bk·s FLOP / 67 TFLOP/s of f32
-// FFMA).  At s = 128: R-MAT scale 16 on a 1x1 grid at tile 128 (256 655
-// stored tiles, 15.7 GiB) 16.1 ms of FLOP against 5.0 ms of bytes; at tile
-// 32 (1 213 472 tiles) 4.75 ms against 1.5 ms; the 512 x 512 grid graph
-// at tile 128 (9 208 tiles) 0.58 ms against 0.26 ms.  K6 at s = 192 is
-// 1.5x that.  So K5/K6 are bound by f32 compute, like K1-K4, and share
-// their design: no tensor cores and no TF32 (σ holds exact integer path
-// counts), 8 x 8 register micro-tiles fed from float4 shared-memory reads,
-// IEEE division for g (no --use_fast_math).
-#include <climits>
+// Changed edge case.  The dense tile product multiplies the zero entries
+// of a stored tile too, so a non-finite operand row gives 0·inf = NaN in
+// every row of that tile; the index has no zero entries, so here such a
+// row reaches only the rows adjacent to it — what the arc-list engine
+// gives.  It matters only past the f32 σ limit (ROADMAP Queue 3).
+//
+// Bound: bytes.  The function must read the index (col and val, 8 bytes
+// a nonzero, and one row structure, ptr), σ and d (K6: and δ, ω) once
+// and write t once; the work list is the kernel's own choice, not
+// counted.  R-MAT scale 16 on a 1x1 grid (1 818 806 nonzeros), K5 at
+// s = 128: 14.8 MB of index + 67.1 MB + 33.5 MB = 115.5 MB, 0.034 ms at
+// 3.35 TB/s; K6 at s = 192: 216 MB, 0.065 ms.  FLOP are
+// 2·nnz·s (0.47 GFLOP for K5), far under the f32 rate.
+// The gathered rows are nnz·s·4 bytes (0.93 GB for K5 at s = 128): the
+// design gets near the bound only while the [k, s] operand stays in L2
+// (50 MB: 33.5 MB at s = 128, 50 MB at s = 192), so those reads are L2
+// hits, not HBM traffic.  The strips' operand (135 MB at s = 128) does not
+// fit; their rows touch operand rows within ±1024 of their own, and the
+// short rows run in row order, so the rows in flight share a window of
+// the operand that L2 does hold.
+#include <algorithm>
 
 #include "level_tile.cuh"
 
 namespace {
 
-// 256 / TBM resident blocks (512 threads an SM) cap the registers at 128 a
-// thread, as K1-K4 use: unbounded, the tile loop took 177-255 and one
-// block of 256 threads filled an SM.
-template <int TBM, typename Operand>
-__global__ void __launch_bounds__(2 * TBM, 256 / TBM)
-    bcsr_spmm_kernel(const float* __restrict__ tiles, const int* __restrict__ tile_cols,
-                     const int* __restrict__ row_ptr, Operand op,
-                     const float* __restrict__ t_in, float* __restrict__ t_out, int kdim,
-                     int s, int bm, int bk, int row_blocks, int col_blocks) {
-  // blocks of one tile-row are neighbours, so a second s-block finds the
-  // row's tiles in L2
-  const int cb = blockIdx.x % col_blocks;
-  const int rest = blockIdx.x / col_blocks;
-  const int rb = rest % row_blocks;
-  const int r = rest / row_blocks;  // tile-row
-  const int row0 = rb * TBM;        // first row of this block inside the tile-row
-  const int col0 = cb * bc::BS;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;     // warps (work segments) per block of the gather pass
+constexpr int BATCH = 4;     // entries whose operand rows load before any is summed
 
-  float acc[bc::TM][bc::TN];
-  bc::zero(acc);
-  const size_t tile_elems = static_cast<size_t>(bm) * bk;
-  const int end = row_ptr[r + 1];
-  for (int t = row_ptr[r]; t < end; ++t) {
-    const int k_op = tile_cols[t] * bk;
-    const int k_valid = min(bk, kdim - k_op);  // never reads past the operand
-    bc::tile_accumulate<TBM>(tiles + static_cast<size_t>(t) * tile_elems,
-                             static_cast<size_t>(bk), bm, k_valid, s, row0, col0, k_op, op,
-                             acc);
+template <int VEC> struct Vec;
+template <> struct Vec<1> { using T = float; };
+template <> struct Vec<2> { using T = float2; };
+template <> struct Vec<4> { using T = float4; };
+
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_vec(const float* p) {
+  return *reinterpret_cast<const typename Vec<VEC>::T*>(p);
+}
+
+__device__ __forceinline__ void fma_vec(float (&acc)[1], float v, float x) {
+  acc[0] = fmaf(v, x, acc[0]);
+}
+__device__ __forceinline__ void fma_vec(float (&acc)[2], float v, float2 x) {
+  acc[0] = fmaf(v, x.x, acc[0]);
+  acc[1] = fmaf(v, x.y, acc[1]);
+}
+__device__ __forceinline__ void fma_vec(float (&acc)[4], float v, float4 x) {
+  acc[0] = fmaf(v, x.x, acc[0]);
+  acc[1] = fmaf(v, x.y, acc[1]);
+  acc[2] = fmaf(v, x.z, acc[2]);
+  acc[3] = fmaf(v, x.w, acc[3]);
+}
+
+// 1. operand[k, s] = op(k, j): grid-stride over rows, threads over columns.
+template <typename Operand>
+__global__ void operand_kernel(Operand op, float* __restrict__ out, int kdim, int s) {
+  for (int k = blockIdx.x; k < kdim; k += gridDim.x) {
+    float* row = out + static_cast<size_t>(k) * s;
+    for (int j = threadIdx.x; j < s; j += blockDim.x) row[j] = op(k, j);
   }
+}
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+// 2. One warp per work segment; lane `lane` owns columns
+// c0 + (v·32 + lane)·VEC + [0, VEC) for v < NV, over passes of
+// W = 32·VEC·NV columns.  s is a multiple of VEC (the launcher's choice).
+// At least 4 blocks an SM (64 registers a thread): with no minimum ptxas
+// kept the s = 128 instance at 40 registers and spilled 44 bytes.
+template <int VEC, int NV>
+__global__ void __launch_bounds__(32 * WARPS, 4)
+    gather_kernel(const float* __restrict__ operand, const int* __restrict__ col,
+                  const float* __restrict__ val, const int* __restrict__ seg, int n_seg,
+                  int n_long_seg, const float* __restrict__ t_in, float* __restrict__ t_out,
+                  float* __restrict__ partials, int kdim, int s) {
+  using V = typename Vec<VEC>::T;
+  const int w = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (w >= n_seg) return;  // warp-uniform: no shuffle below misses a lane
+  const int lane = threadIdx.x % 32;
+  const int row = seg[3 * w];
+  const int lo = seg[3 * w + 1];
+  const int hi = seg[3 * w + 2];
+  const bool partial = w < n_long_seg;
+  float* dst = partial ? partials + static_cast<size_t>(w) * s
+                       : t_out + static_cast<size_t>(row) * s;
+  const float* add = partial || t_in == nullptr ? nullptr : t_in + static_cast<size_t>(row) * s;
+
+  for (int c0 = 0; c0 < s; c0 += 32 * VEC * NV) {
+    float acc[NV][VEC];
 #pragma unroll
-  for (int i = 0; i < bc::TM; ++i) {
-    const int lr = row0 + bc::frag_offset(ty, i, TBM / 2);
-    if (lr >= bm) continue;
-    const size_t row = static_cast<size_t>(r) * bm + lr;
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-    for (int j = 0; j < bc::TN; ++j) {
-      const int c = col0 + bc::frag_offset(tx, j);
-      if (c >= s) continue;
-      const size_t o = row * s + c;
-      t_out[o] = t_in != nullptr ? t_in[o] + acc[i][j] : acc[i][j];
+      for (int x = 0; x < VEC; ++x) acc[v][x] = 0.f;
+    bool mine[NV];  // this lane's vector v lies inside s
+#pragma unroll
+    for (int v = 0; v < NV; ++v) mine[v] = c0 + (v * 32 + lane) * VEC < s;
+
+    for (int base = lo; base < hi; base += 32) {
+      const int e = base + lane;
+      int my_col = 0;
+      float my_val = 0.f;
+      if (e < hi) {
+        my_col = col[e];
+        my_val = val[e];
+      }
+      const int n = min(32, hi - base);
+      int i = 0;
+      for (; i + BATCH <= n; i += BATCH) {
+        int c[BATCH];
+        float a[BATCH];
+        V x[BATCH][NV];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          c[u] = __shfl_sync(FULL, my_col, i + u);
+          a[u] = __shfl_sync(FULL, my_val, i + u);
+          if (c[u] >= kdim) a[u] = 0.f;  // past the operand: adds nothing, reads nothing
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const float* src = operand + static_cast<size_t>(c[u]) * s + c0 + lane * VEC;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            x[u][v] = mine[v] && c[u] < kdim ? load_vec<VEC>(src + v * 32 * VEC) : V{};
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) fma_vec(acc[v], a[u], x[u][v]);
+      }
+      for (; i < n; ++i) {
+        const int c = __shfl_sync(FULL, my_col, i);
+        const float a = __shfl_sync(FULL, my_val, i);
+        if (c >= kdim) continue;  // never reads past the operand (warp-uniform)
+        const float* src = operand + static_cast<size_t>(c) * s + c0 + lane * VEC;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (mine[v]) fma_vec(acc[v], a, load_vec<VEC>(src + v * 32 * VEC));
+      }
+    }
+
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (!mine[v]) continue;
+      const int j = c0 + (v * 32 + lane) * VEC;
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) {
+        dst[j + x] = add != nullptr ? add[j + x] + acc[v][x] : acc[v][x];
+      }
     }
   }
 }
 
-template <int TBM, typename Operand>
-int launch_tbm(const void* tiles, const void* tile_cols, const void* row_ptr, const Operand& op,
-               const void* t_in, void* t_out, int m, int kdim, int s, int bm, int bk,
-               cudaStream_t stream) {
-  const int row_blocks = (bm + TBM - 1) / TBM;
-  const int col_blocks = (s + bc::BS - 1) / bc::BS;
-  const long long blocks = static_cast<long long>(m / bm) * row_blocks * col_blocks;
-  if (blocks <= 0 || blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  bcsr_spmm_kernel<TBM, Operand><<<static_cast<unsigned>(blocks), bc::threads_for<TBM>(), 0,
-                                   stream>>>(
-      static_cast<const float*>(tiles), static_cast<const int*>(tile_cols),
-      static_cast<const int*>(row_ptr), op, static_cast<const float*>(t_in),
-      static_cast<float*>(t_out), kdim, s, bm, bk, row_blocks, col_blocks);
-  return static_cast<int>(cudaGetLastError());
+// 3. One block per long row: t = [t_in +] Σ its segments' partials, in order.
+__global__ void combine_kernel(const float* __restrict__ partials, const int* __restrict__ seg,
+                               const int* __restrict__ long_ptr, const float* __restrict__ t_in,
+                               float* __restrict__ t_out, int s) {
+  const int j0 = long_ptr[blockIdx.x];
+  const int j1 = long_ptr[blockIdx.x + 1];
+  const size_t row = static_cast<size_t>(seg[3 * j0]) * s;
+  for (int c = threadIdx.x; c < s; c += blockDim.x) {
+    float acc = 0.f;
+    for (int j = j0; j < j1; ++j) acc += partials[static_cast<size_t>(j) * s + c];
+    t_out[row + c] = t_in != nullptr ? t_in[row + c] + acc : acc;
+  }
 }
 
+// The gather pass's arguments, as gather_kernel takes them.
+struct Gather {
+  const float* operand;
+  const int* col;
+  const float* val;
+  const int* seg;
+  int n_seg, n_long_seg;
+  const float* t_in;
+  float* t_out;
+  float* partials;
+  int kdim, s;
+};
+
+template <int VEC, int NV>
+void launch_gather(const Gather& g, cudaStream_t stream) {
+  gather_kernel<VEC, NV><<<(g.n_seg + WARPS - 1) / WARPS, 32 * WARPS, 0, stream>>>(
+      g.operand, g.col, g.val, g.seg, g.n_seg, g.n_long_seg, g.t_in, g.t_out, g.partials,
+      g.kdim, g.s);
+}
+
+template <int VEC>
+void launch_gather_nv(int nv, const Gather& g, cudaStream_t stream) {
+  switch (nv) {
+    case 1: return launch_gather<VEC, 1>(g, stream);
+    case 2: return launch_gather<VEC, 2>(g, stream);
+    case 3: return launch_gather<VEC, 3>(g, stream);
+    default: return launch_gather<VEC, 4>(g, stream);
+  }
+}
+
+// operand and partials are the wrapper's scratch: [kdim, s] and
+// [n_long_seg, s] f32 (either may be empty).
 template <typename Operand>
-int launch(const void* tiles, const void* tile_cols, const void* row_ptr, const Operand& op,
-           const void* t_in, void* t_out, int m, int kdim, int s, int bm, int bk, int device,
-           void* stream) {
+int launch(const Operand& op, const void* col, const void* val, const void* seg,
+           const void* long_ptr, const void* t_in, void* t_out, void* operand, void* partials,
+           int m, int kdim, int s, int n_seg, int n_long_rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bm <= 0 || bk <= 0 || m % bm != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_long_seg = n_seg - (m - n_long_rows);  // long rows' segments come first
+  if (m <= 0 || s <= 0 || kdim < 0 || n_long_rows < 0 || n_long_seg < n_long_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (bm <= 32)
-    return launch_tbm<32>(tiles, tile_cols, row_ptr, op, t_in, t_out, m, kdim, s, bm, bk, st);
-  if (bm <= 64)
-    return launch_tbm<64>(tiles, tile_cols, row_ptr, op, t_in, t_out, m, kdim, s, bm, bk, st);
-  return launch_tbm<128>(tiles, tile_cols, row_ptr, op, t_in, t_out, m, kdim, s, bm, bk, st);
+  auto* opnd = static_cast<float*>(operand);
+  if (kdim > 0) operand_kernel<<<std::min(kdim, 132 * 16), 128, 0, st>>>(op, opnd, kdim, s);
+
+  // VEC: the widest of 4, 2, 1 that divides s (the operand scratch, the
+  // only vector-loaded tensor, comes aligned from the caching allocator);
+  // float2 at s = 192 so that 3 x 2 x 32 lanes cover it with none idle.
+  int vec = s % 4 == 0 ? 4 : s % 2 == 0 ? 2 : 1;
+  if (vec == 4 && s % 128 != 0 && s % 64 == 0) vec = 2;
+  const int nv = std::min(4, (s + 32 * vec - 1) / (32 * vec));
+  const Gather g{opnd, static_cast<const int*>(col), static_cast<const float*>(val),
+                 static_cast<const int*>(seg), n_seg, n_long_seg,
+                 static_cast<const float*>(t_in), static_cast<float*>(t_out),
+                 static_cast<float*>(partials), kdim, s};
+  if (vec == 4) launch_gather_nv<4>(nv, g, st);
+  else if (vec == 2) launch_gather_nv<2>(nv, g, st);
+  else launch_gather_nv<1>(nv, g, st);
+  if (n_long_rows > 0)
+    combine_kernel<<<n_long_rows, 128, 0, st>>>(g.partials, g.seg,
+                                                static_cast<const int*>(long_ptr), g.t_in,
+                                                g.t_out, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // t_in may be NULL (plain mode); otherwise the acc mode adds it to the sum.
-extern "C" int frontier_sparse_f32(const void* tiles, const void* tile_cols, const void* row_ptr,
-                                   const void* sigma, const void* depth, const void* t_in,
-                                   void* t_out, int m, int kdim, int s, int bm, int bk, int lvl,
+extern "C" int frontier_sparse_f32(const void* col, const void* val, const void* seg,
+                                   const void* long_ptr, const void* sigma, const void* depth,
+                                   const void* t_in, void* t_out, void* operand, void* partials,
+                                   int m, int kdim, int s, int n_seg, int n_long_rows, int lvl,
                                    int device, void* stream) {
   const bc::FrontierOperand op{static_cast<const float*>(sigma), static_cast<const int*>(depth),
                                s, lvl - 1};
-  return launch(tiles, tile_cols, row_ptr, op, t_in, t_out, m, kdim, s, bm, bk, device, stream);
+  return launch(op, col, val, seg, long_ptr, t_in, t_out, operand, partials, m, kdim, s, n_seg,
+                n_long_rows, device, stream);
 }
 
-extern "C" int dependency_sparse_f32(const void* tiles, const void* tile_cols,
-                                     const void* row_ptr, const void* sigma, const void* depth,
+extern "C" int dependency_sparse_f32(const void* col, const void* val, const void* seg,
+                                     const void* long_ptr, const void* sigma, const void* depth,
                                      const void* delta, const void* omega, const void* t_in,
-                                     void* t_out, int m, int kdim, int s, int bm, int bk,
-                                     int lvl, int device, void* stream) {
+                                     void* t_out, void* operand, void* partials, int m, int kdim,
+                                     int s, int n_seg, int n_long_rows, int lvl, int device,
+                                     void* stream) {
   const bc::DependencyOperand op{static_cast<const float*>(sigma),
                                  static_cast<const int*>(depth),
                                  static_cast<const float*>(delta),
                                  static_cast<const float*>(omega), s, lvl + 1};
-  return launch(tiles, tile_cols, row_ptr, op, t_in, t_out, m, kdim, s, bm, bk, device, stream);
+  return launch(op, col, val, seg, long_ptr, t_in, t_out, operand, partials, m, kdim, s, n_seg,
+                n_long_rows, device, stream);
 }

@@ -8,8 +8,8 @@ pre-fold partials on one device's rectangular block of the 2-D
 decomposition, with an optional ``acc`` running sum (the ring schedule's
 combine); K5/K6 (:func:`frontier_spmm_sparse`,
 :func:`dependency_spmm_sparse`) are the same partials over the block's
-stored BCSR tiles only.  K7 (:func:`segment_bag`) is the DLRM lookup's
-gather-reduce.
+stored BCSR tiles only, summed on the card over the tiles' nonzero
+index.  K7 (:func:`segment_bag`) is the DLRM lookup's gather-reduce.
 
 Each wrapper checks its operands (device, dtype, shape, contiguity) and
 raises on anything the kernel does not take.  Then:
@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .blocked_spmm import dependency_sparse_cuda, frontier_sparse_cuda, tile_row_ptr
+from .blocked_spmm import NonzeroIndex, dependency_sparse_cuda, frontier_sparse_cuda, layout_key
 from .dependency_spmm import dependency_partial_cuda, dependency_spmm_cuda
 from .frontier_spmm import frontier_partial_cuda, frontier_spmm_cuda
 from .segment_bag import segment_bag_cuda
@@ -120,12 +120,16 @@ def _check_operands(name: str, m: int, k: int, graph: list[torch.Tensor], sigma,
 
 
 def _check_sparse(name: str, tiles: torch.Tensor, tile_rows: torch.Tensor,
-                  tile_cols: torch.Tensor, row_ptr: torch.Tensor | None, m: int, sigma, depth,
+                  tile_cols: torch.Tensor, index: NonzeroIndex | None, m: int, sigma, depth,
                   delta=None, omega=None, acc=None) -> None:
     """Validate a BCSR kernel's operands: tiles f32 [T, bm, bk],
-    tile_rows / tile_cols i32 [T], row_ptr i32 [m/bm + 1], m a multiple of
-    bm and the gathered operand rows k a multiple of bk, then the state
-    operands as :func:`_check_operands`."""
+    tile_rows / tile_cols i32 [T], m a multiple of bm and the gathered
+    operand rows k a multiple of bk; the nonzero index
+    (:func:`~repro_torch.kernels.blocked_spmm.nonzero_index`: ptr i32
+    [m + 1], col i32 [nnz], val f32 [nnz], seg i32 [S, 3] with at least one
+    segment a row, long_ptr i32 [L + 1]), built from these very tiles and
+    required on the card, where the kernel reads it instead of the tiles;
+    then the state operands as :func:`_check_operands`."""
     if tiles.dtype != torch.float32:
         raise TypeError(f"{name}: tiles must be float32, got {tiles.dtype}")
     if tiles.dim() != 3 or 0 in tiles.shape[1:]:
@@ -137,15 +141,40 @@ def _check_sparse(name: str, tiles: torch.Tensor, tile_rows: torch.Tensor,
             f"{name}: rows m={m} and operand rows k={k} must be multiples of the "
             f"tile shape ({bm}, {bk})"
         )
-    index = {"tile_rows": (tile_rows, num_tiles), "tile_cols": (tile_cols, num_tiles)}
-    if row_ptr is not None:
-        index["row_ptr"] = (row_ptr, m // bm + 1)
-    for key, (t, size) in index.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
-        if tuple(t.shape) != (size,):
-            raise ValueError(f"{name}: {key} must be [{size}], got {tuple(t.shape)}")
-    graph = [tiles] + [t for t, _ in index.values()]
+    index_shapes = {"tile_rows": (tile_rows, (num_tiles,), torch.int32),
+                    "tile_cols": (tile_cols, (num_tiles,), torch.int32)}
+    if index is None and tiles.device.type == "cuda":
+        raise ValueError(f"{name}: the kernel reads the tiles' nonzero index; pass index="
+                         f"nonzero_index(tiles, tile_rows, tile_cols, m)")
+    if index is not None:
+        if not isinstance(index, NonzeroIndex):
+            raise TypeError(f"{name}: index must be a NonzeroIndex, got {type(index).__name__}")
+        nnz = index.col.shape[0] if index.col.dim() == 1 else -1
+        num_long = index.long_ptr.shape[0] - 1 if index.long_ptr.dim() == 1 else -1
+        num_seg = index.seg.shape[0] if index.seg.dim() == 2 else -1
+        index_shapes.update({
+            "index.ptr": (index.ptr, (m + 1,), torch.int32),
+            "index.col": (index.col, (nnz,), torch.int32),
+            "index.val": (index.val, (nnz,), torch.float32),
+            "index.seg": (index.seg, (num_seg, 3), torch.int32),
+            "index.long_ptr": (index.long_ptr, (num_long + 1,), torch.int32),
+        })
+        if nnz < 0 or num_long < 0 or num_seg < m + num_long:
+            raise ValueError(
+                f"{name}: index must hold 1-D col/val, long_ptr with a leading 0 and a "
+                f"segment for each short row and two or more for each long one "
+                f"(m={m}), got col {tuple(index.col.shape)}, seg {tuple(index.seg.shape)}, "
+                f"long_ptr {tuple(index.long_ptr.shape)}"
+            )
+    for key, (t, shape, dtype) in index_shapes.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} must be {list(shape)}, got {tuple(t.shape)}")
+    if index is not None and index.layout != layout_key(tiles, tile_rows, tile_cols, m):
+        raise ValueError(f"{name}: index was not built from these tiles at m={m}, or they "
+                         f"changed since; rebuild it with nonzero_index")
+    graph = [tiles] + [t for t, _, _ in index_shapes.values()]
     _check_operands(name, m, k, graph, sigma, depth, delta, omega, acc)
 
 
@@ -241,23 +270,24 @@ def frontier_spmm_sparse(
     *,
     m: int,
     acc: torch.Tensor | None = None,
-    row_ptr: torch.Tensor | None = None,
+    index: NonzeroIndex | None = None,
 ) -> torch.Tensor:
     """BCSR pre-fold forward partial (K5): returns t f32 [m, s] over one
-    device's stored tiles (row-sorted; see
+    device's stored tiles (see
     :meth:`repro_torch.graphs.partition.TwoDPartition.cell_blocked_sparse`).
-    ``m`` is the block's row count (C·chunk); ``row_ptr`` the tile list's
-    :func:`~repro_torch.kernels.blocked_spmm.tile_row_ptr`, built here when
-    not given.  See kernels/ref.py:frontier_sparse_ref for the semantics."""
-    _check_sparse("frontier_spmm_sparse", tiles, tile_rows, tile_cols, row_ptr, m, sigma, depth,
+    ``m`` is the block's row count (C·chunk); ``index`` the tiles'
+    :func:`~repro_torch.kernels.blocked_spmm.nonzero_index`, which the
+    kernel reads instead of the tiles: required for CUDA tensors, checked
+    when given for CPU ones (the plain version reads the tiles).  See
+    kernels/ref.py:frontier_sparse_ref for the semantics (the kernel skips
+    zero tile entries: on a non-finite operand see frontier_index_ref)."""
+    _check_sparse("frontier_spmm_sparse", tiles, tile_rows, tile_cols, index, m, sigma, depth,
                   acc=acc)
     if tiles.device.type == "cpu":
         return ref.frontier_sparse_ref(tiles, tile_rows, tile_cols, sigma, depth, lvl, m, acc)
     if m == 0 or sigma.shape[1] == 0:
         return _empty(m, sigma, acc)
-    if row_ptr is None:
-        row_ptr = tile_row_ptr(tile_rows, m // tiles.shape[1])
-    out = frontier_sparse_cuda(tiles, tile_cols, row_ptr, sigma, depth, lvl, m, acc)
+    out = frontier_sparse_cuda(index, sigma, depth, lvl, m, acc)
     LAUNCHES["frontier_spmm_sparse"] += 1
     return out
 
@@ -274,22 +304,19 @@ def dependency_spmm_sparse(
     *,
     m: int,
     acc: torch.Tensor | None = None,
-    row_ptr: torch.Tensor | None = None,
+    index: NonzeroIndex | None = None,
 ) -> torch.Tensor:
     """BCSR pre-fold backward partial (K6): returns t f32 [m, s].  Operands
     as :func:`frontier_spmm_sparse` plus δ [k, s] and ω [k].  See
     kernels/ref.py:dependency_sparse_ref for the semantics."""
-    _check_sparse("dependency_spmm_sparse", tiles, tile_rows, tile_cols, row_ptr, m, sigma,
-                  depth, delta, omega, acc)
+    _check_sparse("dependency_spmm_sparse", tiles, tile_rows, tile_cols, index, m, sigma, depth,
+                  delta, omega, acc)
     if tiles.device.type == "cpu":
         return ref.dependency_sparse_ref(tiles, tile_rows, tile_cols, sigma, depth, delta, omega,
                                          lvl, m, acc)
     if m == 0 or sigma.shape[1] == 0:
         return _empty(m, sigma, acc)
-    if row_ptr is None:
-        row_ptr = tile_row_ptr(tile_rows, m // tiles.shape[1])
-    out = dependency_sparse_cuda(tiles, tile_cols, row_ptr, sigma, depth, delta, omega, lvl, m,
-                                 acc)
+    out = dependency_sparse_cuda(index, sigma, depth, delta, omega, lvl, m, acc)
     LAUNCHES["dependency_spmm_sparse"] += 1
     return out
 

@@ -17,6 +17,8 @@ __all__ = [
     "tiles_to_dense",
     "frontier_sparse_ref",
     "dependency_sparse_ref",
+    "frontier_index_ref",
+    "dependency_index_ref",
     "segment_bag_ref",
 ]
 
@@ -186,6 +188,36 @@ def dependency_sparse_ref(
     the block the tiles hold."""
     g = _dependency_operand(sigma, depth, delta, omega, lvl)
     return _tile_product(tiles, tile_rows, tile_cols, g, m, acc)
+
+
+def _index_product(index, operand, acc):
+    """[acc +] Σ_e val[e]·operand[col[e]] into row(e), over the nonzero
+    index (kernels/blocked_spmm.py:nonzero_index) — the BCSR product as
+    K5/K6 take it on the card: zero tile entries are skipped, so a
+    non-finite operand row reaches only the rows adjacent to it, where the
+    tile product also gives 0·inf = NaN in the other rows of its tiles."""
+    m = index.ptr.numel() - 1
+    rows = torch.repeat_interleave(torch.arange(m, device=operand.device),
+                                   (index.ptr[1:] - index.ptr[:-1]).long())
+    nnz = rows.numel()
+    contrib = index.val[:nnz, None] * operand[index.col[:nnz].long()]
+    out = torch.zeros((m, operand.shape[1]), dtype=torch.float32, device=operand.device)
+    out.index_add_(0, rows, contrib)
+    return out if acc is None else acc + out
+
+
+def frontier_index_ref(index, sigma, depth, lvl: int, acc=None) -> torch.Tensor:
+    """K5 over the nonzero index: :func:`frontier_sparse_ref` of the tiles
+    the index was built from, but for the edge case of
+    :func:`_index_product`; the frontier is selected (σ where d = lvl-1,
+    else 0), as the kernel selects it, not multiplied by the mask."""
+    return _index_product(index, torch.where(depth == lvl - 1, sigma, 0.0), acc)
+
+
+def dependency_index_ref(index, sigma, depth, delta, omega, lvl: int, acc=None) -> torch.Tensor:
+    """K6 over the nonzero index: :func:`dependency_sparse_ref`, but for
+    the edge case of :func:`_index_product`."""
+    return _index_product(index, _dependency_operand(sigma, depth, delta, omega, lvl), acc)
 
 
 def segment_bag_ref(

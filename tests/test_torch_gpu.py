@@ -10,7 +10,9 @@ Tolerances: depth exact, σ rtol 1e-6 (exact integer path counts), δ rtol
 1e-5 / atol 1e-6 (fractional g summed in another order than the plain
 version's matmul), BC rtol 1e-5 / atol 1e-5 against the numpy oracle or
 the single-device dense engine.  K3's and K5's partials are integer-valued
-sums and are held exactly.  K7 against its plain version: rtol 1e-6 /
+sums and are held exactly; on signed tile values K5/K6 are held within
+1e-5 of Σ|a·x| (a sum's rounding scale, which cancellation does not
+shrink); K5/K6 are bitwise reproducible launch to launch.  K7 against its plain version: rtol 1e-6 /
 atol 1e-6 for f32 tables, rtol 2e-2 for bf16 (the JAX kernel test's
 values; the two take the same sum in the same order); the reduced DLRM
 forward on the card against the same model on the CPU at rtol 1e-5 /
@@ -34,6 +36,7 @@ from repro_torch.distributed import GridGroups
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.blocked_spmm import SEGMENT, nonzero_index
 from repro_torch.models import DLRM
 
 SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64), (1000, 192), (300, 260)]
@@ -94,14 +97,34 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     ops.dependency_spmm(A, sigma, depth, delta, omega, 1)
     ops.frontier_spmm_partial(A[:40].contiguous(), sigma, depth, 2)
     ops.dependency_spmm_partial(A[:40].contiguous(), sigma, depth, delta, omega, 1)
-    ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40)
-    ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=40)
+    index = nonzero_index(tiles, rows, cols, 40)
+    ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40, index=index)
+    ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=40, index=index)
     ops.segment_bag(sigma, torch.zeros((3, 2), dtype=torch.int32, device=cuda))
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"frontier_spmm": 1, "dependency_spmm": 1,
                             "frontier_spmm_partial": 1, "dependency_spmm_partial": 1,
                             "frontier_spmm_sparse": 1, "dependency_spmm_sparse": 1,
                             "segment_bag": 1}
+
+
+def test_sparse_wrappers_on_the_card_need_the_tiles_own_index(cuda):
+    """K5/K6 read the index, not the tiles: on the card the wrappers
+    refuse a call without it, or with the index of other or changed
+    tiles, and launch nothing."""
+    _, sigma, depth, delta, omega = _state(64, 8, 1, 2, torch.float32, cuda)
+    tiles, rows, cols = _tile_list(5, 4, 8, 16, 0, cuda)
+    index = nonzero_index(tiles, rows, cols, 40)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="nonzero index"):
+        ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40)
+    with pytest.raises(ValueError, match="not built from these tiles"):
+        ops.dependency_spmm_sparse(tiles.clone(), rows, cols, sigma, depth, delta, omega, 1,
+                                   m=40, index=index)
+    tiles.mul_(2)
+    with pytest.raises(ValueError, match="not built from these tiles"):
+        ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40, index=index)
+    assert ops.LAUNCHES["frontier_spmm_sparse"] == ops.LAUNCHES["dependency_spmm_sparse"] == 0
 
 
 def test_cuda_wrappers_reject_mixed_devices(cuda):
@@ -167,17 +190,149 @@ def test_sparse_kernels_match_plain_versions(cuda, complete):
         m, kdim = num_tr * bm, num_tc * bk
         _, sigma, depth, delta, omega = _state(kdim, s, kdim + s, 2, torch.float32, cuda)
         acc = torch.randint(0, 7, (m, s), device=cuda).to(torch.float32)
+        index = nonzero_index(tiles, rows, cols, m)
         for t_in in (None, acc):
-            got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in)
+            got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in,
+                                           index=index)
             want = ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m, t_in)
             assert torch.equal(got, want), (num_tr, num_tc, bm, bk, s)
             torch.testing.assert_close(
                 ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1,
-                                           m=m, acc=t_in),
+                                           m=m, acc=t_in, index=index),
                 ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m,
                                           t_in),
                 rtol=1e-5, atol=1e-6,
             )
+
+
+def _operands(k, s, seed, device):
+    """(σ, d, δ, ω) of _state without its adjacency (k may be large)."""
+    rng = np.random.default_rng(seed)
+    depth = rng.integers(-1, 5, size=(k, s)).astype(np.int32)
+    sigma = np.where(depth >= 0, np.maximum(rng.integers(0, 5, size=(k, s)), 1), 0)
+    delta = rng.random((k, s)) * (depth >= 0)
+    omega = rng.integers(0, 3, size=k)
+    return tuple(torch.from_numpy(np.asarray(x, dtype)).to(device) for x, dtype in (
+        (sigma, np.float32), (depth, np.int32), (delta, np.float32), (omega, np.float32)))
+
+
+def _skewed_list(device, num_tc=160, seed=0):
+    """Tile-row 0: num_tc 128 x 128 tiles whose first row is all ones (one
+    row of num_tc·128 nonzeros, many segments long) over 2 % random
+    entries; tile-rows 1-3 one random tile each; a trailing zero pad."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tiles = (torch.rand((num_tc + 4, 128, 128), generator=gen, device=device) < 0.02).float()
+    tiles[:num_tc, 0, :] = 1.0
+    tiles[-1] = 0.0
+    rows = torch.tensor([0] * num_tc + [1, 2, 3, 3], dtype=torch.int32, device=device)
+    cols = torch.tensor(list(range(num_tc)) + [5, 6, 7, 0], dtype=torch.int32, device=device)
+    return tiles, rows, cols
+
+
+@pytest.mark.parametrize("s", [128, 192, 33])
+def test_sparse_kernels_sum_a_row_of_20480_nonzeros_in_segments(cuda, s):
+    tiles, rows, cols = _skewed_list(cuda)
+    m, kdim = 4 * 128, 160 * 128
+    index = nonzero_index(tiles, rows, cols, m)
+    assert int(index.ptr[1] - index.ptr[0]) >= 20_000 > SEGMENT
+    assert int(index.long_ptr[1]) == -(-int(index.ptr[1]) // SEGMENT)
+    sigma, depth, delta, omega = _operands(kdim, s, s, cuda)
+    acc = torch.randint(0, 7, (m, s), device=cuda).to(torch.float32)
+    for t_in in (None, acc):
+        got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in,
+                                       index=index)
+        assert torch.equal(got, ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m,
+                                                        t_in))
+        torch.testing.assert_close(
+            ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=m,
+                                       acc=t_in, index=index),
+            ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m, t_in),
+            rtol=1e-5, atol=1e-6,
+        )
+
+
+def test_sparse_kernels_are_bitwise_reproducible(cuda):
+    tiles, rows, cols = _skewed_list(cuda, seed=1)
+    m, kdim, s = 4 * 128, 160 * 128, 192
+    sigma, depth, delta, omega = _operands(kdim, s, 4, cuda)
+    acc = torch.rand((m, s), device=cuda)
+    index = nonzero_index(tiles, rows, cols, m)
+    for t_in in (None, acc):
+        runs = [ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=m,
+                                           acc=t_in, index=index) for _ in range(3)]
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+        runs = [ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in,
+                                         index=index) for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+
+
+def test_sparse_kernels_carry_non_binary_tile_values(cuda):
+    for num_tr, num_tc, bm, bk, s in SPARSE_SHAPES:
+        tiles, rows, cols = _tile_list(num_tr, num_tc, bm, bk, num_tr + s, cuda)
+        tiles = tiles * torch.randn(tiles.shape, generator=torch.Generator(device=cuda)
+                                    .manual_seed(s), device=cuda)
+        m, kdim = num_tr * bm, num_tc * bk
+        _, sigma, depth, delta, omega = _state(kdim, s, kdim + s, 2, torch.float32, cuda)
+        acc = torch.randint(0, 7, (m, s), device=cuda).to(torch.float32)
+        index = nonzero_index(tiles, rows, cols, m)
+        for t_in in (None, acc):
+            # σ, g and acc are >= 0, so the plain version on |A| gives Σ|a·x|,
+            # the scale of a sum's rounding error (cancellation does not shrink it)
+            got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, acc=t_in,
+                                           index=index)
+            want = ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m, t_in)
+            scale = ref.frontier_sparse_ref(tiles.abs(), rows, cols, sigma, depth, 2, m, t_in)
+            assert ((got - want).abs() <= 1e-5 * scale).all()
+            got = ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1,
+                                             m=m, acc=t_in, index=index)
+            want = ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta, omega, 1, m,
+                                             t_in)
+            scale = ref.dependency_sparse_ref(tiles.abs(), rows, cols, sigma, depth, delta, omega,
+                                              1, m, t_in)
+            assert ((got - want).abs() <= 1e-5 * scale).all()
+
+
+def test_sparse_kernels_skip_zero_entries_on_a_non_finite_operand(cuda):
+    """The changed edge case: K5 gives what the gather-sum over the index
+    gives (no 0·inf = NaN from a tile's zero entries), not the tile
+    product's NaN."""
+    tiles, rows, cols = _tile_list(4, 3, 8, 8, 7, cuda)
+    m, kdim, s = 32, 24, 5
+    _, sigma, depth, _, _ = _state(kdim, s, 7, 2, torch.float32, cuda)
+    depth[:] = 1
+    sigma[int(cols[0]) * 8 + 3, 0] = float("inf")
+    index = nonzero_index(tiles, rows, cols, m)
+    got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, index=index)
+    torch.testing.assert_close(got, ref.frontier_index_ref(index, sigma, depth, 2), rtol=0,
+                               atol=0, equal_nan=True)
+    assert ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m).isnan().any()
+    assert not got.isnan().any()
+
+
+def test_nonzero_index_of_tiles_past_2_to_the_31_elements(cuda):
+    """131 200 tiles of 128 x 128 (2.15e9 elements, 8.6 GB): the index is
+    read in chunks, holds the entry of every tile, the last ones too, and
+    K5 over it equals the tile product."""
+    if torch.cuda.get_device_properties(cuda).total_memory < 24 * 2**30:
+        pytest.skip("needs 24 GiB of device memory")
+    num_tr, num_tc = 1025, 128
+    t = torch.arange(num_tr * num_tc, device=cuda)
+    assert t.numel() * 128 * 128 > 2**31
+    tiles = torch.zeros((t.numel(), 128, 128), device=cuda)
+    tiles[t, t % 128, (7 * t) % 128] = 1.0 + (t % 3).float()
+    rows = (t // num_tc).to(torch.int32)
+    cols = (t % num_tc).to(torch.int32)
+    m, kdim, s = num_tr * 128, num_tc * 128, 8
+    index = nonzero_index(tiles, rows, cols, m)
+    assert index.col.numel() == t.numel()
+    last = t[-1]
+    assert int(index.col[-1]) == int(cols[-1]) * 128 + int((7 * last) % 128)
+    assert float(index.val[-1]) == float(1 + last % 3)
+    sigma, depth, _, _ = _operands(kdim, s, 9, cuda)
+    got = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, index=index)
+    assert torch.equal(got, ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m))
+    del tiles
+    torch.cuda.empty_cache()
 
 
 @pytest.fixture
