@@ -39,14 +39,15 @@ tables):
      batch 128, h0, sampling="fixed" with 512 roots (4 rounds), on the
      fused_bf16, fused and dense engines; the fused runs must launch
      K1 and K2 and match dense to rtol 1e-5 / atol 1e-5; then one more
-     fused_bf16 run under torch.profiler for device time per kernel;
+     fused_bf16 run under torch.profiler for device time per kernel
+     (K1, K2 and K2's operand pass);
   5. the 2-D decomposed path at full width through
      ``distributed_betweenness_centrality`` on a 1×1 grid (one NCCL rank:
      one card holds no larger grid), same graph and roots, engines
      fused_bf16, fused and sparse; the fused runs must launch K3 and K4
      and not K1/K2, and every run must match the single-device dense BC
      to rtol 1e-5 / atol 1e-5; then the fused run once under
-     torch.profiler (device busy share, K3/K4/NCCL shares);
+     torch.profiler (device busy share, K3/K4/K4 operand pass/NCCL shares);
   6. exact BC against the port's numpy oracle (rmat 10, road 20x20; h0
      and h3t; rtol 1e-5 / atol 1e-5) and h3 on rmat 13 against dense;
   7. kernel times with CUDA events at the main-path shapes (K3/K4 also at
@@ -59,6 +60,12 @@ tables):
      3.35 TB/s and FLOP / 67 TFLOP/s f32; K5/K6's bytes count their
      nonzero index, not the tiles, and the tile-FFMA figure of the TPU
      design is printed beside; K7's bytes count each distinct row once);
+     K2/K4 also at the forward width s = 128 (bound and torch.matmul
+     beside), the per-launch device time of K2 and K4 on the main path
+     (phase 4's and phase 5's traces, real states) beside their time on
+     the random states, the ptxas registers and spills of every K2/K4
+     instantiation and of the operand pass, and the SM clock and power
+     sampled while K2 (f32 A, s = 192) runs 60 times;
   8. the BCSR path at full width through
      ``distributed_betweenness_centrality`` on the 1×1 NCCL grid:
      (a) phase 4's graph and roots on fused_sparse at the default tile
@@ -92,6 +99,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +110,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the Tile<BM, BS, BK, STAGES, FAST> arguments of a K2/K4 instantiation
+RE_TILE = re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
 SRC = ROOT / "src"
 
 # H100 SXM data-sheet peaks (dense, no tensor cores for f32)
@@ -199,12 +209,12 @@ def gpu_clocks() -> str:
     ).stdout.strip()
 
 
-def trace_run(tag: str, run, shares: dict[str, str] | None = None) -> None:
+def trace_run(tag: str, run, shares: dict[str, str] | None = None) -> dict[str, tuple]:
     """``run()`` once more under torch.profiler: device time per kernel and
     the device's busy share of the traced wall time (the untraced runs give
     the end-to-end numbers).  ``shares`` maps a label to a substring (or a
     tuple of substrings, all required) of kernel names whose summed share
-    of device time is printed."""
+    of device time is printed; returns label -> (device ms, launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -227,15 +237,74 @@ def trace_run(tag: str, run, shares: dict[str, str] | None = None) -> None:
     print(f"{tag} traced: wall {wall_us / 1e6:.3f}s, device busy "
           f"{busy_us / 1e6:.3f}s ({100 * busy_us / wall_us:.1f}%), idle "
           f"{100 * (1 - busy_us / wall_us):.1f}%")
+    found = {}
     for label, needle in (shares or {}).items():
         needles = (needle,) if isinstance(needle, str) else needle  # all must match
         mine = [r for r in events if all(x in r[0] for x in needles)]
         us = sum(r[2] for r in mine)
         n = sum(r[1] for r in mine)
+        found[label] = (us / 1e3, n)
         print(f"{tag}   share {label}: {us / 1e3:.3f} ms, {100 * us / busy_us:.1f}% of "
               f"device time, x{n}")
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
         print(f"{tag}   {us / 1e3:10.3f} ms {100 * us / busy_us:5.1f}%  x{count:<4d} {key[:90]}")
+    return found
+
+
+def dep_operand(sigma, depth, delta, omega) -> torch.Tensor:
+    """g of a dependency level at lvl = 1 (the operand K2/K4/K6 write)."""
+    return torch.where(depth == 2, (1.0 + delta + omega[:, None])
+                       / torch.where(sigma > 0, sigma, 1.0), 0.0)
+
+
+def ptxas_report(log: str, kernels: tuple[str, ...]) -> list[str]:
+    """One line per instantiation of ``kernels`` in the build's ptxas
+    report: source, template arguments, registers, spills."""
+    lines, out, source = log.splitlines(), [], ""
+    for i, line in enumerate(lines):
+        if line.startswith("== "):
+            source = line[3:]
+        name = next((k for k in kernels if f"{k}I" in line), None)
+        if name is None or "Compiling entry function" not in line:
+            continue
+        args = line.split("'")[1].split(f"{name}I", 1)[1]
+        tile = RE_TILE.search(args)
+        if tile:
+            bm, bs, bk, stages, fast = tile.groups()
+            label = (f"{'bf16' if args.startswith('13__nv_bfloat16') else 'f32'}, BM {bm} "
+                     f"BS {bs} BK {bk}, {stages} stages, "
+                     f"{'16-byte copies' if fast == '1' else 'element loads'}")
+        else:
+            label = next((op for op in ("DependencyOperand", "FrontierOperand") if op in args),
+                         args[:40])
+        props = " ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
+        out.append(f"{source} {name}<{label}>: {props}")
+    return out
+
+
+def clocks_during(fn) -> str:
+    """Run ``fn`` while nvidia-smi samples the SM clock and power draw
+    every 50 ms; min / median / max of the samples taken while the card
+    drew more than 60 % of its power limit (the kernel's window)."""
+    cmd = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+           "--format=csv,noheader,nounits", "-lms", "50"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)
+        fn()
+        time.sleep(0.2)
+    finally:
+        proc.terminate()
+        out = proc.communicate()[0]
+    rows = [[float(x) for x in line.split(",")] for line in out.splitlines() if line.strip()]
+    busy = sorted((mhz, w) for mhz, w, limit in rows if w > 0.6 * limit)
+    if not busy:
+        return f"{len(rows)} samples, none above 60 % of the power limit"
+    mhz = [b[0] for b in busy]
+    watts = sorted(b[1] for b in busy)
+    return (f"{len(busy)} of {len(rows)} samples under load: SM clock min {mhz[0]:.0f} / median "
+            f"{mhz[len(mhz) // 2]:.0f} / max {mhz[-1]:.0f} MHz, power median "
+            f"{watts[len(watts) // 2]:.1f} W")
 
 
 def partial_bytes(A, sigma, depth, delta=None, omega=None, acc=None) -> int:
@@ -866,9 +935,11 @@ def main() -> None:
                         torch.from_numpy(results["dense"].bc), 1e-5, 1e-5)
         print(f"[4] {engine} vs dense: max abs err {err:.3g}")
         check(ok, f"{engine} BC disagrees with dense at full width")
-    trace_run("[4] fused_bf16", lambda: betweenness_centrality(
+    trace4 = trace_run("[4] fused_bf16", lambda: betweenness_centrality(
         graph, batch_size=MAIN_BATCH, heuristics="h0", engine_kind="fused_bf16",
-        sampling="fixed", sample_k=MAIN_SAMPLE_K, sample_seed=0, device="cuda"))
+        sampling="fixed", sample_k=MAIN_SAMPLE_K, sample_seed=0, device="cuda"), {
+        "K1": "frontier_spmm_kernel<", "K2": "dependency_spmm_kernel<",
+        "K2 operand pass": ("operand_kernel", "DependencyOperand")})
 
     # ------------------------------------- 5. 2-D path, 1×1 grid, full width
     t5 = time.perf_counter()
@@ -928,8 +999,10 @@ def main() -> None:
                           f"2-D {engine}: {kname} launches {launches_2d[engine][kname]}")
                 del res
                 torch.cuda.empty_cache()
-            trace_run("[5] 2-D 1x1 fused", lambda: run_2d("fused"), {
-                "K3": "FrontierOperand", "K4": "DependencyOperand", "NCCL": "nccl"})
+            trace5 = trace_run("[5] 2-D 1x1 fused", lambda: run_2d("fused"), {
+                "K3": ("partial_spmm_kernel<", "FrontierOperand"),
+                "K4": "dependency_partial_kernel<",
+                "K4 operand pass": ("operand_kernel", "DependencyOperand"), "NCCL": "nccl"})
             print(f"[5] 2-D path ok in {time.perf_counter() - t5:.1f}s")
 
             # ------------------------- 8. the BCSR path, 1×1 grid, full width
@@ -1053,7 +1126,41 @@ def main() -> None:
     A_main["bf16"] = A_main["f32"].to(torch.bfloat16)
     engine_of = {"f32": "fused", "bf16": "fused_bf16"}
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
+    for line in ptxas_report(_build.build_log(), ("dependency_spmm_kernel",
+                                                  "dependency_partial_kernel", "operand_kernel")):
+        print(f"[7] ptxas {line}")
     entries = []
+
+    def width_row(kname, where, A, st, s) -> float:
+        """K2/K4 at width s beside torch.matmul (f32 A) and the bound;
+        returns the kernel's ms."""
+        sigma, depth, delta, omega = st
+        m, k = A.shape
+        fn = ops.dependency_spmm if kname == "dependency_spmm" else ops.dependency_spmm_partial
+        ms = cuda_time_ms(lambda: fn(A, sigma, depth, delta, omega, 1))
+        lib = "n/a (bf16 A)"
+        if A.dtype == torch.float32:
+            operand = dep_operand(sigma, depth, delta, omega)
+            lib = f"{cuda_time_ms(lambda: torch.matmul(A, operand)):.3f} ms"
+            del operand
+        t_ops = 2.0 * m * k * s / PEAK_F32_FLOP_PER_S * 1e3
+        bound = max(t_ops, partial_bytes(A, sigma, depth, delta, omega) / PEAK_BYTES_PER_S * 1e3)
+        tag = "bf16" if A.dtype == torch.bfloat16 else "f32"
+        print(f"[7] {kname} A={tag} {where} s={s}: kernel {ms:.3f} ms, torch.matmul {lib}, "
+              f"bound {bound:.3f} ms, {100 * bound / ms:.1f}% of bound")
+        return ms
+
+    def real_path_row(kname, tag, trace, label, synthetic_ms) -> None:
+        """The per-launch device time of a kernel on the main path (a
+        traced run's real states) beside its time on phase 7's states."""
+        main_ms, n = trace[label]
+        operand_ms, n_op = trace[f"{label} operand pass"]
+        check(n > 0 and n == n_op, f"{kname}: traced {n} launches and {n_op} operand passes")
+        per = (main_ms + operand_ms) / n
+        print(f"[7] {kname} A={tag} real path: {per:.3f} ms a launch (main loop "
+              f"{main_ms / n:.3f} + operand pass {operand_ms / n:.3f} ms, {n} launches traced) "
+              f"against {synthetic_ms:.3f} ms on the random states here")
+
     for kname, s, src, replaces in (
         ("frontier_spmm", s_fwd, "src/repro_torch/kernels/csrc/frontier_spmm.cu",
          "src/repro/kernels/frontier_spmm.py:40"),
@@ -1071,8 +1178,7 @@ def main() -> None:
             else:
                 kern = lambda: ops.dependency_spmm(A, sigma, depth, delta, omega, 1)
                 plain = lambda: ref.dependency_spmm_ref(A, sigma, depth, delta, omega, 1)
-                operand = torch.where(depth == 2, (1.0 + delta + omega[:, None])
-                                      / torch.where(sigma > 0, sigma, 1.0), 0.0)
+                operand = dep_operand(sigma, depth, delta, omega)
                 io_bytes = sigma.nbytes + depth.nbytes + 2 * delta.nbytes + omega.nbytes
             ms = cuda_time_ms(kern)
             plain_ms = cuda_time_ms(plain)
@@ -1102,12 +1208,14 @@ def main() -> None:
                   f"bound {bound:.3f} ms ({entries[-1]['bound_by']}; ops {t_ops:.3f} / bytes "
                   f"{t_bytes:.3f}), {100 * bound / ms:.1f}% of bound")
             del operand
-        if kname == "dependency_spmm":  # K2 also at the forward width, for comparison
-            sigma, depth, delta, omega = states[s_fwd]
+            if kname == "dependency_spmm" and tag == "f32":
+                print(f"[7] dependency_spmm A=f32 s={s}, 60 launches: "
+                      + clocks_during(lambda: cuda_time_ms(kern, reps=60)))
+            if kname == "dependency_spmm" and tag == "bf16":  # phase 4 traced fused_bf16
+                real_path_row(kname, tag, trace4, "K2", ms)
+        if kname == "dependency_spmm":  # K2 also at the forward width
             for tag in dtypes:
-                A = A_main[tag]
-                ms = cuda_time_ms(lambda: ops.dependency_spmm(A, sigma, depth, delta, omega, 1))
-                print(f"[7] dependency_spmm A={tag} n={n_main} s={s_fwd}: kernel {ms:.3f} ms")
+                width_row(kname, f"n={n_main}", A_main[tag], states[s_fwd], s_fwd)
     # K3/K4 at the 1×1 grid's block (the 2-D main path's shape) and at the
     # per-device block of a 2×4 grid, each at its main-path width
     A_blk = {"f32": part.cell_dense_block(0, 0, torch.float32, dev)}
@@ -1133,8 +1241,7 @@ def main() -> None:
                 else:
                     kern = lambda: ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1)
                     plain = lambda: ref.dependency_partial_ref(A, sigma, depth, delta, omega, 1)
-                    operand = torch.where(depth == 2, (1.0 + delta + omega[:, None])
-                                          / torch.where(sigma > 0, sigma, 1.0), 0.0)
+                    operand = dep_operand(sigma, depth, delta, omega)
                     nbytes = partial_bytes(A, sigma, depth, delta, omega)
                     err = err_main[(err_key, tag, s)][1]
                 ms = cuda_time_ms(kern)
@@ -1163,11 +1270,12 @@ def main() -> None:
                       f"({entries[-1]['bound_by']}; ops {t_ops:.3f} / bytes {t_bytes:.3f}), "
                       f"{100 * bound / ms:.1f}% of bound")
                 del operand
-    sigma, depth, delta, omega = blk_states[s_fwd]  # K4 on the block at the forward width
-    for tag in dtypes:
-        A = A_blk[tag]
-        ms = cuda_time_ms(lambda: ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1))
-        print(f"[7] dependency_spmm_partial A={tag} 2x4 block s={s_fwd}: kernel {ms:.3f} ms")
+                if (kname == "dependency_spmm_partial" and shape_tag == "1x1"
+                        and tag == "f32"):  # phase 5 traced the 2-D fused (f32) run
+                    real_path_row(kname, tag, trace5, "K4", ms)
+            if kname == "dependency_spmm_partial":  # K4 also at the forward width
+                for tag in dtypes:
+                    width_row(kname, f"{shape_tag} block", blocks[tag], st[s_fwd], s_fwd)
     del A_main, A_blk
     torch.cuda.empty_cache()
     # K5/K6 at phase 8's three cell layouts, each at its main-path width
@@ -1198,8 +1306,7 @@ def main() -> None:
                                                           omega, 1, m=m, index=index)
                 plain = lambda: ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta,
                                                           omega, 1, m)
-                make_operand = lambda: torch.where(depth == 2, (1.0 + delta + omega[:, None])
-                                                   / torch.where(sigma > 0, sigma, 1.0), 0.0)
+                make_operand = lambda: dep_operand(sigma, depth, delta, omega)
                 nbytes = sparse_bytes(index, sigma, depth, delta, omega)
                 err = err_main[("sparse", tag, s)][1]
             operand = make_operand()

@@ -48,11 +48,12 @@ HEURISTICS_MODES = ("h0", "h1", "h2", "h3", "h1t", "h3t")
 #: similar-depth roots share a round (a round runs to its deepest root).
 ROOT_ORDERS = ("id", "eccentricity")
 
-#: Column-tile width of the fused level kernels (``BS`` in
+#: Column-tile width of the forward level kernels K1/K3 (``BS`` in
 #: kernels/csrc/level_tile.cuh): each thread block computes a 128-column
 #: slab of the [n, s] product, so a batch that is not a multiple of it
 #: leaves lanes of the last slab computing zeros.  This takes the place
-#: of the TPU's 128-lane MXU width.
+#: of the TPU's 128-lane MXU width.  (The dependency kernels K2/K4 pick
+#: a tile of 64, 128 or 192 columns from s: kernels/dependency_spmm.py.)
 COLUMN_TILE = 128
 
 

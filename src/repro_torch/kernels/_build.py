@@ -35,12 +35,12 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *A
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (A, σ, d, σ_out, d_out, n, s, lvl, device, stream)
 _FRONTIER_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-# (A, σ, d, δ, ω, δ_out, n, s, lvl, device, stream)
-_DEPENDENCY_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# (A, σ, d, δ, ω, δ_out, operand, n, s, ld, lvl, bs, fast, device, stream)
+_DEPENDENCY_ARGS = [_P] * 7 + [_I] * 7 + [_P]
 # (A, σ, d, t_in or NULL, t_out, m, k, s, lvl, device, stream)
 _FRONTIER_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-# (A, σ, d, δ, ω, t_in or NULL, t_out, m, k, s, lvl, device, stream)
-_DEPENDENCY_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# (A, σ, d, δ, ω, t_in or NULL, t_out, operand, m, k, s, ld, lvl, bs, fast, device, stream)
+_DEPENDENCY_PARTIAL_ARGS = [_P] * 8 + [_I] * 8 + [_P]
 # (col, val, seg, long_ptr, σ, d, t_in or NULL, t_out, operand, partials,
 #  m, k, s, n_seg, n_long_rows, lvl, device, stream)
 _FRONTIER_SPARSE_ARGS = [_P] * 10 + [_I] * 7 + [_P]
@@ -62,6 +62,7 @@ SIGNATURES = {
     "dependency_sparse_f32": _DEPENDENCY_SPARSE_ARGS,
     "segment_bag_f32": _SEGMENT_BAG_ARGS,
     "segment_bag_bf16": _SEGMENT_BAG_ARGS,
+    "level_gemm_shared_bytes": [_I, _I],  # (bs, bf16)
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,11 @@
-// Shared main loop of the dense BC level kernels (frontier_spmm.cu and
-// dependency_spmm.cu on a square adjacency, partial_spmm.cu on a
+// Main loop of the dense forward level kernels K1 (frontier_spmm.cu, on
+// a square adjacency) and K3 (the frontier half of partial_spmm.cu, on a
 // rectangular 2-D block): a classic shared-memory tiled SGEMM in which
 // the right-hand operand is *computed while it is loaded* instead of being
-// read from device memory.  The BCSR kernels (sparse_spmm.cu) use only its
-// operand functors.
+// read from device memory.  Only K1/K3 use it; the dependency kernels
+// K2/K4 run the pipelined loop of level_gemm.cuh over an operand written
+// once a launch, and the operand functors of every level kernel live in
+// level_operand.cuh.
 //
 // One thread block owns one [BM x BS] tile of the [m, s] output.  The
 // loop over k inside the block takes the place of the TPU kernels'
@@ -12,8 +14,7 @@
 //   * loads an A[BM x BK] tile (f32 or bf16, converted to f32) into
 //     shared memory, transposed so that a thread reads its rows as float4;
 //   * builds the [BK x BS] operand tile with the caller's functor (the
-//     masked frontier or the dependency quotient g), so that operand never
-//     exists in device memory;
+//     masked frontier), so that operand never exists in device memory;
 //   * accumulates an 8x8 register micro-tile per thread with f32 FFMA.
 // No tensor cores and no TF32: σ holds exact integer path counts, which
 // TF32 or bf16 operands would round; a bf16 A only saves bytes.
@@ -29,6 +30,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "level_operand.cuh"
 
 namespace bc {
 
@@ -48,39 +51,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ int frag_offset(int t, int i) {
   return (i < 4) ? t * 4 + i : 64 + t * 4 + (i - 4);
 }
-
-// The operand of a forward level: the masked frontier σ ⊙ [d == lvl-1]
-// of a row-major [k, s] state.
-struct FrontierOperand {
-  const float* sigma;
-  const int* depth;
-  int s;
-  int prev;  // lvl - 1
-
-  __device__ __forceinline__ float operator()(int k, int j) const {
-    const size_t o = static_cast<size_t>(k) * s + j;
-    return depth[o] == prev ? sigma[o] : 0.f;
-  }
-};
-
-// The operand of a dependency level: g = (1 + δ + ω) / σ̂ on d == lvl+1
-// (0 elsewhere; σ̂ = σ, or 1 where σ ≤ 0), divided in IEEE f32.
-struct DependencyOperand {
-  const float* sigma;
-  const int* depth;
-  const float* delta;
-  const float* omega;
-  int s;
-  int next;  // lvl + 1
-
-  __device__ __forceinline__ float operator()(int k, int j) const {
-    const size_t o = static_cast<size_t>(k) * s + j;
-    if (depth[o] != next) return 0.f;
-    const float sg = sigma[o];
-    const float safe = sg > 0.f ? sg : 1.f;
-    return (1.f + delta[o] + omega[k]) / safe;
-  }
-};
 
 // acc[i][j] = sum_k A[row0 + frag_offset(ty, i), k] * op(k, col0 + frag_offset(tx, j))
 // with tx = threadIdx.x % 16, ty = threadIdx.x / 16, for a row-major A of

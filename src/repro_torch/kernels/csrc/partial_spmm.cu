@@ -17,21 +17,26 @@
 //     acc mode (t_in non-null):  t = t_in + A_blk @ operand
 //
 // There is no epilogue beyond the store: the state update needs the t
-// summed over the grid row, so it runs after the fold.  The operand is
-// formed while its tile loads (level_tile.cuh), so neither the masked
-// frontier nor g reaches device memory; the acc mode is the running
-// combine of the ring-pipelined expand, added in the store instead of as
-// a separate [m, s] pass.  Ragged m, k and s are masked in the kernel
-// (the JAX wrapper's padding of A, σ with 0 and d with -1 becomes those
-// masks); nothing is padded on the host.
+// summed over the grid row, so it runs after the fold.  The acc mode is
+// the running combine of the ring-pipelined expand, added in the store
+// instead of as a separate [m, s] pass.  Ragged m, k and s are masked in
+// the kernels (the JAX wrapper's padding of A, σ with 0 and d with -1
+// becomes those masks); nothing is padded on the host.
 //
 // Bound: 2·m·k·s FLOP of f32 FFMA.  At the 1×1 grid of n = 65536 this is
-// K1's/K2's work (16.4 ms per level at s = 128 on an H100, against 5.1 ms
+// K1's/K2's work (24.6 ms per level at s = 192 on an H100, against 5.1 ms
 // to stream an f32 A); at the [32768, 16384] block of a 2×4 grid it is
-// 2.05 ms against 0.64 ms of A — f32 compute either way, so the design is
-// K1's: no tensor cores (σ holds exact integer path counts), 8x8 register
-// micro-tiles fed from float4 shared-memory reads.  K4 divides in IEEE
-// f32 (no --use_fast_math), as the reference does.
+// 3.08 ms against 0.64 ms of A — f32 compute either way, and no tensor
+// cores (σ holds exact integer path counts).
+//
+// K3 runs level_tile.cuh's loop, which forms the masked frontier while
+// its tile loads, so that operand never reaches device memory.  K4 is
+// K2's design (dependency_spmm.cu): the operand pass (level_operand.cuh)
+// writes g once a launch into the wrapper's [k, ld] scratch, one IEEE
+// division per element (no --use_fast_math), then the pipelined main loop
+// of level_gemm.cuh (cp.async ring, a column tile of 64, 128 or 192 chosen
+// from s, 8x8 FFMA micro-tiles) computes t.
+#include "level_gemm.cuh"
 #include "level_tile.cuh"
 
 namespace {
@@ -78,11 +83,62 @@ bc::FrontierOperand frontier(const void* sigma, const void* depth, int s, int lv
                              s, lvl - 1};
 }
 
-bc::DependencyOperand dependency(const void* sigma, const void* depth, const void* delta,
-                                 const void* omega, int s, int lvl) {
-  return bc::DependencyOperand{static_cast<const float*>(sigma), static_cast<const int*>(depth),
-                               static_cast<const float*>(delta),
-                               static_cast<const float*>(omega), s, lvl + 1};
+// K4: the pipelined main loop over the operand scratch, then the store.
+template <typename AT, typename T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+    dependency_partial_kernel(const AT* __restrict__ A, const float* __restrict__ g, int ld,
+                              const float* __restrict__ t_in, float* __restrict__ t_out, int m,
+                              int kdim, int s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row0 = blockIdx.y * T::BM;
+  const int col0 = blockIdx.x * T::BS;
+  float acc[bc::gemm::TM][bc::gemm::TN];
+  bc::gemm::main_loop<AT, T>(A, m, kdim, g, ld, row0, col0, smem, acc);
+
+#pragma unroll
+  for (int i = 0; i < bc::gemm::TM; ++i) {
+    const int r = row0 + bc::gemm::frag_row<T>(i);
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < bc::gemm::TN; ++j) {
+      const int c = col0 + bc::gemm::frag_col<T>(j);
+      if (c >= s) continue;
+      const size_t o = static_cast<size_t>(r) * s + c;
+      t_out[o] = t_in != nullptr ? t_in[o] + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+// operand: the wrapper's [kdim, ld] f32 scratch; bs: the column tile;
+// fast: 16-byte copies of A (only for 16-byte aligned rows).
+template <typename AT>
+int launch_dependency(const void* A, const void* sigma, const void* depth, const void* delta,
+                      const void* omega, const void* t_in, void* t_out, void* operand, int m,
+                      int kdim, int s, int ld, int lvl, int bs, int fast, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = bc::gemm::check<AT>(A, operand, m, kdim, s, ld, fast != 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* g = static_cast<float*>(operand);
+  bc::write_operand(bc::DependencyOperand{static_cast<const float*>(sigma),
+                                          static_cast<const int*>(depth),
+                                          static_cast<const float*>(delta),
+                                          static_cast<const float*>(omega), s, lvl + 1},
+                    g, kdim, s, ld, st);
+  err = bc::gemm::dispatch(bs, fast != 0, [&](auto tile) {
+    using T = decltype(tile);
+    const auto kernel = dependency_partial_kernel<AT, T>;
+    constexpr int smem = bc::gemm::shared_bytes<AT, T>();
+    const cudaError_t e = bc::gemm::prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<bc::gemm::grid<T>(m, s), T::THREADS, smem, st>>>(
+        static_cast<const AT*>(A), g, ld, static_cast<const float*>(t_in),
+        static_cast<float*>(t_out), m, kdim, s);
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -102,18 +158,21 @@ extern "C" int frontier_partial_bf16(const void* A, const void* sigma, const voi
                                device, stream);
 }
 
+// operand: [kdim, ld] f32 scratch, ld = s rounded up to 4; bs: 64, 128 or
+// 192; fast: 16-byte copies of A (16-byte aligned rows only).
 extern "C" int dependency_partial_f32(const void* A, const void* sigma, const void* depth,
                                       const void* delta, const void* omega, const void* t_in,
-                                      void* t_out, int m, int kdim, int s, int lvl, int device,
-                                      void* stream) {
-  return launch<float>(A, dependency(sigma, depth, delta, omega, s, lvl), t_in, t_out, m, kdim,
-                       s, device, stream);
+                                      void* t_out, void* operand, int m, int kdim, int s, int ld,
+                                      int lvl, int bs, int fast, int device, void* stream) {
+  return launch_dependency<float>(A, sigma, depth, delta, omega, t_in, t_out, operand, m, kdim,
+                                  s, ld, lvl, bs, fast, device, stream);
 }
 
 extern "C" int dependency_partial_bf16(const void* A, const void* sigma, const void* depth,
                                        const void* delta, const void* omega, const void* t_in,
-                                       void* t_out, int m, int kdim, int s, int lvl, int device,
+                                       void* t_out, void* operand, int m, int kdim, int s,
+                                       int ld, int lvl, int bs, int fast, int device,
                                        void* stream) {
-  return launch<__nv_bfloat16>(A, dependency(sigma, depth, delta, omega, s, lvl), t_in, t_out,
-                               m, kdim, s, device, stream);
+  return launch_dependency<__nv_bfloat16>(A, sigma, depth, delta, omega, t_in, t_out, operand,
+                                          m, kdim, s, ld, lvl, bs, fast, device, stream);
 }

@@ -31,12 +31,13 @@
 // pad tiles are all zero, so they have no entry and add nothing.
 //
 // Design, three launches on the caller's stream:
-//   1. operand pass: the masked frontier (K5) or g (K6) is written once
-//      into a [k, s] f32 scratch (one IEEE division per element for g,
-//      no --use_fast_math).  Gathering σ, d (and δ, ω) per nonzero
-//      instead would read 2 (K5) or 3 (K6) gathered rows per entry and
-//      repeat the division nnz/k times; the pass costs 3·k·s·4 bytes for
-//      K5 (33.5 MB a tensor at R-MAT scale 16, s = 128), 4·k·s·4 + 4·k for K6.
+//   1. operand pass (level_operand.cuh, shared with K2/K4): the masked
+//      frontier (K5) or g (K6) is written once into a [k, s] f32 scratch
+//      (one IEEE division per element for g, no --use_fast_math).
+//      Gathering σ, d (and δ, ω) per nonzero instead would read 2 (K5) or
+//      3 (K6) gathered rows per entry and repeat the division nnz/k times;
+//      the pass costs 3·k·s·4 bytes for K5 (33.5 MB a tensor at R-MAT
+//      scale 16, s = 128), 4·k·s·4 + 4·k for K6.
 //   2. gather pass: one warp per work segment walks its entries in index
 //      order: 32 (col, val) pairs load at once, coalesced, and are
 //      broadcast by shuffle; the operand rows of four entries are loaded
@@ -79,7 +80,7 @@
 // the operand that L2 does hold.
 #include <algorithm>
 
-#include "level_tile.cuh"
+#include "level_operand.cuh"
 
 namespace {
 
@@ -109,15 +110,6 @@ __device__ __forceinline__ void fma_vec(float (&acc)[4], float v, float4 x) {
   acc[1] = fmaf(v, x.y, acc[1]);
   acc[2] = fmaf(v, x.z, acc[2]);
   acc[3] = fmaf(v, x.w, acc[3]);
-}
-
-// 1. operand[k, s] = op(k, j): grid-stride over rows, threads over columns.
-template <typename Operand>
-__global__ void operand_kernel(Operand op, float* __restrict__ out, int kdim, int s) {
-  for (int k = blockIdx.x; k < kdim; k += gridDim.x) {
-    float* row = out + static_cast<size_t>(k) * s;
-    for (int j = threadIdx.x; j < s; j += blockDim.x) row[j] = op(k, j);
-  }
 }
 
 // 2. One warp per work segment; lane `lane` owns columns
@@ -265,7 +257,7 @@ int launch(const Operand& op, const void* col, const void* val, const void* seg,
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   auto* opnd = static_cast<float*>(operand);
-  if (kdim > 0) operand_kernel<<<std::min(kdim, 132 * 16), 128, 0, st>>>(op, opnd, kdim, s);
+  bc::write_operand(op, opnd, kdim, s, s, st);
 
   // VEC: the widest of 4, 2, 1 that divides s (the operand scratch, the
   // only vector-loaded tensor, comes aligned from the caching allocator);

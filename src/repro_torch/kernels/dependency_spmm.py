@@ -4,10 +4,15 @@ pre-fold partial on a rectangular 2-D block — launched on the card.
 K2 replaces ``kernels/dependency_spmm.py:dependency_spmm_kernel`` of the
 JAX package (a Pallas TPU kernel); its CUDA source is
 ``csrc/dependency_spmm.cu``.  K4 replaces ``dependency_partial_kernel`` /
-``dependency_partial_acc_kernel`` of the same file; its source is
-``csrc/partial_spmm.cu``.  Both run over the shared tiled main loop of
-``csrc/level_tile.cuh``; the notes in the sources give the bound (f32
-compute) and the design.  The plain versions are
+``dependency_partial_acc_kernel`` of the same file; its source is the
+dependency half of ``csrc/partial_spmm.cu``.  Each launch is two kernels:
+the operand pass of ``csrc/level_operand.cuh`` writes
+g = (1 + δ + ω) / σ̂ once into a [k, ld] f32 scratch that the wrapper
+allocates here (ld = s rounded up to 4, :func:`operand_stride`), then the
+pipelined f32 main loop of ``csrc/level_gemm.cuh`` multiplies A by it, at
+the column tile :func:`column_tile` picks from s and with 16-byte copies
+of A where :func:`fast_copies` allows them.  The notes in the sources give
+the bound (f32 compute) and the design.  The plain versions are
 :func:`repro_torch.kernels.ref.dependency_spmm_ref` and
 :func:`~repro_torch.kernels.ref.dependency_partial_ref`; the public,
 checked entry points are :func:`repro_torch.kernels.ops.dependency_spmm`
@@ -19,7 +24,47 @@ import torch
 
 from . import _build
 
-__all__ = ["dependency_spmm_cuda", "dependency_partial_cuda"]
+__all__ = [
+    "COLUMN_TILES",
+    "column_tile",
+    "operand_stride",
+    "fast_copies",
+    "dependency_spmm_cuda",
+    "dependency_partial_cuda",
+]
+
+#: column tiles of the main loop, one instantiation each (the cases of
+#: ``dispatch`` in csrc/level_gemm.cuh)
+COLUMN_TILES = (64, 128, 192)
+
+
+def column_tile(s: int) -> int:
+    """The column tile for width ``s``: the fewest padded columns
+    ⌈s/BS⌉·BS, ties to the wider tile (fewer passes over A).  s = 128 and
+    s = 192, the main path's widths, get a tile of their own width."""
+    return min(COLUMN_TILES, key=lambda bs: (-(-s // bs) * bs, -bs))
+
+
+def operand_stride(s: int) -> int:
+    """Row stride of the operand scratch: s rounded up to 4 floats, so that
+    every row is 16-byte aligned for the main loop's copies."""
+    return -(-s // 4) * 4
+
+
+def fast_copies(adjacency: torch.Tensor) -> bool:
+    """Whether A's rows are 16-byte aligned (base and row length), so that
+    the main loop may copy A in 16-byte chunks; otherwise it takes the
+    instantiation that loads A element by element."""
+    row_bytes = adjacency.shape[1] * adjacency.element_size()
+    return row_bytes % 16 == 0 and adjacency.data_ptr() % 16 == 0
+
+
+def _layout(adjacency: torch.Tensor, sigma: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
+    """(operand scratch [k, ld], ld, column tile, fast) of one launch."""
+    k, s = sigma.shape
+    ld = operand_stride(s)
+    operand = torch.empty((k, ld), dtype=torch.float32, device=sigma.device)
+    return operand, ld, column_tile(s), int(fast_copies(adjacency))
 
 
 def dependency_spmm_cuda(
@@ -32,10 +77,11 @@ def dependency_spmm_cuda(
 ) -> torch.Tensor:
     """Launch K2 on already-validated CUDA tensors (see ops.dependency_spmm).
 
-    Allocates the output, launches on the current stream without
-    synchronising, and raises if the launch was refused."""
+    Allocates the output and the operand scratch, launches on the current
+    stream without synchronising, and raises if the launch was refused."""
     n, s = sigma.shape
     delta_out = torch.empty_like(delta)
+    operand, ld, bs, fast = _layout(adjacency, sigma)
     lib = _build.library()
     fn = (
         lib.dependency_spmm_bf16
@@ -44,7 +90,8 @@ def dependency_spmm_cuda(
     )
     err = fn(
         adjacency.data_ptr(), sigma.data_ptr(), depth.data_ptr(),
-        delta.data_ptr(), omega.data_ptr(), delta_out.data_ptr(), n, s, int(lvl),
+        delta.data_ptr(), omega.data_ptr(), delta_out.data_ptr(), operand.data_ptr(),
+        n, s, ld, int(lvl), bs, fast,
         sigma.device.index, torch.cuda.current_stream(sigma.device).cuda_stream,
     )
     if err != 0:
@@ -66,6 +113,7 @@ def dependency_partial_cuda(
     m, kdim = adjacency.shape
     s = sigma.shape[1]
     t_out = torch.empty((m, s), dtype=torch.float32, device=sigma.device)
+    operand, ld, bs, fast = _layout(adjacency, sigma)
     lib = _build.library()
     fn = (
         lib.dependency_partial_bf16
@@ -75,7 +123,7 @@ def dependency_partial_cuda(
     err = fn(
         adjacency.data_ptr(), sigma.data_ptr(), depth.data_ptr(), delta.data_ptr(),
         omega.data_ptr(), None if acc is None else acc.data_ptr(), t_out.data_ptr(),
-        m, kdim, s, int(lvl),
+        operand.data_ptr(), m, kdim, s, ld, int(lvl), bs, fast,
         sigma.device.index, torch.cuda.current_stream(sigma.device).cuda_stream,
     )
     if err != 0:

@@ -12,11 +12,12 @@ version's matmul), BC rtol 1e-5 / atol 1e-5 against the numpy oracle or
 the single-device dense engine.  K3's and K5's partials are integer-valued
 sums and are held exactly; on signed tile values K5/K6 are held within
 1e-5 of Σ|a·x| (a sum's rounding scale, which cancellation does not
-shrink); K5/K6 are bitwise reproducible launch to launch.  K7 against its plain version: rtol 1e-6 /
-atol 1e-6 for f32 tables, rtol 2e-2 for bf16 (the JAX kernel test's
-values; the two take the same sum in the same order); the reduced DLRM
-forward on the card against the same model on the CPU at rtol 1e-5 /
-atol 1e-5 (f32 matmuls summed in another order, TF32 off).
+shrink); K2/K4 and K5/K6 are bitwise reproducible launch to launch.
+K7 against its plain version: rtol 1e-6 / atol 1e-6 for f32 tables,
+rtol 2e-2 for bf16 (the JAX kernel test's values; the two take the same
+sum in the same order); the reduced DLRM forward on the card against
+the same model on the CPU at rtol 1e-5 / atol 1e-5 (f32 matmuls summed
+in another order, TF32 off).
 """
 import os
 import subprocess
@@ -35,7 +36,8 @@ from repro_torch.core.distributed import distributed_betweenness_centrality
 from repro_torch.distributed import GridGroups
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.dependency_spmm import column_tile, fast_copies
 from repro_torch.kernels.blocked_spmm import SEGMENT, nonzero_index
 from repro_torch.models import DLRM
 
@@ -154,6 +156,75 @@ def test_partial_kernels_match_plain_versions(cuda, dtype):
                 ref.dependency_partial_ref(A, sigma, depth, delta, omega, 1, t_in),
                 rtol=1e-5, atol=1e-6,
             )
+
+
+def _at_offset(A):
+    """A copy of A whose base lies one element past a 16-byte boundary
+    (a contiguous view into a larger buffer)."""
+    buf = torch.empty(A.numel() + 1, dtype=A.dtype, device=A.device)
+    view = buf[1:].view(A.shape)
+    view.copy_(A)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# K2/K4's main loop: widths that reach each column tile (64, 128, 192, and
+# ragged ones over several tiles), contraction lengths whose A rows are and
+# are not a multiple of 16 bytes
+DEP_WIDTHS = [64, 128, 192, 130, 257]
+DEP_KDIMS = [33, 130, 260, 4096]
+
+
+@pytest.mark.parametrize("s", DEP_WIDTHS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_dependency_kernels_reach_every_column_tile_and_copy_path(cuda, dtype, s):
+    """K2 at n = kdim and K4 (plain and acc) on a [200, kdim] block, with A
+    aligned and at an offset, against their plain versions (δ / t rtol
+    1e-5 / atol 1e-6); every path of the copies is taken."""
+    paths = set()
+    for kdim in DEP_KDIMS:
+        A, sigma, depth, delta, omega = _state(kdim, s, kdim + s, 2, DTYPES[dtype], cuda)
+        blk = A[:200].contiguous()
+        acc = torch.randint(0, 7, (blk.shape[0], s), device=cuda).to(torch.float32)
+        for a, b in ((A, blk), (_at_offset(A), _at_offset(blk))):
+            paths.add(fast_copies(a))
+            torch.testing.assert_close(
+                ops.dependency_spmm(a, sigma, depth, delta, omega, 1),
+                ref.dependency_spmm_ref(A, sigma, depth, delta, omega, 1), rtol=1e-5, atol=1e-6)
+            for t_in in (None, acc):
+                torch.testing.assert_close(
+                    ops.dependency_spmm_partial(b, sigma, depth, delta, omega, 1, acc=t_in),
+                    ref.dependency_partial_ref(blk, sigma, depth, delta, omega, 1, t_in),
+                    rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert paths == {True, False}
+
+
+def test_dependency_kernels_are_bitwise_reproducible(cuda):
+    """No atomics and no split-k: two launches give the same bits."""
+    for dtype in DTYPES.values():
+        for n, s in ((4096, 192), (1000, 130), (260, 64)):
+            A, sigma, depth, delta, omega = _state(n, s, n + s, 2, dtype, cuda)
+            runs = [(ops.dependency_spmm(A, sigma, depth, delta, omega, 1),
+                     ops.dependency_spmm_partial(A[:n // 2].contiguous(), sigma, depth, delta,
+                                                 omega, 1)) for _ in range(2)]
+            assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_dependency_kernels_launch_above_48_kb_of_shared_memory(cuda):
+    """The main loop's ring is dynamic shared memory past the 48 KB default
+    (the launcher raises the limit): those launches run and agree."""
+    lib = _build.library()
+    for dtype, is_bf16 in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for s in (128, 192):
+            assert lib.level_gemm_shared_bytes(column_tile(s), is_bf16) > 48 * 1024
+            A, sigma, depth, delta, omega = _state(512, s, s, 2, dtype, cuda)
+            got = ops.dependency_spmm(A, sigma, depth, delta, omega, 1)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref.dependency_spmm_ref(A, sigma, depth, delta,
+                                                                    omega, 1),
+                                       rtol=1e-5, atol=1e-6)
+    assert lib.level_gemm_shared_bytes(96, 0) == -1
 
 
 def _tile_list(num_tr, num_tc, bm, bk, seed, device, pad=3, complete=True):

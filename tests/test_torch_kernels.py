@@ -26,6 +26,12 @@ from repro_torch.core import engine
 from repro_torch.core.operators import DenseOperator
 from repro_torch.core.scheduler import COLUMN_TILE
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.dependency_spmm import (
+    COLUMN_TILES,
+    column_tile,
+    fast_copies,
+    operand_stride,
+)
 
 SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64)]
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -79,6 +85,63 @@ def test_dependency_spmm_matches_jax_kernel(n, s, dtype):
     got = ops.dependency_spmm(*_torch(A, tdt, sigma, depth, delta, omega), lvl)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,s", SHAPES)
+def test_dependency_operand_matches_the_jax_kernel_formula(n, s):
+    """The operand pass's plain version (K2/K4 write g once a launch) is
+    the JAX kernel's g (src/repro/kernels/dependency_spmm.py:58-63)
+    evaluated in numpy float32, bit for bit: the same IEEE operations in
+    the same order.  The state holds σ ≤ 0 entries at d == lvl+1 (σ̂ = 1)
+    and d != lvl+1 entries (g = 0)."""
+    lvl = 1
+    _, sigma, depth, delta, omega = _bc_state(n, s, seed=2 * n + s, lvl=lvl)
+    rng = np.random.default_rng(n + s)
+    hit = rng.random((n, s)) < 0.25
+    sigma = np.where(hit, -rng.integers(0, 2, size=(n, s)), sigma).astype(np.float32)
+    depth = np.where(hit, lvl + 1, depth).astype(np.int32)
+    safe = np.where(sigma > 0, sigma, np.float32(1.0))
+    want = np.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe, np.float32(0.0))
+    assert want.dtype == np.float32
+    assert (depth == lvl + 1).any() and (depth != lvl + 1).any()
+    assert ((sigma <= 0) & (depth == lvl + 1)).any()
+    got = ref._dependency_operand(*_torch(sigma, torch.float32, depth, delta, omega)[:4], lvl)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("s", [1, 4, 33, 64, 100, 128, 130, 192, 200, 256, 257, 384])
+def test_column_tile_leaves_the_fewest_dead_columns(s):
+    """K2/K4's column tile: no tile gives fewer padded columns, ties go to
+    the wider tile, and the main path's widths (128 forward, 192 backward
+    under h0/h1/h1t) run with no dead column."""
+    bs = column_tile(s)
+    padded = {t: -(-s // t) * t for t in COLUMN_TILES}
+    assert bs in COLUMN_TILES
+    assert padded[bs] == min(padded.values())
+    assert bs == max(t for t in COLUMN_TILES if padded[t] == padded[bs])
+    if s in (64, 128, 192):
+        assert bs == s and padded[bs] == s
+
+
+def test_column_tiles_match_kernel_source():
+    """The wrapper picks only column tiles the main loop instantiates."""
+    src = (Path(_build.CSRC) / "level_gemm.cuh").read_text()
+    cases = re.findall(r"case (\d+):\s*return fast", src)
+    assert tuple(int(t) for t in cases) == COLUMN_TILES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operand_stride_and_copy_path(dtype):
+    """The operand scratch's rows are 16-byte aligned; A takes the 16-byte
+    copies only with 16-byte aligned rows and base (a view at an offset,
+    or kdim·size not a multiple of 16, takes the element-wise loads)."""
+    assert [operand_stride(s) for s in (1, 4, 5, 128, 130, 192, 257)] == [
+        4, 4, 8, 128, 132, 192, 260]
+    per_chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    for kdim in (33, 130, 260, 4096):
+        A = torch.zeros(kdim + 1, kdim, dtype=dtype)
+        assert fast_copies(A[:kdim]) == (kdim % per_chunk == 0)
+        assert not fast_copies(A.view(-1)[1:1 + kdim * kdim].view(kdim, kdim))
 
 
 def test_frontier_spmm_full_level_sequence():
