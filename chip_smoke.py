@@ -23,7 +23,11 @@ tables):
      rtol 1e-6, δ rtol 1e-5 / atol 1e-6); K3/K4 in
      plain and acc mode at ragged rectangular shapes, at the 1×1 grid's
      [65536, 65536] block and at the [32768, 16384] block of a 2×4 grid
-     (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6); K5/K6
+     (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6); K1
+     and K3 (plain and acc) at the main loop's edges, kdim 33 / 130 / 260
+     / 4096 by s 64 / 128 / 192 / 130 / 257, A aligned and at an offset
+     (16-byte copies and element loads), σ, depth and t exact, two
+     launches bitwise equal; K5/K6
      in plain and acc mode on random tile lists (bm, bk in {5, 8, 32,
      128}, bm != bk, ragged s, fillers, empty tile-rows, trailing pad
      tiles), on a skewed list with one row of 20 480 nonzeros over 160
@@ -40,14 +44,15 @@ tables):
      fused_bf16, fused and dense engines; the fused runs must launch
      K1 and K2 and match dense to rtol 1e-5 / atol 1e-5; then one more
      fused_bf16 run under torch.profiler for device time per kernel
-     (K1, K2 and K2's operand pass);
+     (K1, K2 and their operand passes);
   5. the 2-D decomposed path at full width through
      ``distributed_betweenness_centrality`` on a 1×1 grid (one NCCL rank:
      one card holds no larger grid), same graph and roots, engines
      fused_bf16, fused and sparse; the fused runs must launch K3 and K4
      and not K1/K2, and every run must match the single-device dense BC
      to rtol 1e-5 / atol 1e-5; then the fused run once under
-     torch.profiler (device busy share, K3/K4/K4 operand pass/NCCL shares);
+     torch.profiler (device busy share; K3, K4, their operand passes and
+     NCCL shares);
   6. exact BC against the port's numpy oracle (rmat 10, road 20x20; h0
      and h3t; rtol 1e-5 / atol 1e-5) and h3 on rmat 13 against dense;
   7. kernel times with CUDA events at the main-path shapes (K3/K4 also at
@@ -60,12 +65,13 @@ tables):
      3.35 TB/s and FLOP / 67 TFLOP/s f32; K5/K6's bytes count their
      nonzero index, not the tiles, and the tile-FFMA figure of the TPU
      design is printed beside; K7's bytes count each distinct row once);
-     K2/K4 also at the forward width s = 128 (bound and torch.matmul
-     beside), the per-launch device time of K2 and K4 on the main path
-     (phase 4's and phase 5's traces, real states) beside their time on
-     the random states, the ptxas registers and spills of every K2/K4
-     instantiation and of the operand pass, and the SM clock and power
-     sampled while K2 (f32 A, s = 192) runs 60 times;
+     K1 also at the backward width s = 192 and K2/K4 at the forward
+     width s = 128 (bound and torch.matmul beside), the per-launch device
+     time of K1–K4 on the main path (phase 4's and phase 5's traces, real
+     states: main loop plus operand pass) beside their time on the random
+     states, the ptxas registers and spills of every K1–K4 instantiation
+     and of the operand passes, and the SM clock and power sampled while
+     K2 (f32 A, s = 192) runs 60 times;
   8. the BCSR path at full width through
      ``distributed_betweenness_centrality`` on the 1×1 NCCL grid:
      (a) phase 4's graph and roots on fused_sparse at the default tile
@@ -110,7 +116,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# the Tile<BM, BS, BK, STAGES, FAST> arguments of a K2/K4 instantiation
+# the Tile<BM, BS, BK, STAGES, FAST> arguments of a K1-K4 instantiation
 RE_TILE = re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
 SRC = ROOT / "src"
 
@@ -125,6 +131,10 @@ TEST_SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64)]
 # multiple of 128, s not a multiple of 128
 PARTIAL_SHAPES = [(8, 16, 4), (130, 70, 33), (300, 1000, 192), (1000, 260, 128), (257, 129, 130)]
 BLOCK_GRID = (2, 4)  # K3/K4 are also checked and timed at this grid's per-device block
+# K1/K3's edges on the main loop: contraction lengths whose A rows are and
+# are not a multiple of 16 bytes, widths that reach each column tile (64,
+# 128, 192) and ragged ones over several tiles
+EDGE_KDIMS, EDGE_WIDTHS = (33, 130, 260, 4096), (64, 128, 192, 130, 257)
 # (tile-rows, tile-cols, bm, bk, s) random BCSR lists for K5/K6: bm != bk,
 # each of the kernel's row blocks (32, 64, 128), ragged s
 SPARSE_SHAPES = [(6, 5, 5, 8, 33), (4, 7, 8, 5, 130), (40, 30, 32, 128, 128),
@@ -373,6 +383,15 @@ def level_state(n: int, s: int, seed: int, lvl: int, dev):
     delta = (rng.random((n, s)).astype(np.float32) * (depth >= 0)).astype(np.float32)
     omega = rng.integers(0, 3, size=n).astype(np.float32)
     return tuple(torch.from_numpy(x).to(dev) for x in (sigma, depth, delta, omega))
+
+
+def at_offset(A: torch.Tensor) -> torch.Tensor:
+    """A copy of A whose base lies one element past a 16-byte boundary (a
+    contiguous view into a larger buffer): the main loop's element loads."""
+    buf = torch.empty(A.numel() + 1, dtype=A.dtype, device=A.device)
+    view = buf[1:].view(A.shape)
+    view.copy_(A)
+    return view
 
 
 # K7 parity cases (V, D, B, L): the JAX kernel test's grid, then a ragged D
@@ -664,6 +683,7 @@ def main() -> None:
     )
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.blocked_spmm import nonzero_index
+    from repro_torch.kernels.level_gemm import fast_copies
 
     t_all = time.perf_counter()
     dev = resolve_device("cuda")  # also switches TF32 off for matmul and cuDNN
@@ -766,6 +786,39 @@ def main() -> None:
                                    f"m={m} k={k} s={s} A={tag}")
             print(f"[3] K3/K4 m={m} k={k} s={s} A={tag}: K3 exact, K4 δ-side err {e4:.3g} "
                   f"(plain and acc)")
+    # K1/K3's edges: every column tile and both copy paths of A (aligned
+    # and at an offset), K3 in plain and acc mode; σ, depth and K3's t
+    # exact (integer path counts); each launched twice, bitwise equal
+    paths = set()
+    for kdim in EDGE_KDIMS:
+        A32 = torch.from_numpy(
+            gnp_graph(kdim, min(0.3, 8.0 / kdim), seed=kdim).dense_adjacency(np.float32)).to(dev)
+        for s in EDGE_WIDTHS:
+            sigma, depth, _, _ = level_state(kdim, s, kdim + s, 2, dev)
+            for tag, dt in dtypes.items():
+                A = A32.to(dt)
+                blk = A[:200].contiguous()
+                acc = torch.randint(0, 7, (blk.shape[0], s), device=dev).to(torch.float32)
+                want_s, want_d = ref.frontier_spmm_ref(A, sigma, depth, 2)
+                want_t = {t_in is None: ref.frontier_partial_ref(blk, sigma, depth, 2, t_in)
+                          for t_in in (None, acc)}
+                for a, b in ((A, blk), (at_offset(A), at_offset(blk))):
+                    paths.add(fast_copies(a))
+                    for _ in range(2):
+                        sg, dp = ops.frontier_spmm(a, sigma, depth, 2)
+                        check(torch.equal(sg, want_s) and torch.equal(dp, want_d),
+                              f"K1 parity at kdim={kdim} s={s} A={tag} "
+                              f"fast={fast_copies(a)}")
+                        for t_in in (None, acc):
+                            check(torch.equal(ops.frontier_spmm_partial(b, sigma, depth, 2,
+                                                                        acc=t_in),
+                                              want_t[t_in is None]),
+                                  f"K3 parity at [{b.shape[0]}, {kdim}] s={s} A={tag} "
+                                  f"fast={fast_copies(b)} acc={t_in is not None}")
+    check(paths == {True, False}, f"K1/K3 edges took the copy paths {paths} only")
+    print(f"[3] K1/K3 edges kdim {EDGE_KDIMS} x s {EDGE_WIDTHS}, f32 and bf16 A, aligned and "
+          f"at an offset (16-byte copies and element loads), K3 plain and acc: σ, depth and t "
+          f"exact; two launches bitwise equal")
     # the 1×1 grid's block is the whole adjacency
     for tag in dtypes:
         for s in (s_fwd, s_bwd):
@@ -939,6 +992,7 @@ def main() -> None:
         graph, batch_size=MAIN_BATCH, heuristics="h0", engine_kind="fused_bf16",
         sampling="fixed", sample_k=MAIN_SAMPLE_K, sample_seed=0, device="cuda"), {
         "K1": "frontier_spmm_kernel<", "K2": "dependency_spmm_kernel<",
+        "K1 operand pass": ("operand_kernel", "FrontierOperand"),
         "K2 operand pass": ("operand_kernel", "DependencyOperand")})
 
     # ------------------------------------- 5. 2-D path, 1×1 grid, full width
@@ -1000,8 +1054,8 @@ def main() -> None:
                 del res
                 torch.cuda.empty_cache()
             trace5 = trace_run("[5] 2-D 1x1 fused", lambda: run_2d("fused"), {
-                "K3": ("partial_spmm_kernel<", "FrontierOperand"),
-                "K4": "dependency_partial_kernel<",
+                "K3": "frontier_partial_kernel<", "K4": "dependency_partial_kernel<",
+                "K3 operand pass": ("operand_kernel", "FrontierOperand"),
                 "K4 operand pass": ("operand_kernel", "DependencyOperand"), "NCCL": "nccl"})
             print(f"[5] 2-D path ok in {time.perf_counter() - t5:.1f}s")
 
@@ -1126,25 +1180,34 @@ def main() -> None:
     A_main["bf16"] = A_main["f32"].to(torch.bfloat16)
     engine_of = {"f32": "fused", "bf16": "fused_bf16"}
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
-    for line in ptxas_report(_build.build_log(), ("dependency_spmm_kernel",
-                                                  "dependency_partial_kernel", "operand_kernel")):
+    for line in ptxas_report(_build.build_log(), (
+            "frontier_spmm_kernel", "dependency_spmm_kernel", "frontier_partial_kernel",
+            "dependency_partial_kernel", "operand_kernel")):
         print(f"[7] ptxas {line}")
     entries = []
 
     def width_row(kname, where, A, st, s) -> float:
-        """K2/K4 at width s beside torch.matmul (f32 A) and the bound;
-        returns the kernel's ms."""
+        """K1/K2/K4 at the other width s beside torch.matmul (f32 A) and
+        the bound; returns the kernel's ms."""
         sigma, depth, delta, omega = st
         m, k = A.shape
-        fn = ops.dependency_spmm if kname == "dependency_spmm" else ops.dependency_spmm_partial
-        ms = cuda_time_ms(lambda: fn(A, sigma, depth, delta, omega, 1))
+        if kname == "frontier_spmm":
+            ms = cuda_time_ms(lambda: ops.frontier_spmm(A, sigma, depth, 2))
+            make_operand = lambda: sigma * (depth == 1)
+            nbytes = A.nbytes + 2 * (sigma.nbytes + depth.nbytes)
+        else:
+            fn = (ops.dependency_spmm if kname == "dependency_spmm"
+                  else ops.dependency_spmm_partial)
+            ms = cuda_time_ms(lambda: fn(A, sigma, depth, delta, omega, 1))
+            make_operand = lambda: dep_operand(sigma, depth, delta, omega)
+            nbytes = partial_bytes(A, sigma, depth, delta, omega)
         lib = "n/a (bf16 A)"
         if A.dtype == torch.float32:
-            operand = dep_operand(sigma, depth, delta, omega)
+            operand = make_operand()
             lib = f"{cuda_time_ms(lambda: torch.matmul(A, operand)):.3f} ms"
             del operand
         t_ops = 2.0 * m * k * s / PEAK_F32_FLOP_PER_S * 1e3
-        bound = max(t_ops, partial_bytes(A, sigma, depth, delta, omega) / PEAK_BYTES_PER_S * 1e3)
+        bound = max(t_ops, nbytes / PEAK_BYTES_PER_S * 1e3)
         tag = "bf16" if A.dtype == torch.bfloat16 else "f32"
         print(f"[7] {kname} A={tag} {where} s={s}: kernel {ms:.3f} ms, torch.matmul {lib}, "
               f"bound {bound:.3f} ms, {100 * bound / ms:.1f}% of bound")
@@ -1211,11 +1274,12 @@ def main() -> None:
             if kname == "dependency_spmm" and tag == "f32":
                 print(f"[7] dependency_spmm A=f32 s={s}, 60 launches: "
                       + clocks_during(lambda: cuda_time_ms(kern, reps=60)))
-            if kname == "dependency_spmm" and tag == "bf16":  # phase 4 traced fused_bf16
-                real_path_row(kname, tag, trace4, "K2", ms)
-        if kname == "dependency_spmm":  # K2 also at the forward width
-            for tag in dtypes:
-                width_row(kname, f"n={n_main}", A_main[tag], states[s_fwd], s_fwd)
+            if tag == "bf16":  # phase 4 traced fused_bf16
+                real_path_row(kname, tag, trace4, "K1" if kname == "frontier_spmm" else "K2", ms)
+        # K1 also at the backward width, K2 at the forward one
+        s_other = s_bwd if kname == "frontier_spmm" else s_fwd
+        for tag in dtypes:
+            width_row(kname, f"n={n_main}", A_main[tag], states[s_other], s_other)
     # K3/K4 at the 1×1 grid's block (the 2-D main path's shape) and at the
     # per-device block of a 2×4 grid, each at its main-path width
     A_blk = {"f32": part.cell_dense_block(0, 0, torch.float32, dev)}
@@ -1270,9 +1334,9 @@ def main() -> None:
                       f"({entries[-1]['bound_by']}; ops {t_ops:.3f} / bytes {t_bytes:.3f}), "
                       f"{100 * bound / ms:.1f}% of bound")
                 del operand
-                if (kname == "dependency_spmm_partial" and shape_tag == "1x1"
-                        and tag == "f32"):  # phase 5 traced the 2-D fused (f32) run
-                    real_path_row(kname, tag, trace5, "K4", ms)
+                if shape_tag == "1x1" and tag == "f32":  # phase 5 traced the 2-D fused (f32) run
+                    real_path_row(kname, tag, trace5,
+                                  "K3" if kname == "frontier_spmm_partial" else "K4", ms)
             if kname == "dependency_spmm_partial":  # K4 also at the forward width
                 for tag in dtypes:
                     width_row(kname, f"{shape_tag} block", blocks[tag], st[s_fwd], s_fwd)

@@ -21,6 +21,7 @@ import logging
 import numpy as np
 
 from ..graphs.graph import Graph
+from ..kernels.level_gemm import COLUMN_TILES
 from .heuristics.one_degree import OneDegreeReduction, one_degree_reduce
 from .heuristics.two_degree import claim_two_degree
 
@@ -48,13 +49,14 @@ HEURISTICS_MODES = ("h0", "h1", "h2", "h3", "h1t", "h3t")
 #: similar-depth roots share a round (a round runs to its deepest root).
 ROOT_ORDERS = ("id", "eccentricity")
 
-#: Column-tile width of the forward level kernels K1/K3 (``BS`` in
-#: kernels/csrc/level_tile.cuh): each thread block computes a 128-column
-#: slab of the [n, s] product, so a batch that is not a multiple of it
-#: leaves lanes of the last slab computing zeros.  This takes the place
-#: of the TPU's 128-lane MXU width.  (The dependency kernels K2/K4 pick
-#: a tile of 64, 128 or 192 columns from s: kernels/dependency_spmm.py.)
-COLUMN_TILE = 128
+#: Column padding of the dense level kernels K1–K4: each thread block
+#: computes a slab of 64, 128 or 192 columns of the [n, s] product
+#: (kernels/level_gemm.py:column_tile picks the tile from s), and the
+#: fewest padded columns any pick leaves is s rounded up to the smallest
+#: tile, so a batch that is not a multiple of it leaves lanes of the last
+#: slab computing zeros.  This takes the place of the TPU's 128-lane MXU
+#: width.
+COLUMN_TILE = min(COLUMN_TILES)
 
 
 def validate_batch_size(

@@ -4,6 +4,7 @@
   ref.py              plain PyTorch versions (the semantics)
   frontier_spmm.py    K1 launcher (csrc/frontier_spmm.cu), K3 (csrc/partial_spmm.cu)
   dependency_spmm.py  K2 launcher (csrc/dependency_spmm.cu), K4 (csrc/partial_spmm.cu)
+  level_gemm.py       K1–K4's launch layout: column tile, operand scratch, copy path
   blocked_spmm.py     K5/K6 launchers (csrc/sparse_spmm.cu) and the tiles'
                       nonzero index the kernels read
   segment_bag.py      K7 launcher (csrc/segment_bag.cu), the DLRM EmbeddingBag

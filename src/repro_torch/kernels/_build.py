@@ -33,12 +33,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (A, σ, d, σ_out, d_out, n, s, lvl, device, stream)
-_FRONTIER_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# (A, σ, d, σ_out, d_out, operand, n, s, ld, lvl, bs, fast, device, stream)
+_FRONTIER_ARGS = [_P] * 6 + [_I] * 7 + [_P]
 # (A, σ, d, δ, ω, δ_out, operand, n, s, ld, lvl, bs, fast, device, stream)
 _DEPENDENCY_ARGS = [_P] * 7 + [_I] * 7 + [_P]
-# (A, σ, d, t_in or NULL, t_out, m, k, s, lvl, device, stream)
-_FRONTIER_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# (A, σ, d, t_in or NULL, t_out, operand, m, k, s, ld, lvl, bs, fast, device, stream)
+_FRONTIER_PARTIAL_ARGS = [_P] * 6 + [_I] * 8 + [_P]
 # (A, σ, d, δ, ω, t_in or NULL, t_out, operand, m, k, s, ld, lvl, bs, fast, device, stream)
 _DEPENDENCY_PARTIAL_ARGS = [_P] * 8 + [_I] * 8 + [_P]
 # (col, val, seg, long_ptr, σ, d, t_in or NULL, t_out, operand, partials,

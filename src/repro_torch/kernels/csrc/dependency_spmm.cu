@@ -106,7 +106,7 @@ extern "C" int dependency_spmm_bf16(const void* A, const void* sigma, const void
                                lvl, bs, fast, device, stream);
 }
 
-// Dynamic shared memory a K2/K4 launch asks for at column tile bs (bf16 != 0:
+// Dynamic shared memory a K1-K4 launch asks for at column tile bs (bf16 != 0:
 // a bf16 A), or -1 for a column tile without an instantiation.
 extern "C" int level_gemm_shared_bytes(int bs, int bf16) {
   int bytes = -1;

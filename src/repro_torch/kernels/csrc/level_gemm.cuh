@@ -1,20 +1,21 @@
-// Pipelined f32 main loop of the dense dependency level kernels K2
-// (dependency_spmm.cu, on a square adjacency) and K4 (the dependency half
-// of partial_spmm.cu, on a rectangular 2-D block):
+// Pipelined f32 main loop of the dense level kernels: K1 and K2
+// (frontier_spmm.cu, dependency_spmm.cu, on a square adjacency), K3 and
+// K4 (partial_spmm.cu, on a rectangular 2-D block):
 //
 //     acc = A[row0 : row0+BM, :] @ G[:, col0 : col0+BS]
 //
 // with A [m, kdim] row-major (f32 or bf16, 0/1 entries) and G the
-// operand g, written once a launch by the operand pass
-// (level_operand.cuh) into a [kdim, ld] f32 scratch, ld = s rounded up
-// to a multiple of 4 so that every scratch row is 16-byte aligned and its
-// pad columns hold 0.
+// operand — the masked frontier σ ⊙ [d == lvl-1] (K1/K3) or g (K2/K4) —
+// written once a launch by the operand pass (level_operand.cuh) into a
+// [kdim, ld] f32 scratch, ld = s rounded up to a multiple of 4 so that
+// every scratch row is 16-byte aligned and its pad columns hold 0.
 //
-// Bound: 2·m·kdim·s FLOP of f32 FFMA (24.6 ms at n = 65536, s = 192 on an
-// H100 at 67 TFLOP/s) against 5.1 ms (f32 A) or 2.6 ms (bf16 A) to stream
-// A, and 0.06 ms for the operand pass: f32 compute.  No tensor cores and
-// no TF32 (g is fractional and σ exact; the reference sums in f32), no
-// --use_fast_math: the design feeds the FFMA pipe.
+// Bound: 2·m·kdim·s FLOP of f32 FFMA (24.6 ms at n = 65536, s = 192, and
+// 16.4 ms at s = 128, on an H100 at 67 TFLOP/s) against 5.1 ms (f32 A) or
+// 2.6 ms (bf16 A) to stream A, and 0.06 ms for the operand pass: f32
+// compute.  No tensor cores and no TF32 (g is fractional and σ exact; the
+// reference sums in f32), no --use_fast_math: the design feeds the FFMA
+// pipe.
 //
 //   * A ring of STAGES shared-memory stages, each an A[BM x BK] and a
 //     G[BK x BS] tile, filled by 16-byte cp.async.cg copies: while step k
@@ -34,7 +35,7 @@
 //     warp touches 4 neighbouring rows (4 distinct bank groups with the
 //     pad) and one float4 read of G 8 consecutive float4: one shared-memory
 //     wavefront each.
-//   * Column tiles BS of 64, 128 and 192 (kernels/dependency_spmm.py:
+//   * Column tiles BS of 64, 128 and 192 (kernels/level_gemm.py:
 //     column_tile picks one from s) with 16 x BS/8 threads: s = 128 and
 //     s = 192, the forward and backward widths of the main path, each run
 //     one column tile with no dead columns.  The 192 tile (384 threads, one
@@ -283,7 +284,7 @@ template <typename Kernel> cudaError_t prepare(Kernel* kernel, int smem) {
 }
 
 // f(Tile{}) for the tile of column width bs: one instantiation per
-// column tile (kernels/dependency_spmm.py:COLUMN_TILES lists the cases);
+// column tile (kernels/level_gemm.py:COLUMN_TILES lists the cases);
 // an unknown width is refused with cudaErrorInvalidValue.
 template <typename F> cudaError_t dispatch(int bs, bool fast, F&& f) {
   switch (bs) {

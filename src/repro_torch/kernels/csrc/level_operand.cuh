@@ -4,11 +4,11 @@
 //   FrontierOperand    σ ⊙ [d == lvl-1]                     (K1, K3, K5)
 //   DependencyOperand  g = (1 + δ + ω) / σ̂ on d == lvl+1    (K2, K4, K6)
 //
-// K1/K3 evaluate theirs while the operand tile loads (level_tile.cuh).
-// K2/K4 (level_gemm.cuh) and K5/K6 (sparse_spmm.cu) run operand_kernel
-// first, once a launch, into a [k, ld] f32 scratch that the wrapper
-// allocates: their main loops then read g from device memory (L2) instead
-// of recomputing it, with its IEEE division, in every row block.
+// Every level kernel runs operand_kernel first, once a launch, into a
+// [k, ld] f32 scratch that the wrapper allocates: the main loops of
+// K1-K4 (level_gemm.cuh) and the gathers of K5/K6 (sparse_spmm.cu) then
+// read the operand from device memory (L2) instead of rebuilding it from
+// σ, d (δ, ω) in every row block — g with its IEEE division.
 #pragma once
 
 #include <cuda_runtime.h>

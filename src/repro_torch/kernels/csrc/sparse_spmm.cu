@@ -31,7 +31,7 @@
 // pad tiles are all zero, so they have no entry and add nothing.
 //
 // Design, three launches on the caller's stream:
-//   1. operand pass (level_operand.cuh, shared with K2/K4): the masked
+//   1. operand pass (level_operand.cuh, shared with K1-K4): the masked
 //      frontier (K5) or g (K6) is written once into a [k, s] f32 scratch
 //      (one IEEE division per element for g, no --use_fast_math).
 //      Gathering σ, d (and δ, ω) per nonzero instead would read 2 (K5) or

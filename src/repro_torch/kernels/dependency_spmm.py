@@ -8,10 +8,13 @@ JAX package (a Pallas TPU kernel); its CUDA source is
 dependency half of ``csrc/partial_spmm.cu``.  Each launch is two kernels:
 the operand pass of ``csrc/level_operand.cuh`` writes
 g = (1 + δ + ω) / σ̂ once into a [k, ld] f32 scratch that the wrapper
-allocates here (ld = s rounded up to 4, :func:`operand_stride`), then the
+allocates here (ld = s rounded up to 4), then the
 pipelined f32 main loop of ``csrc/level_gemm.cuh`` multiplies A by it, at
-the column tile :func:`column_tile` picks from s and with 16-byte copies
-of A where :func:`fast_copies` allows them.  The notes in the sources give
+the column tile :func:`~repro_torch.kernels.level_gemm.column_tile` picks
+from s and with 16-byte copies of A where
+:func:`~repro_torch.kernels.level_gemm.fast_copies` allows them (the
+layout helpers live in :mod:`~repro_torch.kernels.level_gemm`, shared with
+K1/K3, and stay importable from here).  The notes in the sources give
 the bound (f32 compute) and the design.  The plain versions are
 :func:`repro_torch.kernels.ref.dependency_spmm_ref` and
 :func:`~repro_torch.kernels.ref.dependency_partial_ref`; the public,
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .level_gemm import COLUMN_TILES, column_tile, fast_copies, operand_layout, operand_stride
 
 __all__ = [
     "COLUMN_TILES",
@@ -32,39 +36,6 @@ __all__ = [
     "dependency_spmm_cuda",
     "dependency_partial_cuda",
 ]
-
-#: column tiles of the main loop, one instantiation each (the cases of
-#: ``dispatch`` in csrc/level_gemm.cuh)
-COLUMN_TILES = (64, 128, 192)
-
-
-def column_tile(s: int) -> int:
-    """The column tile for width ``s``: the fewest padded columns
-    ⌈s/BS⌉·BS, ties to the wider tile (fewer passes over A).  s = 128 and
-    s = 192, the main path's widths, get a tile of their own width."""
-    return min(COLUMN_TILES, key=lambda bs: (-(-s // bs) * bs, -bs))
-
-
-def operand_stride(s: int) -> int:
-    """Row stride of the operand scratch: s rounded up to 4 floats, so that
-    every row is 16-byte aligned for the main loop's copies."""
-    return -(-s // 4) * 4
-
-
-def fast_copies(adjacency: torch.Tensor) -> bool:
-    """Whether A's rows are 16-byte aligned (base and row length), so that
-    the main loop may copy A in 16-byte chunks; otherwise it takes the
-    instantiation that loads A element by element."""
-    row_bytes = adjacency.shape[1] * adjacency.element_size()
-    return row_bytes % 16 == 0 and adjacency.data_ptr() % 16 == 0
-
-
-def _layout(adjacency: torch.Tensor, sigma: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
-    """(operand scratch [k, ld], ld, column tile, fast) of one launch."""
-    k, s = sigma.shape
-    ld = operand_stride(s)
-    operand = torch.empty((k, ld), dtype=torch.float32, device=sigma.device)
-    return operand, ld, column_tile(s), int(fast_copies(adjacency))
 
 
 def dependency_spmm_cuda(
@@ -81,7 +52,7 @@ def dependency_spmm_cuda(
     stream without synchronising, and raises if the launch was refused."""
     n, s = sigma.shape
     delta_out = torch.empty_like(delta)
-    operand, ld, bs, fast = _layout(adjacency, sigma)
+    operand, ld, bs, fast = operand_layout(adjacency, sigma)
     lib = _build.library()
     fn = (
         lib.dependency_spmm_bf16
@@ -113,7 +84,7 @@ def dependency_partial_cuda(
     m, kdim = adjacency.shape
     s = sigma.shape[1]
     t_out = torch.empty((m, s), dtype=torch.float32, device=sigma.device)
-    operand, ld, bs, fast = _layout(adjacency, sigma)
+    operand, ld, bs, fast = operand_layout(adjacency, sigma)
     lib = _build.library()
     fn = (
         lib.dependency_partial_bf16

@@ -23,6 +23,17 @@ __all__ = [
 ]
 
 
+def _frontier_operand(sigma, depth, lvl: int, ld: int | None = None) -> torch.Tensor:
+    """The masked frontier as the operand pass writes it (K1, K3, K5): σ
+    where d = lvl-1, else 0 — a select, as ``FrontierOperand`` in
+    csrc/level_operand.cuh — in [k, ld] rows whose ld - s pad columns hold
+    0 (ld = s when omitted).  For σ ≥ 0, as in every BC state, it is
+    σ ⊙ [d = lvl-1] bit for bit."""
+    frontier = torch.where(depth == lvl - 1, sigma, 0.0)
+    s = sigma.shape[1]
+    return frontier if ld is None else torch.nn.functional.pad(frontier, (0, ld - s))
+
+
 def _dependency_operand(sigma, depth, delta, omega, lvl: int) -> torch.Tensor:
     """g = (1 + δ + ω) / σ on d = lvl+1 (σ ≤ 0 replaced by 1), 0 elsewhere."""
     safe_sigma = torch.where(sigma > 0, sigma, 1.0)
@@ -211,7 +222,7 @@ def frontier_index_ref(index, sigma, depth, lvl: int, acc=None) -> torch.Tensor:
     the index was built from, but for the edge case of
     :func:`_index_product`; the frontier is selected (σ where d = lvl-1,
     else 0), as the kernel selects it, not multiplied by the mask."""
-    return _index_product(index, torch.where(depth == lvl - 1, sigma, 0.0), acc)
+    return _index_product(index, _frontier_operand(sigma, depth, lvl), acc)
 
 
 def dependency_index_ref(index, sigma, depth, delta, omega, lvl: int, acc=None) -> torch.Tensor:

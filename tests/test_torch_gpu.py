@@ -10,9 +10,10 @@ Tolerances: depth exact, σ rtol 1e-6 (exact integer path counts), δ rtol
 1e-5 / atol 1e-6 (fractional g summed in another order than the plain
 version's matmul), BC rtol 1e-5 / atol 1e-5 against the numpy oracle or
 the single-device dense engine.  K3's and K5's partials are integer-valued
-sums and are held exactly; on signed tile values K5/K6 are held within
+sums and are held exactly, and so are σ and K3's t on the column-tile and
+copy-path cases of K1/K3; on signed tile values K5/K6 are held within
 1e-5 of Σ|a·x| (a sum's rounding scale, which cancellation does not
-shrink); K2/K4 and K5/K6 are bitwise reproducible launch to launch.
+shrink); K1–K6 are bitwise reproducible launch to launch.
 K7 against its plain version: rtol 1e-6 / atol 1e-6 for f32 tables,
 rtol 2e-2 for bf16 (the JAX kernel test's values; the two take the same
 sum in the same order); the reduced DLRM forward on the card against
@@ -168,7 +169,7 @@ def _at_offset(A):
     return view
 
 
-# K2/K4's main loop: widths that reach each column tile (64, 128, 192, and
+# K1-K4's main loop: widths that reach each column tile (64, 128, 192, and
 # ragged ones over several tiles), contraction lengths whose A rows are and
 # are not a multiple of 16 bytes
 DEP_WIDTHS = [64, 128, 192, 130, 257]
@@ -225,6 +226,57 @@ def test_dependency_kernels_launch_above_48_kb_of_shared_memory(cuda):
                                                                     omega, 1),
                                        rtol=1e-5, atol=1e-6)
     assert lib.level_gemm_shared_bytes(96, 0) == -1
+
+
+@pytest.mark.parametrize("s", DEP_WIDTHS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_frontier_kernels_reach_every_column_tile_and_copy_path(cuda, dtype, s):
+    """K1 at n = kdim and K3 (plain and acc) on a [200, kdim] block, with A
+    aligned and at an offset, against their plain versions: depth, σ and
+    K3's integer-valued t exact (integer path counts sum exactly in f32);
+    every path of the copies is taken."""
+    paths = set()
+    for kdim in DEP_KDIMS:
+        A, sigma, depth, _, _ = _state(kdim, s, kdim + s, 2, DTYPES[dtype], cuda)
+        blk = A[:200].contiguous()
+        acc = torch.randint(0, 7, (blk.shape[0], s), device=cuda).to(torch.float32)
+        want_s, want_d = ref.frontier_spmm_ref(A, sigma, depth, 2)
+        for a, b in ((A, blk), (_at_offset(A), _at_offset(blk))):
+            paths.add(fast_copies(a))
+            got_s, got_d = ops.frontier_spmm(a, sigma, depth, 2)
+            assert torch.equal(got_d, want_d) and torch.equal(got_s, want_s)
+            for t_in in (None, acc):
+                assert torch.equal(ops.frontier_spmm_partial(b, sigma, depth, 2, acc=t_in),
+                                   ref.frontier_partial_ref(blk, sigma, depth, 2, t_in))
+    torch.cuda.synchronize()
+    assert paths == {True, False}
+
+
+def test_frontier_kernels_are_bitwise_reproducible(cuda):
+    """No atomics and no split-k: two launches give the same bits."""
+    for dtype in DTYPES.values():
+        for n, s in ((4096, 128), (1000, 130), (260, 64), (300, 192)):
+            A, sigma, depth, _, _ = _state(n, s, n + s, 2, dtype, cuda)
+            runs = [(*ops.frontier_spmm(A, sigma, depth, 2),
+                     ops.frontier_spmm_partial(A[:n // 2].contiguous(), sigma, depth, 2))
+                    for _ in range(2)]
+            assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_frontier_kernels_launch_above_48_kb_of_shared_memory(cuda):
+    """K1/K3 run the same ring past the 48 KB default: those launches run
+    and agree."""
+    lib = _build.library()
+    for dtype, is_bf16 in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for s in (128, 192):
+            assert lib.level_gemm_shared_bytes(column_tile(s), is_bf16) > 48 * 1024
+            A, sigma, depth, _, _ = _state(512, s, s, 2, dtype, cuda)
+            got_s, got_d = ops.frontier_spmm(A, sigma, depth, 2)
+            got_t = ops.frontier_spmm_partial(A[:300].contiguous(), sigma, depth, 2)
+            torch.cuda.synchronize()
+            want_s, want_d = ref.frontier_spmm_ref(A, sigma, depth, 2)
+            assert torch.equal(got_s, want_s) and torch.equal(got_d, want_d)
+            assert torch.equal(got_t, ref.frontier_partial_ref(A[:300], sigma, depth, 2))
 
 
 def _tile_list(num_tr, num_tc, bm, bk, seed, device, pad=3, complete=True):

@@ -32,6 +32,7 @@ from repro_torch.kernels.dependency_spmm import (
     fast_copies,
     operand_stride,
 )
+from repro_torch.kernels.level_gemm import operand_layout
 
 SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64)]
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -107,6 +108,38 @@ def test_dependency_operand_matches_the_jax_kernel_formula(n, s):
     assert ((sigma <= 0) & (depth == lvl + 1)).any()
     got = ref._dependency_operand(*_torch(sigma, torch.float32, depth, delta, omega)[:4], lvl)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,s", SHAPES)
+def test_frontier_operand_matches_the_jax_kernel_formula(n, s):
+    """The operand pass's plain version (K1/K3 write the masked frontier
+    once a launch, [k, ld] with zero pad columns) is the JAX kernel's
+    frontier (src/repro/kernels/frontier_spmm.py:60) bit for bit, in its
+    first s columns; the pad columns past s hold +0.  The kernel selects
+    where the JAX kernel multiplies by the mask: the two agree bitwise
+    because σ ≥ 0 in a BC state."""
+    lvl = 2
+    _, sigma, depth, _, _ = _bc_state(n, s, seed=n + s, lvl=lvl)
+    want = np.asarray(jnp.asarray(sigma) * (jnp.asarray(depth) == lvl - 1).astype(jnp.float32))
+    assert (depth == lvl - 1).any() and (depth != lvl - 1).any()
+    ld = operand_stride(s)
+    got = ref._frontier_operand(*_torch(sigma, torch.float32, depth)[:2], lvl, ld).numpy()
+    assert got.shape == (n, ld) and got.dtype == np.float32
+    np.testing.assert_array_equal(got[:, :s].view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got[:, s:].view(np.int32), 0)
+
+
+@pytest.mark.parametrize("s", [64, 128])
+def test_forward_widths_run_one_column_tile(s):
+    """K1/K3's launch layout at the forward widths: one column tile of the
+    batch's own width, an operand scratch of [k, s] (no pad column), and
+    the 16-byte copies for an aligned f32 A."""
+    A, sigma, _, _, _ = _bc_state(96, s, seed=s, lvl=2)
+    At, st = _torch(A, torch.float32, sigma)
+    operand, ld, bs, fast = operand_layout(At, st)
+    assert column_tile(s) == bs == ld == s
+    assert operand.shape == (96, s) and operand.dtype == torch.float32
+    assert fast == 1
 
 
 @pytest.mark.parametrize("s", [1, 4, 33, 64, 100, 128, 130, 192, 200, 256, 257, 384])
@@ -313,10 +346,11 @@ def test_plain_versions_are_the_wrappers_cpu_path():
 
 
 def test_column_tile_matches_kernel_source():
-    """The scheduler's padding hint uses the kernels' real column tile."""
-    src = (Path(_build.CSRC) / "level_tile.cuh").read_text()
-    bs = int(re.search(r"constexpr int BS = (\d+);", src).group(1))
-    assert bs == COLUMN_TILE
+    """The scheduler's padding hint uses the kernels' real padding: the
+    smallest column tile the main loop instantiates."""
+    src = (Path(_build.CSRC) / "level_gemm.cuh").read_text()
+    cases = [int(t) for t in re.findall(r"case (\d+):\s*return fast", src)]
+    assert min(cases) == COLUMN_TILE
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
