@@ -7,11 +7,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 6, 7: phase 9 first, while
-nothing else holds device memory, because its tables take 65 GiB; phase
-8 shares phase 5's NCCL process group, and phase 7's kernel table
-carries phase 8's launches and K7's times, which phase 9 takes on its
-tables):
+Phases (run in the order 1, 2, 9, 3–5, 8, 10, 6, 7: phase 9 first, while
+nothing else holds device memory, because its tables take 65 GiB; phases
+8 and 10 share phase 5's NCCL process group, and phase 7's kernel table
+carries phase 8's and 10's launches and K7's times, which phase 9 takes
+on its tables):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
@@ -25,7 +25,8 @@ tables):
      [65536, 65536] block and at the [32768, 16384] block of a 2×4 grid
      (K3's integer-valued partial exact, K4 rtol 1e-5 / atol 1e-6); K1
      and K3 (plain and acc) at the main loop's edges, kdim 33 / 130 / 260
-     / 4096 by s 64 / 128 / 192 / 130 / 257, A aligned and at an offset
+     / 4096 by s 64 / 128 / 192 / 130 / 257 / 129 / 193 (the last two the
+     ABFT lane's widths), A aligned and at an offset
      (16-byte copies and element loads), σ, depth and t exact, two
      launches bitwise equal; K5/K6
      in plain and acc mode on random tile lists (bm, bk in {5, 8, 32,
@@ -66,7 +67,9 @@ tables):
      nonzero index, not the tiles, and the tile-FFMA figure of the TPU
      design is printed beside; K7's bytes count each distinct row once);
      K1 also at the backward width s = 192 and K2/K4 at the forward
-     width s = 128 (bound and torch.matmul beside), the per-launch device
+     width s = 128 (bound and torch.matmul beside), K3/K4 at the checksum
+     lane's widths s = 129 / 193 on the square adjacency (parity, bound,
+     torch.matmul, phase 10 (b)'s launches), the per-launch device
      time of K1–K4 on the main path (phase 4's and phase 5's traces, real
      states: main loop plus operand pass) beside their time on the random
      states, the ptxas registers and spills of every K1–K4 instantiation
@@ -97,7 +100,26 @@ tables):
      64 requests' logits recomputed in numpy float64 from host copies of
      the rows they touch (rtol 1e-4 / atol 1e-4, TF32 off); peak memory;
      one serve_bulk step under torch.profiler (busy share, K7 and GEMM
-     shares).
+     shares);
+ 10. durable, self-checking and served BC on phase 4's graph and roots
+     (batch 128, h0, fused; each leg's launch counts zeroed just before
+     it): (a) a BCCheckpoint run stopped by BlockBudgetStop(2) after 2 of
+     4 rounds (a snapshot a block), then a fresh call resuming it, which
+     must run exactly the 2 uncommitted rounds and equal phase 4's fused
+     BC (rtol 1e-5 / atol 1e-5); the sha1 manifest verified with numpy
+     and hashlib; one snapshot's save time; (b) BCDriver with
+     integrity="checksum" on FusedDenseOperator (K3/K4 at s = 129 / 193,
+     no K1/K2): residual under CHECKSUM_TOL, no failures, BC equal to the
+     unchecked run; (c) integrity="audit" with the first block's BC
+     corrupted (2·bc + 1): quarantined once, retried once, BC still
+     equal; (d) run_serving on one device (1024 roots in 3 slices): every
+     query accounted once, the final top 10 equal to a straight sampled
+     call's; again on the same checkpoint (the committed generation
+     published first, resumed=True, no new round); one adaptive call
+     (2048-root pool, top-10 Jaccard >= 0.8 twice), which must stop
+     early, and where; (e) run_serving on the
+     1×1 NCCL grid, fused and fused_sparse at tile 128, each final BC
+     equal to the straight call's.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -134,7 +156,8 @@ BLOCK_GRID = (2, 4)  # K3/K4 are also checked and timed at this grid's per-devic
 # K1/K3's edges on the main loop: contraction lengths whose A rows are and
 # are not a multiple of 16 bytes, widths that reach each column tile (64,
 # 128, 192) and ragged ones over several tiles
-EDGE_KDIMS, EDGE_WIDTHS = (33, 130, 260, 4096), (64, 128, 192, 130, 257)
+# (129, 193: the main path's widths plus the ABFT checksum lane)
+EDGE_KDIMS, EDGE_WIDTHS = (33, 130, 260, 4096), (64, 128, 192, 130, 257, 129, 193)
 # (tile-rows, tile-cols, bm, bk, s) random BCSR lists for K5/K6: bm != bk,
 # each of the kernel's row blocks (32, 64, 128), ragged s
 SPARSE_SHAPES = [(6, 5, 5, 8, 33), (4, 7, 8, 5, 130), (40, 30, 32, 128, 128),
@@ -657,6 +680,232 @@ def dlrm_phase(dev, trace_run) -> list[dict]:
     return entries
 
 
+# phase 10: durable, self-checking and served BC on phase 4's graph
+SERVE_SAMPLE_K = 1024  # run_serving's sample: 8 rounds at batch 128
+ADAPTIVE_SAMPLE_K = 2048  # the adaptive call's pool: at most 16 rounds
+ADAPTIVE_THRESHOLD = 0.8  # its stop rule's top-10 Jaccard threshold
+
+
+def manifest_ok(path: str) -> bool:
+    """Whether a BCCheckpoint npz's sha1 manifest verifies, read with plain
+    numpy and hashlib (not the port's loader)."""
+    import hashlib
+
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    manifest = json.loads(str(arrays["manifest"]))
+    return bool(manifest["sha1"]) and all(
+        hashlib.sha1(np.ascontiguousarray(arrays[k]).tobytes()).hexdigest() == want
+        for k, want in manifest["sha1"].items())
+
+
+def durable_phase(dev, graph, groups, fused_ref) -> dict:
+    """Phase 10: (a) kill and resume through a BCCheckpoint, (b) the ABFT
+    checksum lane (K3/K4 at s + 1 on the square adjacency), (c) the
+    integrity audit quarantining a corrupted block, (d) run_serving on one
+    device (and its resume, and one adaptive call), (e) run_serving on the
+    1×1 NCCL grid, fused and fused_sparse.  ``fused_ref`` is phase 4's
+    uninterrupted fused BCResult.  Returns (b)'s launch counts."""
+    from repro_torch.core.bc import (
+        apply_sampling_rescale,
+        betweenness_centrality,
+        make_operator,
+        make_round_fn,
+    )
+    from repro_torch.core.driver import CHECKSUM_TOL, BCDriver
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.distributed import BCCheckpoint, schedule_fingerprint
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_bc import run_serving
+    from repro_torch.serving import (
+        AdaptiveStopRule,
+        BlockBudgetStop,
+        eligible_roots,
+        plan_sampling,
+        top_k_indices,
+    )
+
+    t10 = time.perf_counter()
+    kw = dict(batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed",
+              sample_k=MAIN_SAMPLE_K, sample_seed=0)
+
+    def leg(tag, run):
+        """One leg with the launch counts zeroed just before and read just
+        after; host wall, synchronised."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"[10] {tag}: wall {wall:.3f}s, launches {counts}")
+        return out, wall, dict(ops.LAUNCHES)
+
+    def same_bc(tag, got, want):
+        ok, err = close(torch.from_numpy(got), torch.from_numpy(want), 1e-5, 1e-5)
+        print(f"[10] {tag}: max abs err {err:.3g} (rtol 1e-5 / atol 1e-5)")
+        check(ok, f"[10] {tag}: BC disagrees")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        # ---- (a) kill and resume
+        path = os.path.join(tmp, "a.npz")
+        part, wall_a1, _ = leg("(a) fused, stopped after 2 of 4 blocks", lambda: (
+            betweenness_centrality(graph, engine_kind="fused", checkpoint=BCCheckpoint(path),
+                                   checkpoint_every=1, stop_rule=BlockBudgetStop(2),
+                                   device="cuda", **kw)))
+        check(part.stopped_early and part.rounds_run == 2, "[10] (a) the budget did not stop "
+              f"the run after 2 rounds ({part.rounds_run})")
+        check(manifest_ok(path), "[10] (a) the snapshot's sha1 manifest does not verify")
+        rest, wall_a2, la = leg("(a) fused, a fresh call resuming the snapshot", lambda: (
+            betweenness_centrality(graph, engine_kind="fused", checkpoint=BCCheckpoint(path),
+                                   checkpoint_every=1, device="cuda", **kw)))
+        check(rest.rounds_run == 2 and rest.recovery_stats["resumed_generation"] == 0,
+              f"[10] (a) the resumed call ran {rest.rounds_run} rounds, not the 2 uncommitted")
+        check(la["frontier_spmm"] > 0 and la["dependency_spmm"] > 0, "[10] (a) no K1/K2")
+        check(manifest_ok(path), "[10] (a) the final snapshot's sha1 manifest does not verify")
+        same_bc("(a) resumed vs phase 4's uninterrupted fused run", rest.bc, fused_ref.bc)
+        snap = BCCheckpoint(os.path.join(tmp, "save.npz"))
+        fp = schedule_fingerprint(graph.n, rest.schedule)
+        ns = {int(v): 1.0 for v in range(MAIN_SAMPLE_K)}
+        snap.save(rest.bc, ns, list(range(4)), fp)  # warm-up (file creation)
+        t = time.perf_counter()
+        snap.save(rest.bc, ns, list(range(4)), fp)
+        save_ms = (time.perf_counter() - t) * 1e3
+        print(f"[10] (a) one BCCheckpoint.save of an f64 [{graph.n}] BC, {len(ns)} n_s entries "
+              f"and the manifest: {save_ms:.3f} ms ({os.path.getsize(snap.path) / 1e6:.3f} MB, "
+              f"{snap.generations} generations rotated); manifest verified with numpy + "
+              f"hashlib")
+
+        # ---- (b) the ABFT checksum lane on FusedDenseOperator
+        plan = plan_sampling(eligible_roots(graph), "fixed", None, MAIN_SAMPLE_K, 0)
+        schedule, prep, residual, omega_np = build_schedule(
+            graph, batch_size=MAIN_BATCH, heuristics="h0", roots=plan.roots)
+        omega = torch.from_numpy(omega_np).to(dev, torch.float32)
+
+        def driver_run(integrity, round_fn=None):
+            """The 4 rounds through BCDriver on the fused operator with
+            ``round_fn(op)`` (default: make_round_fn with ``integrity``)."""
+            op = make_operator(residual, "fused", dev)
+            fn = round_fn(op) if round_fn else make_round_fn(op, omega, integrity=integrity)
+            res = BCDriver(fn, schedule, n=graph.n, device=dev, prep=prep,
+                           integrity=integrity).run()
+            return apply_sampling_rescale(res, plan)
+
+        checked, wall_b, lb = leg("(b) BCDriver integrity='checksum' on FusedDenseOperator",
+                                  lambda: driver_run("checksum"))
+        ist = checked.recovery_stats["integrity"]
+        print(f"[10] (b) max checksum residual {ist['max_checksum_residual']:.3g} (CHECKSUM_TOL "
+              f"{CHECKSUM_TOL:g}), checksum failures {ist['checksum_failures']}, audit "
+              f"failures {ist['audit_failures']}; K3 (s = {MAIN_BATCH + 1}) "
+              f"x{lb['frontier_spmm_partial']}, K4 (s = {MAIN_BATCH + MAIN_BATCH // 2 + 1}) "
+              f"x{lb['dependency_spmm_partial']}; levels per round {checked.round_levels}; "
+              f"wall {wall_b:.3f}s against (a)'s {wall_a1:.3f} + {wall_a2:.3f}s and phase 4's "
+              f"unchecked fused call")
+        check(ist["max_checksum_residual"] < CHECKSUM_TOL and ist["checksum_failures"] == 0
+              and ist["audit_failures"] == 0, "[10] (b) the checksum lane failed on a clean run")
+        check(lb["frontier_spmm_partial"] > 0 and lb["dependency_spmm_partial"] > 0
+              and lb["frontier_spmm"] == lb["dependency_spmm"] == 0,
+              "[10] (b) the checked steps did not run on K3/K4 alone")
+        check(checked.rounds_run == MAIN_SAMPLE_K // MAIN_BATCH, "[10] (b) expected 4 rounds")
+        same_bc("(b) checksum run vs phase 4's unchecked fused run", checked.bc, fused_ref.bc)
+
+        # ---- (c) integrity="audit" quarantines a corrupted block
+        def corrupt_first(op):
+            """The audit round function; its first call's lane-0 BC comes
+            back as 2·bc + 1 (tests/test_chaos.py's flip)."""
+            base = make_round_fn(op, omega, integrity="audit")
+            calls = [0]
+
+            def fn(sources, derived):
+                out = base(sources, derived)
+                calls[0] += 1
+                if calls[0] == 1:
+                    out = (2.0 * out[0] + 1.0,) + tuple(out[1:])
+                return out
+
+            return fn
+
+        audited, _, _ = leg("(c) BCDriver integrity='audit', first block corrupted",
+                            lambda: driver_run("audit", round_fn=corrupt_first))
+        rec = audited.recovery_stats
+        print(f"[10] (c) audit failures {rec['integrity']['audit_failures']}, retries "
+              f"{rec['retries']}, quarantined blocks {rec['quarantined_blocks']}")
+        check(rec["integrity"]["audit_failures"] == 1 and rec["retries"] == 1,
+              "[10] (c) the audit did not quarantine the corrupted block exactly once")
+        same_bc("(c) audited run vs the clean fused run", audited.bc, fused_ref.bc)
+
+        # ---- (d) run_serving on one device
+        serve_kw = dict(batch_size=MAIN_BATCH, engine="fused", sampling="fixed",
+                        sample_k=SERVE_SAMPLE_K, sample_seed=0, refresh_blocks=2, generations=3)
+        straight, _, _ = leg(f"(d) a straight sampled call, k = {SERVE_SAMPLE_K}", lambda: (
+            betweenness_centrality(graph, engine_kind="fused", batch_size=MAIN_BATCH,
+                                   heuristics="h0", sampling="fixed",
+                                   sample_k=SERVE_SAMPLE_K, sample_seed=0, device="cuda")))
+        want_top = [int(v) for v in top_k_indices(straight.bc, 10)]
+
+        def served(tag, out, ref_bc):
+            st = out["stats"]
+            check(st["queries"] == st["hits"] + st["stale_hits"] + st["misses"],
+                  f"[10] {tag}: a query was not accounted exactly once ({st})")
+            print(f"[10] {tag}: {st['queries']} queries = {st['hits']} hits + "
+                  f"{st['stale_hits']} stale + {st['misses']} misses over "
+                  f"{out['generations_published']} generations; slices "
+                  + ", ".join(f"{r['rounds_run']} rounds {r['wall_s']:.3f}s"
+                              for r in out["refresh_runs"]))
+            got_top = out["final_top_k"]
+            bc = out["final_bc"]
+            ties = all(a == b or abs(bc[a] - bc[b]) <= 1e-5 * abs(bc[b])
+                       for a, b in zip(got_top, want_top))
+            check(got_top == want_top or ties,
+                  f"[10] {tag}: final top 10 {got_top} != straight {want_top}")
+            same_bc(f"{tag} final generation vs the straight call", bc, ref_bc)
+
+        path_d = os.path.join(tmp, "d.npz")
+        out, _, ld = leg("(d) run_serving, one device", lambda: run_serving(
+            graph, None, ckpt_path=path_d, device=None, **serve_kw))
+        served("(d) run_serving", out, straight.bc)
+        check(ld["frontier_spmm"] > 0 and ld["dependency_spmm"] > 0, "[10] (d) no K1/K2")
+        again, _, _ = leg("(d) run_serving again on the same checkpoint", lambda: run_serving(
+            graph, None, ckpt_path=path_d, device=None, **serve_kw))
+        first = again["history"][0]
+        check(first["meta"].get("resumed") is True and first["generation"] == 1
+              and sum(r["rounds_run"] for r in again["refresh_runs"]) == 0
+              and again["stats"]["misses"] == 0,
+              "[10] (d) the resumed server did not publish the committed generation first")
+        print(f"[10] (d) resumed server: generation 1 published from the checkpoint "
+              f"(resumed=True) before any round; {again['stats']}")
+        # the default rule (threshold 1.0: the top-10 set unchanged twice
+        # in a row) did not fire within 16 rounds on this graph; at 0.8 it
+        # tolerates one swap at the set's edge between consecutive blocks
+        rule = AdaptiveStopRule(top_k=10, window=2, min_blocks=3, threshold=ADAPTIVE_THRESHOLD)
+        adaptive, _, _ = leg(f"(d) sampling='adaptive' over {ADAPTIVE_SAMPLE_K} roots, top-10 "
+                             f"Jaccard >= {ADAPTIVE_THRESHOLD} twice", lambda: (
+            betweenness_centrality(graph, engine_kind="fused", batch_size=MAIN_BATCH,
+                                   heuristics="h0", sampling="adaptive", stop_rule=rule,
+                                   sample_k=ADAPTIVE_SAMPLE_K, sample_seed=0, device="cuda")))
+        st = adaptive.stop_stats
+        print(f"[10] (d) adaptive: stop rule fired at block {st['fired_at_block']} "
+              f"({adaptive.rounds_run} of {len(adaptive.schedule.rounds)} rounds, stability "
+              f"history {st['stability']}), stopped early {adaptive.stopped_early}; top 10 "
+              f"{[int(v) for v in top_k_indices(adaptive.bc, 10)]} against the 1024-root "
+              f"straight call's {want_top}")
+        check(adaptive.stopped_early and bool(np.isfinite(adaptive.bc).all()),
+              "[10] (d) the adaptive stop rule did not fire, or its BC is not finite")
+
+        # ---- (e) run_serving on the 1×1 NCCL grid
+        for engine, tile in (("fused", None), ("fused_sparse", (128, 128))):
+            kern = ("frontier_spmm_partial", "dependency_spmm_partial") if tile is None else (
+                "frontier_spmm_sparse", "dependency_spmm_sparse")
+            out, _, le = leg(f"(e) run_serving, 1x1 NCCL grid, {engine}", lambda: run_serving(
+                graph, groups, ckpt_path=os.path.join(tmp, f"e_{engine}.npz"), tile=tile,
+                device=None, **dict(serve_kw, engine=engine)))
+            check(all(le[k] > 0 for k in kern), f"[10] (e) {engine}: {kern} not launched")
+            served(f"(e) run_serving 1x1 {engine}", out, straight.bc)
+    print(f"[10] durable, self-checking and served BC ok in {time.perf_counter() - t10:.1f}s")
+    return lb
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
@@ -683,7 +932,7 @@ def main() -> None:
     )
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.blocked_spmm import nonzero_index
-    from repro_torch.kernels.level_gemm import fast_copies
+    from repro_torch.kernels.level_gemm import column_tile, fast_copies, operand_stride
 
     t_all = time.perf_counter()
     dev = resolve_device("cuda")  # also switches TF32 off for matmul and cuDNN
@@ -1149,6 +1398,9 @@ def main() -> None:
                 "K5/K6 gather pass": "gather_kernel<", "K5/K6 combine pass": "combine_kernel(",
                 "NCCL": "nccl"})
             print(f"[8] BCSR path ok in {time.perf_counter() - t8:.1f}s")
+
+            # ------------- 10. durable, self-checking and served BC
+            launches_10 = durable_phase(dev, graph, groups, results["fused"])
         finally:
             dist.destroy_process_group()
 
@@ -1340,6 +1592,52 @@ def main() -> None:
             if kname == "dependency_spmm_partial":  # K4 also at the forward width
                 for tag in dtypes:
                     width_row(kname, f"{shape_tag} block", blocks[tag], st[s_fwd], s_fwd)
+    # K3/K4 at the ABFT lane's widths s + 1: the checked steps of phase 10
+    # (b) on the square adjacency (f32 A, the path's)
+    for kname, s, replaces in (
+        ("frontier_spmm_partial", s_fwd + 1, "src/repro/kernels/frontier_spmm.py:149"),
+        ("dependency_spmm_partial", s_bwd + 1, "src/repro/kernels/dependency_spmm.py:139"),
+    ):
+        A = A_main["f32"]
+        sigma, depth, delta, omega = level_state(n_main, s, s + 3, 2, dev)
+        if kname == "frontier_spmm_partial":
+            kern = lambda: ops.frontier_spmm_partial(A, sigma, depth, 2)
+            plain = lambda: ref.frontier_partial_ref(A, sigma, depth, 2)
+            operand = sigma * (depth == 1)
+            nbytes = partial_bytes(A, sigma, depth)
+            ok, err = close(kern(), plain(), 0.0, 0.0)
+        else:
+            kern = lambda: ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1)
+            plain = lambda: ref.dependency_partial_ref(A, sigma, depth, delta, omega, 1)
+            operand = dep_operand(sigma, depth, delta, omega)
+            nbytes = partial_bytes(A, sigma, depth, delta, omega)
+            ok, err = close(kern(), plain(), 1e-5, 1e-6)
+        check(ok, f"{kname} parity at the lane width s={s}: err {err:.3g}")
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain)
+        lib_ms = cuda_time_ms(lambda: torch.matmul(A, operand))
+        t_ops = 2.0 * n_main * n_main * s / PEAK_F32_FLOP_PER_S * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        entries.append({
+            "name": f"{kname}[f32 A, checksum lane, square {n_main}x{n_main}, s={s}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/partial_spmm.cu",
+            "replaces": replaces,
+            "launches": launches_10[kname],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        })
+        print(f"[7] {kname} A=f32 checksum lane n={n_main} s={s} (column tile "
+              f"{column_tile(s)}, operand stride {operand_stride(s)}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {bound:.3f} ms "
+              f"({entries[-1]['bound_by']}), {100 * bound / ms:.1f}% of bound, "
+              f"{launches_10[kname]} launches in phase 10 (b); err {err:.3g}")
+        del sigma, depth, delta, omega, operand
     del A_main, A_blk
     torch.cuda.empty_cache()
     # K5/K6 at phase 8's three cell layouts, each at its main-path width

@@ -1,0 +1,260 @@
+"""The BC round snapshot: the driver's (partial BC, n_s bookkeeping,
+committed rounds) triple, one atomic npz per run, with the committed set
+namespaced per replica ledger.
+
+The file format is the JAX package's byte for byte (the same npz keys,
+the same sha1 manifest, the same generation rotation), so a snapshot
+written by one package resumes in the other.  numpy and the standard
+library only.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+
+import numpy as np
+
+__all__ = ["BCCheckpoint", "DEFAULT_GENERATIONS"]
+
+log = logging.getLogger(__name__)
+
+#: BC snapshot generations kept on disk (newest at ``path``, older at
+#: ``path.g1``, ``path.g2``, …).  3 balances torn-write survival — one
+#: torn newest + one bit-rotted older still leaves an intact resume
+#: point — against disk for large-graph partial BC arrays.
+DEFAULT_GENERATIONS = 3
+
+
+class BCCheckpoint:
+    """Durable (partial BC, n_s bookkeeping, committed rounds) triple.
+
+    A ledger alone is not enough to resume BC: the committed rounds'
+    *contributions* live in the (volatile) device accumulator.  The
+    shared round loop (:class:`repro_torch.core.driver.BCDriver`) therefore
+    periodically snapshots a consistent prefix — the drained rounds'
+    summed BC, their per-root component sizes, and exactly that round
+    set — through this object; a restarted run seeds the driver from the
+    snapshot and re-deals only the uncommitted rounds.  Consistency
+    invariant: the stored bc/ns always correspond exactly to the stored
+    committed set (snapshots happen only after the in-flight queue is
+    fully drained), so a crash between snapshots merely redoes the tail.
+    The stored bc is correction-free (the 1-degree analytic credits are
+    pure post-processing and are re-applied on every finalize).
+
+    Round ids are only meaningful relative to one schedule, so every
+    snapshot carries a schedule fingerprint (see
+    :func:`repro_torch.distributed.fault_tolerance.schedule_fingerprint`);
+    resuming against a different schedule — other graph, batch size or
+    heuristics — raises instead of silently mixing incompatible partial
+    sums.
+
+    **Ledger namespacing.**  Under the multi-ledger straggler scheduler
+    each replica commits into its own ledger; ``save`` accepts either a
+    flat committed list (one shared ledger) or a list of per-replica
+    lists, stored as ``committed_r{i}`` alongside the merged union under
+    the legacy ``committed`` key.  :meth:`load` returns the union — a
+    round committed by *any* replica (including one that stole or was
+    re-dealt the round before the kill) is never re-accumulated — while
+    :meth:`load_namespaced` returns the per-replica sets so a resumed
+    multi-ledger driver keeps its commit attribution.  The straggler
+    policy and replica count may differ across the resume: exactly-once
+    only needs the union.
+
+    **Generations & integrity.**  A single snapshot file makes a torn
+    write (kill mid-flush, disk full) total loss, so ``save`` rotates
+    the last ``generations`` snapshots — newest always at ``path``
+    (legacy layout), older shifted to ``path.g1``, ``path.g2``, … —
+    and embeds a per-array sha1 manifest (the JAX package's
+    ``Checkpointer`` scheme).  ``load`` walks newest →
+    oldest, validates hashes, and resumes from the first intact
+    generation with a logged warning for every one it skips; only when
+    *every* generation is gone/corrupt does it cold-start (again warned,
+    never a traceback).  :attr:`loaded_generation` records which one the
+    last load used (0 = newest, None = cold start) so the driver can
+    report it in ``BCResult.recovery_stats``.  A *readable* snapshot
+    whose fingerprint mismatches still raises ValueError — that is a
+    configuration error, not corruption, and older generations would
+    only mask it.
+    """
+
+    def __init__(self, path: str, generations: int = DEFAULT_GENERATIONS):
+        self.path = path
+        self.generations = max(1, int(generations))
+        #: generation index the last load() resumed from (None = cold).
+        self.loaded_generation: int | None = None
+        #: recovery-telemetry dict the last load() found in the snapshot
+        #: (None when absent) — the driver resumes its counters from it
+        #: so retry/quarantine/re-mesh history survives kill-and-resume.
+        self.loaded_stats: dict | None = None
+
+    def generation_paths(self) -> list[str]:
+        """Snapshot paths newest → oldest (``path``, ``path.g1``, …)."""
+        return [self.path] + [
+            f"{self.path}.g{i}" for i in range(1, self.generations)
+        ]
+
+    def exists(self) -> bool:
+        return any(os.path.exists(p) for p in self.generation_paths())
+
+    def _read_validated(self, path: str) -> dict:
+        """Load one snapshot file and verify its manifest hashes.
+
+        Raises (IOError or whatever np.load raises) on torn/garbled
+        files; pre-generational snapshots carry no manifest and are
+        accepted as-is for compatibility.
+        """
+        with np.load(path, allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+        missing = [
+            k for k in ("bc", "ns_roots", "ns_vals", "fingerprint")
+            if k not in arrays
+        ]
+        if missing:
+            raise IOError(f"snapshot {path} missing arrays {missing}")
+        if "manifest" in arrays:
+            manifest = json.loads(str(arrays["manifest"]))
+            for key, want in manifest["sha1"].items():
+                if key not in arrays:
+                    raise IOError(
+                        f"snapshot {path} missing array {key!r} named in manifest"
+                    )
+                got = hashlib.sha1(
+                    np.ascontiguousarray(arrays[key]).tobytes()
+                ).hexdigest()
+                if got != want:
+                    raise IOError(f"snapshot {path}: sha1 mismatch in {key!r}")
+        return arrays
+
+    def load(self, expected_fingerprint: str | None = None):
+        """Returns (bc f64 [n] | None, ns_by_root dict, committed list).
+
+        ``committed`` is the union over all replica ledgers.  Raises
+        ValueError when the snapshot was written for a different schedule
+        than ``expected_fingerprint``.
+        """
+        bc, ns_by_root, by_ledger = self.load_namespaced(expected_fingerprint)
+        return bc, ns_by_root, sorted({r for lane in by_ledger for r in lane})
+
+    def load_namespaced(self, expected_fingerprint: str | None = None):
+        """Returns (bc | None, ns_by_root, committed_by_ledger).
+
+        ``committed_by_ledger`` is a list of per-replica committed-round
+        lists; a snapshot written by the single-ledger loop loads as one
+        ledger.  Same fingerprint semantics as :meth:`load`.  Walks the
+        generations newest → oldest past corrupt files (warned, never
+        raised); an empty/unrecoverable state returns the cold-start
+        triple ``(None, {}, [])``.
+        """
+        self.loaded_generation = None
+        self.loaded_stats = None
+        candidates = [
+            (gen, p)
+            for gen, p in enumerate(self.generation_paths())
+            if os.path.exists(p)
+        ]
+        if not candidates:
+            return None, {}, []
+        for gen, p in candidates:
+            try:
+                arrays = self._read_validated(p)
+            except Exception as e:
+                log.warning(
+                    "BCCheckpoint: snapshot %s unreadable (%s: %s); "
+                    "falling back to an older generation",
+                    p, type(e).__name__, e,
+                )
+                continue
+            stored = str(arrays["fingerprint"])
+            if expected_fingerprint is not None and stored != expected_fingerprint:
+                raise ValueError(
+                    f"checkpoint {p} was written for a different "
+                    f"schedule (stored {stored}, expected "
+                    f"{expected_fingerprint}) — same graph, batch size and "
+                    f"heuristics are required to resume"
+                )
+            bc = arrays["bc"].astype(np.float64)
+            ns_by_root = {
+                int(r): float(v)
+                for r, v in zip(arrays["ns_roots"], arrays["ns_vals"])
+            }
+            if "ledger_count" in arrays:
+                by_ledger = [
+                    [int(r) for r in arrays[f"committed_r{i}"]]
+                    for i in range(int(arrays["ledger_count"]))
+                ]
+            else:  # legacy single-ledger snapshot
+                by_ledger = [[int(r) for r in arrays["committed"]]]
+            if "recovery_stats" in arrays:
+                try:
+                    self.loaded_stats = json.loads(str(arrays["recovery_stats"]))
+                except Exception:  # telemetry is advisory, never fatal
+                    self.loaded_stats = None
+            self.loaded_generation = gen
+            if gen > 0:
+                log.warning(
+                    "BCCheckpoint: resumed from generation %d (%s); newer "
+                    "snapshots were corrupt", gen, p,
+                )
+            return bc, ns_by_root, by_ledger
+        log.warning(
+            "BCCheckpoint: no intact snapshot generation at %s; cold start",
+            self.path,
+        )
+        return None, {}, []
+
+    def save(
+        self, bc, ns_by_root: dict, committed, fingerprint: str,
+        *, stats: dict | None = None,
+    ) -> None:
+        """``committed``: flat list[int] (one ledger) or list of per-replica
+        lists (multi-ledger).  ``stats`` (optional) is a JSON-serializable
+        recovery-telemetry dict stored under the manifest's hash cover so
+        the driver's counters survive kill-and-resume.  Writes atomically
+        (tmp + rename) and rotates the previous snapshots one generation
+        older."""
+        roots = np.asarray(sorted(ns_by_root), np.int64)
+        vals = np.asarray([ns_by_root[int(r)] for r in roots], np.float64)
+        committed = list(committed)
+        nested = bool(committed) and isinstance(
+            committed[0], (list, tuple, np.ndarray)
+        )
+        by_ledger = (
+            [[int(r) for r in lane] for lane in committed]
+            if nested
+            else [[int(r) for r in committed]]
+        )
+        union = sorted({rid for lane in by_ledger for rid in lane})
+        arrays = {
+            "bc": np.asarray(bc, np.float64),
+            "ns_roots": roots,
+            "ns_vals": vals,
+            "committed": np.asarray(union, np.int64),
+            "fingerprint": np.asarray(fingerprint),
+            "ledger_count": np.asarray(len(by_ledger), np.int64),
+        }
+        for i, lane in enumerate(by_ledger):
+            arrays[f"committed_r{i}"] = np.asarray(sorted(lane), np.int64)
+        if stats is not None:
+            arrays["recovery_stats"] = np.asarray(json.dumps(stats))
+        arrays["manifest"] = np.asarray(
+            json.dumps(
+                {
+                    "sha1": {
+                        k: hashlib.sha1(
+                            np.ascontiguousarray(v).tobytes()
+                        ).hexdigest()
+                        for k, v in arrays.items()
+                    }
+                }
+            )
+        )
+        tmp = f"{self.path}.tmp.npz"
+        np.savez(tmp, **arrays)
+        # rotate oldest-first so each os.replace lands on a free slot
+        gens = self.generation_paths()
+        for newer, older in zip(gens[-2::-1], gens[:0:-1]):
+            if os.path.exists(newer):
+                os.replace(newer, older)
+        os.replace(tmp, self.path)

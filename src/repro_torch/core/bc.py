@@ -13,7 +13,7 @@ import torch
 
 from ..device import resolve_device
 from ..graphs.graph import Graph
-from ..serving.sampling import SamplePlan, eligible_roots, plan_sampling
+from ..serving.sampling import AdaptiveStopRule, SamplePlan, eligible_roots, plan_sampling
 from .driver import BCDriver, BCResult, traversal_round
 from .operators import DenseOperator, FusedDenseOperator, SparseOperator, TraversalOperator
 from .scheduler import build_schedule
@@ -71,15 +71,18 @@ def make_operator(residual: Graph, engine_kind: str, device: torch.device) -> Tr
     raise ValueError(f"unknown engine {engine_kind!r}; expected one of {ENGINE_KINDS}")
 
 
-def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | None = None):
+def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | None = None,
+                  integrity: str = "off"):
     """The driver's one-lane round function: ``(sources [1, s], derived
-    [1, k, 3]) -> traversal_round(op, ...)`` with a leading lane dim."""
+    [1, k, 3]) -> traversal_round(op, ...)`` with a leading lane dim (and
+    the integrity record ``[1, 2]`` when ``integrity != "off"``; under
+    "checksum" every level runs the operator's checked step)."""
 
     def round_fn(sources, derived):
-        bc, ns, roots, levels = traversal_round(
-            op, sources[0], derived[0], omega, num_levels=num_levels
+        bc, ns, roots, levels, *integ = traversal_round(
+            op, sources[0], derived[0], omega, num_levels=num_levels, integrity=integrity
         )
-        return bc[None], ns[None], roots[None], [levels]
+        return (bc[None], ns[None], roots[None], [levels]) + tuple(x[None] for x in integ)
 
     return round_fn
 
@@ -96,6 +99,7 @@ def betweenness_centrality(
     num_levels: int | None = None,
     ledger=None,
     checkpoint=None,
+    checkpoint_every: int = 8,
     overlap: str = "none",
     straggler: str = "none",
     sampling: str = "off",
@@ -117,19 +121,26 @@ def betweenness_centrality(
       engine_kind: one of :data:`ENGINE_KINDS`.
       num_levels:  optional static level bound (≥ graph diameter + 1).
       ledger:      optional RoundLedger — committed rounds are skipped.
-      sampling:    "off" (exact) or "fixed" (seeded k-root subset,
-                   rescaled by N/k; requires ``heuristics="h0"``).
+      checkpoint:  optional :class:`~repro_torch.distributed.fault_tolerance.BCCheckpoint`
+                   — durable kill-and-resume: the run resumes from its
+                   newest intact snapshot and saves one after every
+                   ``checkpoint_every`` blocks and at the end (the JAX
+                   package's file format).
+      sampling:    "off" (exact), "fixed" (seeded k-root subset, rescaled
+                   by N/k) or "adaptive" (also stops once the top-k ranks
+                   stabilise, :class:`~repro_torch.serving.AdaptiveStopRule`);
+                   sampling requires ``heuristics="h0"``.
       sample_frac / sample_k / sample_seed: the sample size and its seed.
-      stop_rule:   ``(bc_running, rounds_done) -> bool`` early stop
-                   (requires ``sampling != "off"``).
+      stop_rule:   ``(bc_running, blocks_done) -> bool`` early stop
+                   (requires ``sampling != "off"``; default under
+                   "adaptive": ``AdaptiveStopRule()``).
       device:      None → the CUDA card (raises without one); "cpu" runs
                    the plain PyTorch versions of every kernel.
-      checkpoint, overlap, straggler, weighted, delta: accepted for
-                   signature parity with the JAX package; anything but
-                   their defaults raises until its slice is ported.
+      overlap, straggler, weighted, delta: accepted for signature parity
+                   with the JAX package; ``overlap`` and ``straggler``
+                   have no single-device meaning, and weighted BC raises
+                   until its slice is ported.
     """
-    if checkpoint is not None:
-        _not_ported("checkpoint (BCCheckpoint resume)", "slice 2")
     if overlap != "none":
         raise ValueError(
             "overlap schedules are a distributed-engine feature; "
@@ -155,8 +166,10 @@ def betweenness_centrality(
     if stop_rule is not None and plan.mode == "off":
         raise ValueError(
             "a stop_rule truncates the schedule, which is only meaningful "
-            "as a rescaled estimate; pass sampling='fixed'"
+            "as a rescaled estimate; pass sampling='fixed' or 'adaptive'"
         )
+    if plan.mode == "adaptive" and stop_rule is None:
+        stop_rule = AdaptiveStopRule()
     schedule, prep, residual, omega_np = build_schedule(
         graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots
     )
@@ -169,13 +182,21 @@ def betweenness_centrality(
         device=dev,
         prep=prep,
         ledger=ledger,
+        checkpoint=checkpoint,
+        checkpoint_every=checkpoint_every,
         stop_rule=stop_rule,
     )
     return apply_sampling_rescale(driver.run(), plan)
 
 
 def apply_sampling_rescale(result: BCResult, plan: SamplePlan) -> BCResult:
-    """Rescale a sampled run's BC by N / roots_accumulated (in place)."""
+    """Rescale a sampled run's BC by N / roots_accumulated (in place).
+
+    The denominator is what the driver committed, resumed rounds
+    included, so fixed and adaptive share one calibration; checkpoints
+    hold the raw accumulator (the driver saves before this runs), so a
+    resumed run re-applies the then-current scale — rescale and resume
+    commute."""
     if plan.mode == "off":
         return result
     denom = result.roots_accumulated

@@ -32,7 +32,12 @@ subclass) and runs the same
 :class:`~repro_torch.core.driver.BCDriver` as the single-device path.
 Every rank runs the same deterministic host schedule and the same driver
 loop; each block's results come back to every rank, so the driver's host
-state (ledger, n_s, stop rule) is identical everywhere.
+state (ledger, n_s, accumulator) is identical everywhere.  Two host
+decisions are made agreed rather than assumed: a checkpoint is loaded by
+every rank, written by rank 0 alone and fenced by a barrier
+(:class:`_GridCheckpoint`), and a stop rule's verdict is rank 0's,
+broadcast (:class:`_GridStopRule`) — ranks that disagreed would issue
+different collectives and hang.
 
 Sub-clustering (paper §3.3): ``fr`` replicas of the R×C grid each take
 one round of every dispatch block; BC is additive, so the driver sums the
@@ -51,7 +56,7 @@ from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, partition_2d
 from ..kernels.blocked_spmm import nonzero_index
 from ..roofline.model import cell_kernel_choice, device_hbm_footprint
-from ..serving.sampling import eligible_roots, plan_sampling
+from ..serving.sampling import AdaptiveStopRule, eligible_roots, plan_sampling
 from .bc import apply_sampling_rescale
 from .driver import BCDriver, traversal_round
 from .operators import (
@@ -391,6 +396,52 @@ def one_degree_reduce_distributed(
     return omega[:n].cpu().numpy(), removed_all[:m2].cpu().numpy().astype(bool)
 
 
+def _host_barrier(dev: torch.device) -> None:
+    """Every rank of the default group reaches this point before any
+    leaves it, host included (the readback waits for the collective)."""
+    token = torch.zeros(1, device=dev)
+    dist.all_reduce(token)
+    token.item()
+
+
+class _GridCheckpoint:
+    """A :class:`BCCheckpoint` shared by the ranks of a grid: every rank
+    loads it (the same file, so the same resume point), rank 0 alone
+    saves, and every rank waits at a barrier after each save, so no rank
+    reads a half-rotated generation.  Everything else is the wrapped
+    checkpoint's."""
+
+    def __init__(self, checkpoint, dev: torch.device):
+        self._inner = checkpoint
+        self._dev = dev
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def save(self, *args, **kwargs) -> None:
+        if dist.get_rank() == 0:
+            self._inner.save(*args, **kwargs)
+        _host_barrier(self._dev)
+
+
+class _GridStopRule:
+    """A stop rule whose verdict is rank 0's, broadcast to every rank: the
+    driver loops of all ranks must halt at the same block."""
+
+    def __init__(self, rule, dev: torch.device):
+        self.rule = rule
+        self._dev = dev
+
+    @property
+    def stats(self):
+        return getattr(self.rule, "stats", None)
+
+    def __call__(self, bc, blocks_done: int) -> bool:
+        verdict = torch.tensor([int(bool(self.rule(bc, blocks_done)))], device=self._dev)
+        dist.broadcast(verdict, src=0)
+        return bool(verdict.item())
+
+
 def distributed_betweenness_centrality(
     graph: Graph,
     groups: GridGroups,
@@ -432,17 +483,18 @@ def distributed_betweenness_centrality(
     ``hbm_limit_bytes`` arms the memory guard (:func:`check_device_memory`)
     before anything is allocated; the footprint is always computed and
     returned in ``BCResult.layout_stats``.  ``heuristics``, ``num_levels``,
-    ``ledger`` and fixed-k ``sampling`` (``sample_frac`` / ``sample_k`` /
-    ``sample_seed``, rescaled by N/k; ``stop_rule`` may end it early)
-    behave as in the single-device entry point.  ``device=None`` runs on
-    the card ``cuda:LOCAL_RANK`` under NCCL; ``device="cpu"`` on the host
-    under gloo.
+    ``ledger``, ``checkpoint`` (every rank passes a checkpoint on the same
+    path: all load it, rank 0 writes it) and ``sampling`` ("fixed" or
+    "adaptive"; ``sample_frac`` / ``sample_k`` / ``sample_seed``, rescaled
+    by N/k; ``stop_rule`` may end it early, on rank 0's verdict) behave as
+    in the single-device entry point.  ``device=None`` runs on the card
+    ``cuda:LOCAL_RANK`` under NCCL; ``device="cpu"`` on the host under
+    gloo.
 
     The remaining knobs keep the JAX signature and raise
     ``NotImplementedError`` until their ROADMAP item ports them:
     ``overlap`` (item 7), ``straggler``, ``chaos`` and ``integrity``
-    (item 8), ``autotune`` (item 9), ``checkpoint`` (item 4a),
-    ``weighted`` / ``delta`` (item 11), adaptive sampling (item 10).
+    (item 8), ``autotune`` (item 9), ``weighted`` / ``delta`` (item 11).
 
     Returns ``(bc f64 [n], schedule)``, or the
     :class:`~repro_torch.core.driver.BCResult` with ``full_result``.
@@ -453,7 +505,6 @@ def distributed_betweenness_centrality(
         ("chaos", chaos, None, "8"),
         ("integrity", integrity, "off", "8"),
         ("autotune", autotune, "off", "9"),
-        ("checkpoint", checkpoint, None, "4a"),
         ("weighted", weighted, False, "11"),
         ("delta", delta, None, "11"),
     ):
@@ -478,8 +529,10 @@ def distributed_betweenness_centrality(
     if stop_rule is not None and plan.mode == "off":
         raise ValueError(
             "a stop_rule truncates the schedule, which is only meaningful "
-            "as a rescaled estimate; pass sampling='fixed'"
+            "as a rescaled estimate; pass sampling='fixed' or 'adaptive'"
         )
+    if plan.mode == "adaptive" and stop_rule is None:
+        stop_rule = AdaptiveStopRule()
     schedule, prep, residual, omega_np = build_schedule(
         graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots
     )
@@ -516,7 +569,8 @@ def distributed_betweenness_centrality(
         device=dev,
         prep=prep,
         ledger=ledger,
-        stop_rule=stop_rule,
+        checkpoint=None if checkpoint is None else _GridCheckpoint(checkpoint, dev),
+        stop_rule=None if stop_rule is None else _GridStopRule(stop_rule, dev),
         rounds_per_dispatch=groups.fr,
     )
     result = apply_sampling_rescale(driver.run(), plan)

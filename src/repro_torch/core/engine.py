@@ -33,10 +33,14 @@ class ForwardState(NamedTuple):
     sigma: torch.Tensor  # f32 [n, s] shortest-path counts
     depth: torch.Tensor  # i32 [n, s] discovery level (-1 = unreached)
     max_depth: int  # deepest level discovered
+    # f32 0-d running max ABFT checksum residual over all levels
+    # (checksum=True runs only; None otherwise)
+    check_err: torch.Tensor | None = None
 
 
 def forward_counting(
-    operator, src_onehot: torch.Tensor, num_levels: int | None = None
+    operator, src_onehot: torch.Tensor, num_levels: int | None = None, *,
+    checksum: bool = False,
 ) -> ForwardState:
     """Multi-source shortest-path counting (Alg. 2 analogue).
 
@@ -48,23 +52,35 @@ def forward_counting(
       num_levels: None → run until a level discovers nothing (one liveness
                   readback per level); int → that many levels, no
                   readback (extra levels are no-ops).
+      checksum:   run the ABFT-checked level steps and carry the running
+                  max column-sum residual in ``ForwardState.check_err``
+                  (the lane is transient inside each level).
     """
     op = as_operator(operator, n_rows=src_onehot.shape[0], device=src_onehot.device)
     sigma = src_onehot.to(torch.float32)
     depth = torch.where(src_onehot > 0, 0, -1).to(torch.int32)
+    err = torch.zeros((), dtype=torch.float32, device=sigma.device)
+
+    def level(lvl, sigma, depth, err):
+        if not checksum:
+            return op.forward_level(lvl, sigma, depth) + (err,)
+        sigma, depth, local_alive, lerr = op.forward_level_checked(lvl, sigma, depth)
+        return sigma, depth, local_alive, torch.maximum(err, lerr)
+
     if num_levels is None:
         cap = op.level_cap()
         lvl, alive = 1, True
         while alive and lvl <= cap:
-            sigma, depth, local_alive = op.forward_level(lvl, sigma, depth)
+            sigma, depth, local_alive, err = level(lvl, sigma, depth, err)
             alive = bool(op.reduce_any(local_alive))
             lvl += 1
         max_depth = lvl - 2  # last level that discovered anything
     else:
         for k in range(num_levels):
-            sigma, depth, _ = op.forward_level(k + 1, sigma, depth)
+            sigma, depth, _, err = level(k + 1, sigma, depth, err)
         max_depth = int(op.reduce_max(depth.max())) if depth.numel() else 0
-    return ForwardState(sigma=sigma, depth=depth, max_depth=max_depth)
+    return ForwardState(sigma=sigma, depth=depth, max_depth=max_depth,
+                        check_err=err if checksum else None)
 
 
 def backward_accumulation(
@@ -74,7 +90,9 @@ def backward_accumulation(
     omega: torch.Tensor,
     max_depth: int,
     num_levels: int | None = None,
-) -> torch.Tensor:
+    *,
+    checksum: bool = False,
+):
     """Dependency accumulation (Alg. 4/5 analogue, checking successors).
 
     Returns δ f32 [n_rows, s].  ``operator`` is as for
@@ -84,10 +102,19 @@ def backward_accumulation(
     columns of different depths are handled by masking, which is what
     makes the 2-degree derived columns ride along for free.  With
     ``num_levels`` the sweep runs from ``num_levels - 1`` instead.
+
+    With ``checksum=True`` every level runs the ABFT-checked step and the
+    return value is the pair ``(δ, err)``, ``err`` the f32 0-d max
+    relative column-sum residual across the sweep.
     """
     op = as_operator(operator, n_rows=sigma.shape[0], device=sigma.device)
     delta = torch.zeros_like(sigma)
+    err = torch.zeros((), dtype=torch.float32, device=sigma.device)
     top = (num_levels if num_levels is not None else max_depth) - 1
     for lvl in range(top, 0, -1):
-        delta = op.backward_level(lvl, sigma, depth, omega, delta)
-    return delta
+        if checksum:
+            delta, lerr = op.backward_level_checked(lvl, sigma, depth, omega, delta)
+            err = torch.maximum(err, lerr)
+        else:
+            delta = op.backward_level(lvl, sigma, depth, omega, delta)
+    return (delta, err) if checksum else delta

@@ -12,6 +12,9 @@ round loop, and operators everything below a level:
   forward_level(...)    one forward BFS level (default: masked product
                         via ``apply``; the fused operators launch K1/K3/K5)
   backward_level(...)   one dependency level (the fused operators: K2/K4/K6)
+  *_level_checked(...)  the same level with the transient ABFT checksum
+                        lane, plus the level's residual (integrity=
+                        "checksum"; the fused operator runs K3/K4)
   reduce_any/max/sum    agreement on liveness, max depth and additive
                         per-column facts (identity on one device,
                         ``all_reduce`` over the grid group on a 2-D grid)
@@ -79,6 +82,31 @@ def _backward_level(op: "TraversalOperator", lvl: int, sigma, depth, omega, delt
     return delta + torch.where(depth == lvl, sigma * t, 0.0)
 
 
+def _forward_level_checked(op: "TraversalOperator", lvl: int, sigma, depth):
+    """:func:`_forward_level` with a transient ABFT ones-checksum lane:
+    appended to the masked frontier just before the product, stripped
+    right after (σ/d stay [n, s]).  Returns the usual triple plus the
+    product's relative column-sum residual (f32 0-d tensor)."""
+    frontier = sigma * (depth == lvl - 1)
+    t = op.apply(ops.checksum_append(frontier))
+    err = ops.checksum_residual(t)
+    contrib = t[:, :-1]
+    newly = (contrib > 0) & (depth < 0)
+    depth = torch.where(newly, lvl, depth)
+    sigma = sigma + torch.where(newly, contrib, 0.0)
+    return sigma, depth, newly.any(), err
+
+
+def _backward_level_checked(op: "TraversalOperator", lvl: int, sigma, depth, omega, delta):
+    """:func:`_backward_level` with the transient checksum lane on the
+    ``A @ g`` product; returns (δ', residual)."""
+    safe_sigma = torch.where(sigma > 0, sigma, 1.0)
+    g = torch.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe_sigma, 0.0)
+    t = op.apply_backward(ops.checksum_append(g))
+    err = ops.checksum_residual(t)
+    return delta + torch.where(depth == lvl, sigma * t[:, :-1], 0.0), err
+
+
 class TraversalOperator:
     """Protocol base: single-device semantics, no collectives."""
 
@@ -100,6 +128,15 @@ class TraversalOperator:
     def backward_level(self, lvl: int, sigma, depth, omega, delta):
         """Running δ -> δ' for one dependency level (ω is f32 [n_rows])."""
         return _backward_level(self, lvl, sigma, depth, omega, delta)
+
+    def forward_level_checked(self, lvl: int, sigma, depth):
+        """:meth:`forward_level` + the level's ABFT checksum residual:
+        ``(σ', d', alive, err)``; state shapes as unchecked."""
+        return _forward_level_checked(self, lvl, sigma, depth)
+
+    def backward_level_checked(self, lvl: int, sigma, depth, omega, delta):
+        """:meth:`backward_level` + the level's residual: ``(δ', err)``."""
+        return _backward_level_checked(self, lvl, sigma, depth, omega, delta)
 
     def reduce_any(self, alive: torch.Tensor) -> torch.Tensor:
         return alive
@@ -215,6 +252,34 @@ class FusedDenseOperator(TraversalOperator):
     def backward_level(self, lvl, sigma, depth, omega, delta):
         return ops.dependency_spmm(self.adjacency, sigma, depth, delta, omega, lvl)
 
+    # K1/K2 never expose the raw product t, so the checked steps run the
+    # partial kernels K3/K4 on the square adjacency instead, with the
+    # checksum lane as one extra operand column whose (σ, d, δ) make the
+    # kernel's own recompute land on the column sum: forward
+    # σ_c = Σ_j σ_j·[d_j = lvl−1], d_c = lvl−1; backward σ_c = 1,
+    # d_c = lvl+1, δ_c = Σ_j g_j − 1 − ω (so g_c = 1 + δ_c + ω = Σ_j g_j).
+    def forward_level_checked(self, lvl, sigma, depth):
+        fsum = (sigma * (depth == lvl - 1)).sum(dim=1, keepdim=True)
+        sg = torch.cat([sigma, fsum], dim=1)
+        dp = torch.cat([depth, torch.full_like(depth[:, :1], lvl - 1)], dim=1)
+        t = ops.frontier_spmm_partial(self.adjacency, sg, dp, lvl)
+        err = ops.checksum_residual(t)
+        contrib = t[:, :-1]
+        newly = (contrib > 0) & (depth < 0)
+        depth2 = torch.where(newly, lvl, depth)
+        sigma2 = sigma + torch.where(newly, contrib, 0.0)
+        return sigma2, depth2, newly.any(), err
+
+    def backward_level_checked(self, lvl, sigma, depth, omega, delta):
+        safe_sigma = torch.where(sigma > 0, sigma, 1.0)
+        g = torch.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe_sigma, 0.0)
+        sg = torch.cat([sigma, torch.ones_like(sigma[:, :1])], dim=1)
+        dp = torch.cat([depth, torch.full_like(depth[:, :1], lvl + 1)], dim=1)
+        dl = torch.cat([delta, g.sum(dim=1, keepdim=True) - 1.0 - omega[:, None]], dim=1)
+        t = ops.dependency_spmm_partial(self.adjacency, sg, dp, dl, omega, lvl)
+        err = ops.checksum_residual(t)
+        return delta + torch.where(depth == lvl, sigma * t[:, :-1], 0.0), err
+
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
@@ -282,6 +347,12 @@ class DistributedOperator(TraversalOperator):
 
     def apply(self, x_owned):
         return self._fold(self._local(self._expand(x_owned)))
+
+    def forward_level_checked(self, lvl, sigma, depth):
+        raise _not_ported("the ABFT checksum lane on a 2-D grid (integrity='checksum')", 8)
+
+    def backward_level_checked(self, lvl, sigma, depth, omega, delta):
+        raise _not_ported("the ABFT checksum lane on a 2-D grid (integrity='checksum')", 8)
 
     def apply_backward(self, g):
         if not self.split_backward:

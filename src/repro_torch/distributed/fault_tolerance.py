@@ -1,13 +1,67 @@
-"""Exactly-once accounting of BC rounds.
+"""Exactly-once accounting of BC rounds, and the round loop's errors.
 
 BC rounds are idempotent and additive, so recovery is re-issue, never
 partial-state repair.  :class:`RoundLedger` records committed rounds so a
-duplicated execution never double-counts.  The durable checkpoint that
-pairs it with the partial BC sums arrives with the next slice.
+duplicated execution never double-counts; :class:`BCCheckpoint`
+(re-exported from :mod:`repro_torch.checkpoint.checkpointer`) pairs the
+committed set with the partial BC sums on disk, tied to one schedule by
+:func:`schedule_fingerprint`.  The exceptions are the driver's recovery
+vocabulary: :class:`TransientRoundError` is retried in place,
+:class:`ReplicaLostError` never is, :class:`IntegrityError` ends a block
+that keeps failing its audit.
 """
 from __future__ import annotations
 
-__all__ = ["RoundLedger"]
+import zlib
+
+__all__ = [
+    "RoundLedger",
+    "BCCheckpoint",
+    "schedule_fingerprint",
+    "TransientRoundError",
+    "ReplicaLostError",
+    "IntegrityError",
+    "is_transient_error",
+]
+
+
+class IntegrityError(RuntimeError):
+    """A round output failed its integrity audit beyond recovery: the
+    block kept failing the ABFT checksum / claim / output-domain audits
+    (``integrity="audit"|"checksum"``) after the re-dispatch budget and
+    the fallback recompute (when one was given) were spent."""
+
+
+class TransientRoundError(RuntimeError):
+    """A round failure worth retrying on the same devices.  The driver
+    retries it, and the runtime error types named in
+    :data:`TRANSIENT_ERROR_NAMES`, within its retry budget; any other
+    exception propagates."""
+
+
+class ReplicaLostError(RuntimeError):
+    """A sub-cluster replica's devices are gone; carries the lost
+    ``replica`` index (-1 when unknown, as the watchdog raises it).
+    Never retried in place."""
+
+    def __init__(self, replica: int, message: str | None = None):
+        super().__init__(message or f"replica {replica} lost")
+        self.replica = int(replica)
+
+
+#: Exception type *names* treated as transient alongside
+#: :class:`TransientRoundError` — the JAX package's list, matched by name
+#: so the check imports no backend module.
+TRANSIENT_ERROR_NAMES = ("XlaRuntimeError", "UnavailableError", "InternalError")
+
+
+def is_transient_error(exc: BaseException) -> bool:
+    """True when a round failure should be retried in place."""
+    if isinstance(exc, TransientRoundError):
+        return True
+    if isinstance(exc, ReplicaLostError):
+        return False
+    return type(exc).__name__ in TRANSIENT_ERROR_NAMES
 
 
 class RoundLedger:
@@ -15,7 +69,9 @@ class RoundLedger:
 
     :class:`repro_torch.core.driver.BCDriver` consumes a ledger directly:
     committed rounds are skipped, so a round is accumulated exactly once.
-    The ledger is in-memory only.
+    The ledger is in-memory only; durable kill-and-resume is
+    :class:`BCCheckpoint`, which stores the committed set together with
+    the matching partial BC sums.
     """
 
     def __init__(self):
@@ -51,3 +107,22 @@ class RoundLedger:
         led = cls()
         led._committed = set(committed)
         return led
+
+
+# the durable (partial BC, n_s, committed rounds) triple lives with the
+# rest of the durable state; re-exported here beside the ledger protocol
+# it completes, as in the JAX package
+from ..checkpoint.checkpointer import BCCheckpoint  # noqa: E402
+
+
+def schedule_fingerprint(n: int, schedule) -> str:
+    """Content hash tying a checkpoint to one (graph, schedule) pair —
+    the JAX package's string, byte for byte."""
+    crc = 0
+    for rnd in schedule.rounds:
+        crc = zlib.crc32(rnd.sources.tobytes(), crc)
+        crc = zlib.crc32(rnd.derived.tobytes(), crc)
+    return (
+        f"n{n}_b{schedule.batch_size}_k{schedule.derived_per_round}_"
+        f"r{len(schedule.rounds)}_{crc:08x}"
+    )

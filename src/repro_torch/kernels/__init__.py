@@ -14,6 +14,8 @@ Importing this package builds nothing and needs no card.
 """
 from .ops import (
     LAUNCHES,
+    checksum_append,
+    checksum_residual,
     dependency_spmm,
     dependency_spmm_partial,
     dependency_spmm_sparse,
@@ -32,6 +34,8 @@ __all__ = [
     "frontier_spmm_sparse",
     "dependency_spmm_sparse",
     "segment_bag",
+    "checksum_append",
+    "checksum_residual",
     "LAUNCHES",
     "reset_launches",
 ]

@@ -10,6 +10,8 @@ combine); K5/K6 (:func:`frontier_spmm_sparse`,
 :func:`dependency_spmm_sparse`) are the same partials over the block's
 stored BCSR tiles only, summed on the card over the tiles' nonzero
 index.  K7 (:func:`segment_bag`) is the DLRM lookup's gather-reduce.
+:func:`checksum_append` / :func:`checksum_residual` are the ABFT lane's
+torch ops (no kernel), which the checked level steps put around K3/K4.
 
 Each wrapper checks its operands (device, dtype, shape, contiguity) and
 raises on anything the kernel does not take.  Then:
@@ -40,6 +42,8 @@ __all__ = [
     "frontier_spmm_sparse",
     "dependency_spmm_sparse",
     "segment_bag",
+    "checksum_append",
+    "checksum_residual",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -176,6 +180,28 @@ def _check_sparse(name: str, tiles: torch.Tensor, tile_rows: torch.Tensor,
                          f"changed since; rebuild it with nonzero_index")
     graph = [tiles] + [t for t, _, _ in index_shapes.values()]
     _check_operands(name, m, k, graph, sigma, depth, delta, omega, acc)
+
+
+def checksum_append(x: torch.Tensor) -> torch.Tensor:
+    """Append the ABFT ones-checksum lane to a batched [n, s] operand: the
+    extra column is the row sum of the real ones, so after any linear map
+    ``t = A @ x`` the output's last column must equal the sum of its real
+    columns (:func:`checksum_residual` checks it).  A torch op on the
+    operand's device, not a kernel."""
+    return torch.cat([x, x.sum(dim=1, keepdim=True)], dim=1)
+
+
+def checksum_residual(t: torch.Tensor) -> torch.Tensor:
+    """Relative ABFT residual of a checksum-extended product ``t`` [n, s+1]
+    (lane last): the f32 0-d tensor
+    ``max_i |t[i, -1] - Σ_j t[i, j]| / (1 + Σ_j |t[i, j]|)`` — about 1e-7
+    for a healthy f32 sum, orders of magnitude more when a flipped bit or a
+    bad partial broke the column-sum invariant.  0 for an empty ``t``."""
+    real = t[:, :-1]
+    resid = (t[:, -1] - real.sum(dim=1)).abs()
+    scale = 1.0 + real.abs().sum(dim=1)
+    ratio = (resid / scale).to(torch.float32)
+    return ratio.max() if ratio.numel() else ratio.new_zeros(())
 
 
 def frontier_spmm(

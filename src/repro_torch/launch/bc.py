@@ -13,6 +13,8 @@ device or on a 2-D grid of devices.
     # blocked-sparse (BCSR) tiles, or a per-cell dense/BCSR choice:
     PYTHONPATH=src python -m repro_torch.launch.bc --rmat-scale 8 --mesh 2x4 \
         --engine fused_hybrid --tile 8 --device cpu
+    # durable: a rerun with the same --ckpt-dir resumes past the committed rounds
+    PYTHONPATH=src python -m repro_torch.launch.bc --grid 8x8 --device cpu --ckpt-dir ck
 
 The graphs are the JAX launcher's, with the same seeds (R-MAT, grid and
 road-like; seed 1), so both launchers score the same graph.  ``--engine``
@@ -50,6 +52,7 @@ import torch.distributed as dist
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
 from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centrality
 from ..core.scheduler import HEURISTICS_MODES
+from ..distributed.fault_tolerance import BCCheckpoint
 from ..distributed.groups import GridGroups, run_gloo
 from ..graphs import grid_graph, rmat_graph, road_like_graph
 from ..serving.sampling import SAMPLING_MODES
@@ -99,13 +102,24 @@ def build_parser() -> argparse.ArgumentParser:
         default="off",
         choices=list(SAMPLING_MODES),
         help="'fixed' runs a seeded k-root subset and rescales by N/k "
-        "(needs --heuristics h0); 'adaptive' is not ported yet",
+        "(needs --heuristics h0); 'adaptive' also stops once the top-k ranks "
+        "stabilise (logs 'stop rule fired after B dispatch blocks')",
     )
     ap.add_argument("--sample-frac", type=float, default=None)
     ap.add_argument("--sample-k", type=int, default=None)
     ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument(
         "--device", default=None, help="'cuda' (default) or 'cpu' (plain PyTorch versions)"
+    )
+    ap.add_argument(
+        "--ckpt-dir", default=None,
+        help="BCCheckpoint directory: a rerun resumes past the committed rounds "
+        "(prints 'resuming: N rounds already committed')",
+    )
+    ap.add_argument(
+        "--generations", type=int, default=None,
+        help="BCCheckpoint snapshot generations to keep (default 3); a load falls back "
+        "to the newest intact one on a torn write",
     )
     ap.add_argument("--out", default=None, help="save the BC scores (.npy)")
     ap.add_argument("--top", type=int, default=10)
@@ -124,11 +138,13 @@ def _mesh_rank(groups: GridGroups, graph, kwargs: dict):
     return res.bc, res.rounds_run, res.sampling_stats, res.layout_stats, dt
 
 
-def _run_mesh(graph, mesh_shape: tuple[int, ...], kwargs: dict):
-    """Rank 0's ``_mesh_rank`` result (None on the other ranks)."""
+def run_grid(fn, graph, mesh_shape: tuple[int, ...], kwargs: dict, *, on_cpu: bool):
+    """``fn(groups, graph, kwargs)`` on every rank of an RxC / FRxRxC grid:
+    under torchrun in this process (NCCL, or gloo with ``on_cpu``), else on
+    spawned gloo ranks with ``on_cpu``.  Returns rank 0's result (None on
+    the other ranks of a torchrun grid)."""
     fr, R, C = (1,) * (3 - len(mesh_shape)) + tuple(mesh_shape)
     world = fr * R * C
-    on_cpu = kwargs["device"] == "cpu"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
         if int(os.environ["WORLD_SIZE"]) != world:
             raise SystemExit(
@@ -137,11 +153,11 @@ def _run_mesh(graph, mesh_shape: tuple[int, ...], kwargs: dict):
             )
         dist.init_process_group("gloo" if on_cpu else "nccl", init_method="env://")
         try:
-            return _mesh_rank(GridGroups(fr, R, C), graph, kwargs)
+            return fn(GridGroups(fr, R, C), graph, kwargs)
         finally:
             dist.destroy_process_group()
     if on_cpu:
-        return run_gloo(_mesh_rank, fr, R, C, (graph, kwargs))[0]
+        return run_gloo(fn, fr, R, C, (graph, kwargs))[0]
     raise SystemExit(
         f"--mesh on the card runs one process per device: launch with "
         f"torchrun --standalone --nproc-per-node {world}"
@@ -200,9 +216,19 @@ def main(argv: list[str] | None = None) -> None:
             "--sample-frac/--sample-k size a sampled run; pass --sampling fixed"
         )
 
-    kwargs = dict(batch_size=args.batch_size, heuristics=args.heuristics,
-                  device=args.device, **sampling_kw)
     is_rank0 = int(os.environ.get("RANK", 0)) == 0
+    checkpoint = None
+    if args.ckpt_dir:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        ckpt_kw = {} if args.generations is None else {"generations": args.generations}
+        checkpoint = BCCheckpoint(os.path.join(args.ckpt_dir, f"{name}.npz"), **ckpt_kw)
+        if checkpoint.exists() and is_rank0:
+            _, _, committed = checkpoint.load()
+            gen = checkpoint.loaded_generation
+            print(f"resuming: {len(committed)} rounds already committed"
+                  + ("" if not gen else f" (from fallback generation {gen})"))
+    kwargs = dict(batch_size=args.batch_size, heuristics=args.heuristics,
+                  device=args.device, checkpoint=checkpoint, **sampling_kw)
     if is_rank0:
         print(
             f"{name}: n={graph.n} m={graph.num_edges} heuristics={args.heuristics} "
@@ -214,9 +240,9 @@ def main(argv: list[str] | None = None) -> None:
         # the arc-list engines map to the distributed arc-list engine
         engine = "sparse" if args.engine in ("dense", "sparse") else args.engine
         hbm = args.hbm_gb * 2**30 if args.hbm_gb > 0 else None
-        out = _run_mesh(graph, mesh_shape, dict(
+        out = run_grid(_mesh_rank, graph, mesh_shape, dict(
             kwargs, engine_kind=engine, tile=tile, hybrid_threshold=args.hybrid_threshold,
-            hbm_limit_bytes=hbm))
+            hbm_limit_bytes=hbm), on_cpu=args.device == "cpu")
         if out is None:  # not rank 0 of a torchrun grid
             return
         bc, rounds, samp, layout, dt = out

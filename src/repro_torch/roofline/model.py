@@ -1,7 +1,8 @@
 """Per-engine adjacency and state bytes of the 2-D distributed path.
 
 The quantities the memory guard, the per-cell dense/BCSR choice and the
-chip smoke test's bounds read, keyed by the port's engine names:
+chip smoke test's bounds read, keyed by the port's engine names (and
+:func:`sampled_run_seconds`, the wall estimate of a sampled run):
 
   sparse         arc list (src, dst) per cell
   fused          dense f32 block [C·chunk, R·chunk] per cell (K3/K4)
@@ -24,6 +25,7 @@ __all__ = [
     "exchange_operands",
     "adjacency_stream_bytes",
     "device_hbm_footprint",
+    "sampled_run_seconds",
 ]
 
 #: payload tensors per exchanged direction: the arc-list engine ships one
@@ -174,3 +176,17 @@ def device_hbm_footprint(
         "state_bytes": float(state),
         "total_bytes": float(adjacency + state),
     }
+
+
+def sampled_run_seconds(num_rounds: int, fr: int, round_s: float) -> float:
+    """Wall estimate of a (sampled) run: dispatch blocks × per-round wall.
+
+    A k-root sample schedules ``ceil(k / batch)`` rounds dealt ``fr`` per
+    dispatch block, so its cost is the block count times one block's
+    wall ``round_s`` — in the port a measured one (``launch/serve_bc.py``
+    prices the refresh slices still to run from the slices it has run).
+    """
+    if num_rounds <= 0:
+        return 0.0
+    blocks = -(-int(num_rounds) // max(1, int(fr)))  # ceil division
+    return blocks * float(round_s)

@@ -6,8 +6,10 @@ BC_hat(v) = (N / k) · Σ_{s ∈ sample} contribution_s(v) (Brandes & Pich
 2007).  :func:`plan_sampling` draws the subset as a prefix of a seeded
 permutation, so the same seed gives the same roots as the JAX package and
 samples are nested in k.  ``sampling="fixed"`` is the normal way to run a
-few rounds of a large graph; ``"adaptive"`` (the rank-stability stop
-rule) is not ported yet.
+few rounds of a large graph; ``"adaptive"`` draws the same plan and lets
+:class:`AdaptiveStopRule` end the run once the top-k ranks stop moving.
+The stop rules are the driver's ``stop_rule`` seam: ``(bc_running f64
+[n], blocks_done) -> bool`` after every dispatch block.
 """
 from __future__ import annotations
 
@@ -22,12 +24,20 @@ __all__ = [
     "resolve_sample_size",
     "SamplePlan",
     "plan_sampling",
+    "RANK_METHODS",
+    "top_k_indices",
+    "rank_stability",
+    "AdaptiveStopRule",
+    "BlockBudgetStop",
 ]
 
 #: "off" runs every eligible root (exact); "fixed" runs a seeded k-root
 #: subset and rescales by N/k; "adaptive" also stops once the top-k ranks
-#: stabilize (not ported yet).
+#: stabilize.
 SAMPLING_MODES = ("off", "fixed", "adaptive")
+
+#: rank-agreement metrics of :func:`rank_stability`
+RANK_METHODS = ("jaccard", "kendall")
 
 
 def normalize_sampling(mode: str | None) -> str:
@@ -36,12 +46,6 @@ def normalize_sampling(mode: str | None) -> str:
     if mode not in SAMPLING_MODES:
         raise ValueError(
             f"unknown sampling mode {mode!r}; expected one of {SAMPLING_MODES}"
-        )
-    if mode == "adaptive":
-        raise NotImplementedError(
-            "sampling='adaptive' (the rank-stability stop rule) is not "
-            "ported yet (ROADMAP Queue 1, sampling and serving); use "
-            "sampling='fixed'"
         )
     return mode
 
@@ -119,3 +123,140 @@ def plan_sampling(
     return SamplePlan(
         mode=mode, roots=roots, num_eligible=num_eligible, k=k, seed=seed
     )
+
+
+def top_k_indices(scores: np.ndarray, k: int) -> np.ndarray:
+    """Indices of the k largest scores, ties broken by lowest vertex id
+    (deterministic across runs and accumulation orders)."""
+    scores = np.asarray(scores)
+    k = min(int(k), scores.size)
+    # lexsort: primary key -scores ascending == scores descending,
+    # secondary key vertex id ascending
+    order = np.lexsort((np.arange(scores.size), -scores))
+    return order[:k]
+
+
+def rank_stability(
+    prev: np.ndarray, cur: np.ndarray, k: int = 10, method: str = "jaccard"
+) -> float:
+    """Rank agreement of two score vectors' top-k, in [0, 1]; 1.0 iff
+    the top-k view is unchanged.
+
+    ``"jaccard"``: |top-k(prev) ∩ top-k(cur)| / |union| — set stability,
+    blind to order inside the top-k.  ``"kendall"``: fraction of
+    concordant pairs over the union of the two top-k sets (a bounded
+    Kendall-tau variant; ties concordant with ties) — also sensitive to
+    reordering *within* the set.  Both are scale-invariant, so watching
+    the unscaled running accumulator is equivalent to watching BC_hat.
+    """
+    if method not in RANK_METHODS:
+        raise ValueError(
+            f"unknown rank method {method!r}; expected one of {RANK_METHODS}"
+        )
+    a = top_k_indices(prev, k)
+    b = top_k_indices(cur, k)
+    union = np.union1d(a, b)
+    if union.size == 0:
+        return 1.0
+    if method == "jaccard":
+        inter = np.intersect1d(a, b, assume_unique=True).size
+        return float(inter) / float(union.size)
+    if union.size == 1:
+        return 1.0
+    pa = np.sign(np.asarray(prev, np.float64)[union][:, None]
+                 - np.asarray(prev, np.float64)[union][None, :])
+    pb = np.sign(np.asarray(cur, np.float64)[union][:, None]
+                 - np.asarray(cur, np.float64)[union][None, :])
+    iu = np.triu_indices(union.size, k=1)
+    concordant = int((pa[iu] == pb[iu]).sum())
+    return concordant / float(iu[0].size)
+
+
+class AdaptiveStopRule:
+    """``BCDriver`` stop-rule seam: stop once top-k ranks stabilize.
+
+    Called as ``rule(bc_running, blocks_done)`` after each drained
+    dispatch block with the running f64 accumulator.  The rule compares
+    the accumulator's top-k against the previous check's
+    (:func:`rank_stability`) and fires once the agreement has been
+    ``>= threshold`` for ``window`` *consecutive* checks — but never
+    before ``min_blocks`` dispatch blocks have completed, so a lucky
+    first block cannot truncate the sample to something tiny.
+
+    An unchanged accumulator scores exactly 1.0, so the default
+    ``threshold=1.0`` means "the top-k set stopped moving".  Telemetry
+    lands in ``stats`` (and, via the driver, ``BCResult.stop_stats``).
+    """
+
+    def __init__(
+        self,
+        top_k: int = 10,
+        window: int = 2,
+        min_blocks: int = 3,
+        threshold: float = 1.0,
+        method: str = "jaccard",
+    ):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if min_blocks < 1:
+            raise ValueError(f"min_blocks must be >= 1, got {min_blocks}")
+        if method not in RANK_METHODS:
+            raise ValueError(
+                f"unknown rank method {method!r}; expected one of {RANK_METHODS}"
+            )
+        self.top_k = int(top_k)
+        self.window = int(window)
+        self.min_blocks = int(min_blocks)
+        self.threshold = float(threshold)
+        self.method = method
+        self._prev: np.ndarray | None = None
+        self._streak = 0
+        self.stats: dict = {
+            "rule": "adaptive",
+            "top_k": self.top_k,
+            "window": self.window,
+            "min_blocks": self.min_blocks,
+            "threshold": self.threshold,
+            "method": method,
+            "checks": 0,
+            "stability": [],  # per-check rank_stability history
+            "fired_at_block": None,
+        }
+
+    def __call__(self, bc: np.ndarray, blocks_done: int) -> bool:
+        bc = np.asarray(bc, np.float64)
+        self.stats["checks"] += 1
+        if self._prev is not None:
+            s = rank_stability(self._prev, bc, self.top_k, self.method)
+            self.stats["stability"].append(float(s))
+            self._streak = self._streak + 1 if s >= self.threshold else 0
+        self._prev = bc.copy()
+        fire = blocks_done >= self.min_blocks and self._streak >= self.window
+        if fire and self.stats["fired_at_block"] is None:
+            self.stats["fired_at_block"] = int(blocks_done)
+        return fire
+
+
+class BlockBudgetStop:
+    """Stop after a fixed number of dispatch blocks (serving refresh
+    slices: each background generation runs ``max_blocks`` more blocks
+    of the *same* checkpointed schedule, then publishes)."""
+
+    def __init__(self, max_blocks: int):
+        if max_blocks < 1:
+            raise ValueError(f"max_blocks must be >= 1, got {max_blocks}")
+        self.max_blocks = int(max_blocks)
+        self.stats: dict = {
+            "rule": "budget",
+            "max_blocks": self.max_blocks,
+            "checks": 0,
+            "fired_at_block": None,
+        }
+
+    def __call__(self, bc: np.ndarray, blocks_done: int) -> bool:
+        del bc
+        self.stats["checks"] += 1
+        fire = blocks_done >= self.max_blocks
+        if fire and self.stats["fired_at_block"] is None:
+            self.stats["fired_at_block"] = int(blocks_done)
+        return fire

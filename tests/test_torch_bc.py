@@ -132,10 +132,10 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        ({"checkpoint": object()}, NotImplementedError),
+        ({"checkpoint": object()}, AttributeError),
         ({"weighted": True}, NotImplementedError),
         ({"delta": 1.0}, NotImplementedError),
-        ({"sampling": "adaptive"}, NotImplementedError),
+        ({"sampling": "adaptive", "heuristics": "h1"}, ValueError),
         ({"overlap": "expand"}, ValueError),
         ({"straggler": "steal"}, ValueError),
         ({"engine_kind": "pallas"}, ValueError),
@@ -150,13 +150,16 @@ def test_unported_or_invalid_options_raise(kwargs, error):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"checkpoint": object()}, {"straggler": "steal"}, {"integrity": "audit"},
-     {"dispatch_deadline_s": 1.0}],
+    [{"straggler": "steal"}, {"straggler": "redeal"}, {"integrity": "bogus"},
+     {"dispatch_deadline_s": 0.0}],
 )
 def test_driver_options_of_later_slices_raise(kwargs):
+    """The multi-ledger straggler loop is item 8; the integrity modes and
+    the watchdog are ported and validate their arguments."""
     g = pg.cycle_graph(6)
     schedule = build_schedule(g, batch_size=4)[0]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    error, match = (NotImplementedError, "item 8") if "straggler" in kwargs else (ValueError, None)
+    with pytest.raises(error, match=match):
         pdriver.BCDriver(lambda s, d: None, schedule, n=g.n, device="cpu", **kwargs)
 
 

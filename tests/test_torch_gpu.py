@@ -458,6 +458,117 @@ def test_nonzero_index_of_tiles_past_2_to_the_31_elements(cuda):
     torch.cuda.empty_cache()
 
 
+# the ABFT lane's widths: the main path's s = 128 / 192 plus the lane
+LANE_WIDTHS = [129, 193]
+
+
+@pytest.mark.parametrize("s", LANE_WIDTHS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_checked_steps_at_the_lane_widths_match_plain_versions(cuda, dtype, s):
+    """The fused operator's checked steps run K3/K4 on the square A with
+    the checksum lane as column s + 1 (s real columns): σ and depth
+    exact, δ rtol 1e-5 / atol 1e-6 against the same steps' plain
+    versions on the host, A aligned and at an offset; residual under
+    CHECKSUM_TOL; one K3 and one K4 launch, no K1/K2."""
+    from repro_torch.core.driver import CHECKSUM_TOL
+    from repro_torch.core.operators import FusedDenseOperator
+
+    A, sigma, depth, delta, omega = _state(4096, s - 1, s, 2, DTYPES[dtype], cuda)
+    host = FusedDenseOperator(A.cpu())
+    want_s, want_d, _, _ = host.forward_level_checked(2, sigma.cpu(), depth.cpu())
+    want_dl, _ = host.backward_level_checked(1, sigma.cpu(), depth.cpu(), omega.cpu(),
+                                             delta.cpu())
+    for a in (A, _at_offset(A)):
+        op = FusedDenseOperator(a)
+        ops.reset_launches()
+        got_s, got_d, alive, err = op.forward_level_checked(2, sigma, depth)
+        got_dl, berr = op.backward_level_checked(1, sigma, depth, omega, delta)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["frontier_spmm_partial"] == ops.LAUNCHES["dependency_spmm_partial"] == 1
+        assert ops.LAUNCHES["frontier_spmm"] == ops.LAUNCHES["dependency_spmm"] == 0
+        assert torch.equal(got_d.cpu(), want_d) and torch.equal(got_s.cpu(), want_s)
+        torch.testing.assert_close(got_dl.cpu(), want_dl, rtol=1e-5, atol=1e-6)
+        assert bool(alive) and 0.0 <= float(err) < CHECKSUM_TOL and float(berr) < CHECKSUM_TOL
+
+
+@pytest.mark.parametrize("s", LANE_WIDTHS)
+def test_operand_scratch_pad_columns_are_zero(cuda, monkeypatch, s):
+    """K3/K4's operand pass writes the whole [k, ld] scratch: the pad
+    columns past s stay zero (a NaN-filled scratch comes back clean), so
+    they add nothing to the lane's column sum."""
+    import importlib
+
+    from repro_torch.kernels.level_gemm import operand_layout, operand_stride
+
+    # the launcher modules (the package's names are the ops wrappers)
+    k13 = importlib.import_module("repro_torch.kernels.frontier_spmm")
+    k24 = importlib.import_module("repro_torch.kernels.dependency_spmm")
+
+    seen = []
+
+    def spy(adjacency, sigma):
+        operand, ld, bs, fast = operand_layout(adjacency, sigma)
+        operand.fill_(float("nan"))
+        seen.append(operand)
+        return operand, ld, bs, fast
+
+    monkeypatch.setattr(k13, "operand_layout", spy)
+    monkeypatch.setattr(k24, "operand_layout", spy)
+    A, sigma, depth, delta, omega = _state(1000, s, s, 2, torch.float32, cuda)
+    ops.frontier_spmm_partial(A, sigma, depth, 2)
+    ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1)
+    torch.cuda.synchronize()
+    ld = operand_stride(s)
+    assert ld > s and len(seen) == 2
+    for operand in seen:
+        assert operand.shape == (1000, ld)
+        assert bool(torch.isfinite(operand).all())
+        assert bool((operand[:, s:] == 0).all())
+
+
+def test_checkpoint_round_trip_of_a_card_run(cuda, tmp_path):
+    """A card run stopped after two blocks resumes on the card, and the
+    card-written snapshot resumes on the host too, both to the unbroken
+    run's BC (rtol 1e-5 / atol 1e-5)."""
+    from repro_torch.distributed import BCCheckpoint
+    from repro_torch.serving import BlockBudgetStop
+
+    g = pg.rmat_graph(9, 8, seed=2)
+    kw = dict(batch_size=64, engine_kind="fused", sampling="fixed", sample_k=320)
+    full = pbc.betweenness_centrality(g, **kw)
+    for name, device in (("card.npz", None), ("host.npz", "cpu")):
+        path = str(tmp_path / name)
+        part = pbc.betweenness_centrality(g, checkpoint=BCCheckpoint(path),
+                                          stop_rule=BlockBudgetStop(2), **kw)
+        assert part.rounds_run == 2
+        rest = pbc.betweenness_centrality(g, checkpoint=BCCheckpoint(path), device=device, **kw)
+        assert rest.rounds_run == len(full.schedule.rounds) - 2
+        np.testing.assert_allclose(rest.bc, full.bc, rtol=1e-5, atol=1e-5)
+
+
+def test_serve_bc_defaults_to_the_card(cuda, tmp_path, capsys):
+    from repro_torch.launch import serve_bc
+
+    ops.reset_launches()
+    serve_bc.main(["--grid", "8x8", "--engine", "fused", "--batch-size", "16",
+                   "--sample-frac", "1.0", "--ckpt-dir", str(tmp_path)])
+    assert ops.LAUNCHES["frontier_spmm"] > 0 and ops.LAUNCHES["dependency_spmm"] > 0
+    assert "served" in capsys.readouterr().out
+
+
+def test_serve_bc_mesh_1x1_under_torchrun_on_the_card(cuda, tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "repro_torch.launch.serve_bc", "--grid", "8x8", "--mesh", "1x1",
+           "--engine", "fused_sparse", "--batch-size", "16", "--sample-frac", "1.0",
+           "--ckpt-dir", str(tmp_path)]
+    for expect in ("slice 1", "resumed serving"):
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=tmp_path,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        assert expect in proc.stdout + proc.stderr and "served" in proc.stdout
+
+
 @pytest.fixture
 def nccl_1x1(cuda, tmp_path):
     """A world-size-1 NCCL process group: the 1×1 grid one card can hold."""

@@ -186,8 +186,12 @@ def test_plan_sampling_matches_jax(seed, size):
 
 
 def test_adaptive_sampling_is_not_ported():
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        psamp.plan_sampling(np.arange(10), "adaptive")
+    """Adaptive sampling is ported now: it draws the fixed plan (the stop
+    rule is the driver's), as the JAX package does; unknown modes raise."""
+    want = jsamp.plan_sampling(np.arange(10), "adaptive", sample_k=4, seed=3)
+    got = psamp.plan_sampling(np.arange(10), "adaptive", sample_k=4, seed=3)
+    assert got.mode == want.mode == "adaptive"
+    np.testing.assert_array_equal(got.roots, want.roots)
     with pytest.raises(ValueError):
         psamp.normalize_sampling("bogus")
 
