@@ -7,11 +7,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 10, 6, 7: phase 9 first, while
-nothing else holds device memory, because its tables take 65 GiB; phases
-8 and 10 share phase 5's NCCL process group, and phase 7's kernel table
-carries phase 8's and 10's launches and K7's times, which phase 9 takes
-on its tables):
+Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 6, 7: phase 9 first,
+while nothing else holds device memory, because its tables take 65 GiB;
+phases 8, 10 and 11 share phase 5's NCCL process group, and phase 7's
+kernel table carries phase 8's and 10's launches and K7's times, which
+phase 9 takes on its tables):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
@@ -119,7 +119,25 @@ on its tables):
      (2048-root pool, top-10 Jaccard >= 0.8 twice), which must stop
      early, and where; (e) run_serving on the
      1×1 NCCL grid, fused and fused_sparse at tile 128, each final BC
-     equal to the straight call's.
+     equal to the straight call's;
+ 11. weighted BC (bucketed delta-stepping; no kernel, in the JAX package
+     either, so every run must launch none of K1–K7), TF32 checked off:
+     (a) rmat_graph(16, 16, seed=1, weights="dyadic") (phase 4's
+     topology, auto_delta 0.25), phase 4's 512 roots, batch 128, h0, on
+     the sparse engine, on one device and on the 1×1 NCCL grid (equal
+     within rtol 1e-5 / atol 1e-5, same buckets per round), and at 4
+     roots against the Dijkstra oracle rescaled by N/k; (b) unit weights
+     at Δ = 1 against phase 4's unweighted dense BC (rtol 1e-5 / atol
+     1e-5, not bitwise; buckets = levels); (c) road_like_graph(128, 128,
+     seed=1, dyadic) (~420 buckets), one round of 128 roots, against the
+     oracle; (d) road_like_graph(24, 24, seed=1, dyadic), exact, h1, on
+     dense, fused and fused_bf16 and on the 1×1 grid's fused,
+     fused_sparse and fused_hybrid (the [n, n, s] forms: small n only),
+     each against the full oracle.  Every run prints its wall, buckets
+     per round, forward / backward buckets and inner trips, the host
+     readbacks, the loops stopped unconverged at their trip cap (which
+     must be none) and peak memory beside the card's name and power limit;
+     (a) and (c) once more under torch.profiler (busy share, top ops).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -906,6 +924,148 @@ def durable_phase(dev, graph, groups, fused_ref) -> dict:
     return lb
 
 
+# phase 11: weighted BC (bucketed delta-stepping) at full width
+ROAD_SHAPE = (128, 128)  # (c): n = 26 258, about 420 buckets a round
+DENSE_ROAD_SHAPE = (24, 24)  # (d): n = 926, where [n, n, s] fits the card
+# the arc-list bucket steps' device ops, by kernel name
+WEIGHTED_SHARES = {"gathers x[arc]": "vectorized_gather_kernel",
+                   "scatter_reduce_ (amin)": "_scatter_gather_elementwise_kernel",
+                   "segment_reduce (σ, δ sums)": "segment_reduce_forward_kernel"}
+
+
+def weighted_phase(graph, groups, dense_ref, smi: str, trace_run) -> None:
+    """Phase 11: (a) R-MAT 16 with dyadic weights, the 512 roots of phase
+    4, on the sparse engine, on one device and on the 1×1 NCCL grid, and
+    at 4 roots against the Dijkstra oracle; (b) unit weights at Δ = 1
+    against phase 4's unweighted BC (``dense_ref``); (c) the long-diameter
+    road graph against the oracle; (d) the dense-family weighted engines
+    on a small road graph, exact, against the oracle.  Every run must
+    launch none of K1–K7 (the weighted path has no kernel, in the JAX
+    package either).  Prints walls, buckets, inner trips, readbacks and
+    peak memory beside ``smi`` (the card's name and power limit)."""
+    from repro_torch.core.bc import betweenness_centrality
+    from repro_torch.core.brandes_ref import brandes_reference
+    from repro_torch.core.distributed import distributed_betweenness_centrality
+    from repro_torch.core.engine import BUCKET_TRIPS, reset_bucket_trips
+    from repro_torch.core.operators import auto_delta
+    from repro_torch.graphs import rmat_graph, road_like_graph, weighted_copy
+    from repro_torch.kernels import ops
+    from repro_torch.serving import eligible_roots, plan_sampling
+
+    t11 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "[11] TF32 must be off: σ holds exact path counts")
+    print(f"[11] card: {smi}")
+
+    def run(tag, call, n):
+        """One weighted call with the launch counts, the bucket-trip counts
+        and the peak memory zeroed just before and read just after."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        reset_bucket_trips()
+        t = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        trips = dict(BUCKET_TRIPS)
+        print(f"[11] {tag}: wall {wall:.3f}s (round loop {res.wall_s:.3f}s), {res.rounds_run} "
+              f"rounds, buckets per round {res.round_levels}, forward {trips['forward_buckets']} "
+              f"buckets / {trips['forward_trips']} inner trips, backward "
+              f"{trips['backward_buckets']} buckets / {trips['backward_trips']} inner trips, "
+              f"{trips['readbacks']} host readbacks, {trips['capped']} capped loops, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+        check(res.bc.shape == (n,) and bool(np.isfinite(res.bc).all()),
+              f"[11] {tag}: BC must be finite of shape ({n},)")
+        check(not any(ops.LAUNCHES.values()),
+              f"[11] {tag}: the weighted path launched a kernel: {ops.LAUNCHES}")
+        check(trips["capped"] == 0, f"[11] {tag}: {trips['capped']} bucket loops stopped at "
+              f"their trip cap before they converged")
+        return res
+
+    def held(tag, got, want):
+        ok, err = close(torch.from_numpy(got), torch.from_numpy(want), 1e-5, 1e-5)
+        print(f"[11] {tag}: max abs err {err:.3g} (rtol 1e-5 / atol 1e-5)")
+        check(ok, f"[11] {tag}: BC disagrees")
+
+    def oracle(tag, g, roots):
+        """The Dijkstra oracle on ``roots`` (all when None), rescaled N/k."""
+        t = time.perf_counter()
+        want = brandes_reference(g, sources=roots)
+        if roots is not None:
+            want = want * (eligible_roots(g).size / roots.size)
+        print(f"[11] {tag}: Dijkstra oracle on the host, "
+              f"{g.n if roots is None else roots.size} roots, {time.perf_counter() - t:.1f}s")
+        return want
+
+    kw = dict(batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed", sample_seed=0,
+              weighted=True)
+    # ---- (a) R-MAT 16, dyadic weights: the main weighted run
+    wg = rmat_graph(MAIN_N_SCALE, MAIN_EF, seed=1, weights="dyadic")
+    check(np.array_equal(wg.src, graph.src) and np.array_equal(wg.dst, graph.dst),
+          "[11] the dyadic R-MAT graph's topology differs from phase 4's")
+    delta = auto_delta(wg)
+    print(f"[11] (a) rmat_graph({MAIN_N_SCALE}, {MAIN_EF}, seed=1, weights='dyadic'): n={wg.n} "
+          f"arcs={wg.num_arcs}, auto_delta {delta:g}; batch {MAIN_BATCH}, h0, sampling fixed "
+          f"k={MAIN_SAMPLE_K}")
+    a_kw = dict(kw, sample_k=MAIN_SAMPLE_K)
+
+    def call_a():
+        return betweenness_centrality(wg, engine_kind="sparse", device="cuda", **a_kw)
+
+    single = run("(a) sparse, one device", call_a, wg.n)
+    check(single.rounds_run == MAIN_SAMPLE_K // MAIN_BATCH, "[11] (a) expected 4 rounds")
+    grid = run("(a) sparse, 1x1 NCCL grid", lambda: distributed_betweenness_centrality(
+        wg, groups, engine_kind="sparse", full_result=True, **a_kw), wg.n)
+    held("(a) 1x1 grid vs one device", grid.bc, single.bc)
+    check(grid.round_levels == single.round_levels, "[11] (a) buckets per round differ")
+    del grid
+    k4 = run("(a) sparse, 4 roots", lambda: betweenness_centrality(
+        wg, engine_kind="sparse", device="cuda", **dict(kw, sample_k=4)), wg.n)
+    roots = plan_sampling(eligible_roots(wg), "fixed", None, 4, 0).roots
+    held("(a) 4 roots vs the Dijkstra oracle", k4.bc, oracle("(a)", wg, roots))
+    trace_run("[11] (a) weighted sparse", call_a, WEIGHTED_SHARES)
+    del single, k4
+    torch.cuda.empty_cache()
+
+    # ---- (b) unit weights at Δ = 1 reduce to the unweighted BC
+    unit = run("(b) unit weights, Δ = 1, sparse", lambda: betweenness_centrality(
+        weighted_copy(graph, "unit"), engine_kind="sparse", device="cuda", delta=1.0, **a_kw),
+        graph.n)
+    held("(b) unit weights vs phase 4's unweighted dense", unit.bc, dense_ref.bc)
+    check(unit.round_levels == dense_ref.round_levels,
+          "[11] (b) buckets per round differ from phase 4's levels")
+    del unit
+
+    # ---- (c) the long-diameter road regime, one round of 128 roots
+    rg = road_like_graph(*ROAD_SHAPE, seed=1, weights="dyadic")
+    print(f"[11] (c) road_like_graph{ROAD_SHAPE}, seed=1, dyadic: n={rg.n} arcs={rg.num_arcs}, "
+          f"auto_delta {auto_delta(rg):g}")
+
+    def call_c():
+        return betweenness_centrality(rg, engine_kind="sparse", device="cuda",
+                                      **dict(kw, sample_k=MAIN_BATCH))
+
+    road = run("(c) sparse, one device", call_c, rg.n)
+    roots = plan_sampling(eligible_roots(rg), "fixed", None, MAIN_BATCH, 0).roots
+    held("(c) vs the Dijkstra oracle", road.bc, oracle("(c)", rg, roots))
+    trace_run("[11] (c) weighted sparse, road", call_c, WEIGHTED_SHARES)
+
+    # ---- (d) the dense-family weighted engines, exact, h1
+    dg = road_like_graph(*DENSE_ROAD_SHAPE, seed=1, weights="dyadic")
+    want = oracle(f"(d) road_like_graph{DENSE_ROAD_SHAPE}, n={dg.n}", dg, None)
+    d_kw = dict(batch_size=MAIN_BATCH, heuristics="h1", weighted=True)
+    for engine in ("dense", "fused", "fused_bf16"):
+        res = run(f"(d) {engine}, one device", lambda: betweenness_centrality(
+            dg, engine_kind=engine, device="cuda", **d_kw), dg.n)
+        held(f"(d) {engine} vs the Dijkstra oracle", res.bc, want)
+    for engine in ("fused", "fused_sparse", "fused_hybrid"):
+        res = run(f"(d) {engine}, 1x1 NCCL grid", lambda: distributed_betweenness_centrality(
+            dg, groups, engine_kind=engine, full_result=True, **d_kw), dg.n)
+        held(f"(d) {engine} 1x1 grid vs the Dijkstra oracle", res.bc, want)
+    print(f"[11] weighted BC ok in {time.perf_counter() - t11:.1f}s [{smi}]")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
@@ -1401,6 +1561,9 @@ def main() -> None:
 
             # ------------- 10. durable, self-checking and served BC
             launches_10 = durable_phase(dev, graph, groups, results["fused"])
+
+            # ------------------------- 11. weighted BC at full width
+            weighted_phase(graph, groups, results["dense"], smi, trace_run)
         finally:
             dist.destroy_process_group()
 

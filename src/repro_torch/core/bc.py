@@ -6,16 +6,30 @@ names differ from the JAX package's where the thing differs:
 ``"fused"``/``"fused_bf16"`` run the hand-written CUDA level kernels
 where the JAX package ran its Pallas kernels; :data:`REFERENCE_ENGINE`
 maps each port engine to its JAX counterpart for the parity tests.
+``weighted=True`` runs the bucketed (delta-stepping) traversal instead:
+``sparse`` on the arc list, every other engine on the dense f32 weight
+matrix (as the JAX package's ``pallas`` engines do: the weighted path
+has no kernel).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..graphs.graph import Graph
 from ..serving.sampling import AdaptiveStopRule, SamplePlan, eligible_roots, plan_sampling
 from .driver import BCDriver, BCResult, traversal_round
-from .operators import DenseOperator, FusedDenseOperator, SparseOperator, TraversalOperator
+from .operators import (
+    DenseOperator,
+    FusedDenseOperator,
+    SparseOperator,
+    TraversalOperator,
+    WeightedDenseOperator,
+    WeightedSparseOperator,
+    _check_delta,
+    auto_delta,
+)
 from .scheduler import build_schedule
 
 __all__ = [
@@ -27,7 +41,15 @@ __all__ = [
     "apply_sampling_rescale",
     "ENGINE_KINDS",
     "REFERENCE_ENGINE",
+    "WEIGHTED_HEURISTICS",
+    "check_weighted",
 ]
+
+#: heuristics usable under weighted traversal: the 1-degree reduction and
+#: its tree variant are combinatorial (every path into a pendant subtree
+#: crosses its anchor, whatever the weights); the 2-degree derivation
+#: (h2/h3/h3t) rewrites levels, which assumes unit edge lengths
+WEIGHTED_HEURISTICS = ("h0", "h1", "h1t")
 
 #: the single source of truth for the port's ``--engine`` choices:
 #: "dense" (torch.matmul), "sparse" (index_select + index_add_), "fused"
@@ -43,13 +65,15 @@ REFERENCE_ENGINE = {
 }
 
 
-def device_adjacency(graph: Graph, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def device_adjacency(graph: Graph, dtype: torch.dtype, device: torch.device,
+                     weighted: bool = False) -> torch.Tensor:
     """[n, n] 0/1 adjacency built on the device from the arc list (the
-    host never holds the n² matrix)."""
+    host never holds the n² matrix); ``weighted`` puts the arc weights in
+    place of the ones (0 = no edge)."""
     a = torch.zeros((graph.n, graph.n), dtype=dtype, device=device)
     src = torch.from_numpy(graph.src).to(device=device, dtype=torch.int64)
     dst = torch.from_numpy(graph.dst).to(device=device, dtype=torch.int64)
-    a[src, dst] = 1
+    a[src, dst] = torch.from_numpy(graph.w).to(device, dtype) if weighted else 1
     return a
 
 
@@ -71,6 +95,56 @@ def make_operator(residual: Graph, engine_kind: str, device: torch.device) -> Tr
     raise ValueError(f"unknown engine {engine_kind!r}; expected one of {ENGINE_KINDS}")
 
 
+def make_weighted_operator(residual: Graph, engine_kind: str, delta: float,
+                           device: torch.device) -> TraversalOperator:
+    """The bucket operator of an engine kind over the (weighted) residual
+    graph: the arc list for ``sparse``, the dense f32 weight matrix for
+    ``dense``, ``fused`` and ``fused_bf16`` (weights never downcast: the
+    distances feed exact equality masks)."""
+    if engine_kind == "sparse":
+        src_p, dst_p, _ = residual.padded_arcs(multiple=8)
+        return WeightedSparseOperator(
+            torch.from_numpy(src_p).to(device=device, dtype=torch.int64),
+            torch.from_numpy(dst_p).to(device=device, dtype=torch.int64),
+            torch.from_numpy(residual.padded_arc_weights(multiple=8)).to(device),
+            residual.n, delta,
+        )
+    if engine_kind in ("dense", "fused", "fused_bf16"):
+        return WeightedDenseOperator(
+            device_adjacency(residual, torch.float32, device, weighted=True), delta)
+    raise ValueError(f"unknown engine {engine_kind!r}; expected one of {ENGINE_KINDS}")
+
+
+def check_weighted(graph: Graph, weighted: bool, delta: float | None, heuristics: str,
+                   num_levels: int | None) -> float | None:
+    """Validate the weighted knobs of an entry point; returns the bucket
+    width (``auto_delta`` of the graph when ``delta`` is None), or None for
+    an unweighted run (which ignores any weights the graph carries)."""
+    if not weighted:
+        if delta is not None:
+            raise ValueError("delta is only meaningful with weighted=True")
+        return None
+    if graph.w is None:
+        raise ValueError(
+            "weighted=True needs edge weights: build the graph with "
+            "Graph.from_edges(..., weights=) or a weighted generator "
+            "(graphs.generators WEIGHT_MODES)"
+        )
+    if heuristics not in WEIGHTED_HEURISTICS:
+        raise ValueError(
+            f"heuristics={heuristics!r} is level-based (2-degree "
+            f"derivation assumes unit edge lengths); weighted runs "
+            f"accept {WEIGHTED_HEURISTICS}"
+        )
+    if num_levels is not None:
+        raise ValueError(
+            "num_levels is a static level bound for the level-"
+            "synchronous engine; the weighted bucket loop's trip "
+            "count is data-dependent"
+        )
+    return _check_delta(auto_delta(graph) if delta is None else delta)
+
+
 def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | None = None,
                   integrity: str = "off"):
     """The driver's one-lane round function: ``(sources [1, s], derived
@@ -85,10 +159,6 @@ def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | 
         return (bc[None], ns[None], roots[None], [levels]) + tuple(x[None] for x in integ)
 
     return round_fn
-
-
-def _not_ported(name: str, where: str):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1, {where})")
 
 
 def betweenness_centrality(
@@ -134,12 +204,15 @@ def betweenness_centrality(
       stop_rule:   ``(bc_running, blocks_done) -> bool`` early stop
                    (requires ``sampling != "off"``; default under
                    "adaptive": ``AdaptiveStopRule()``).
+      weighted:    run the bucketed (delta-stepping) weighted traversal;
+                   needs ``graph.w`` and one of :data:`WEIGHTED_HEURISTICS`.
+                   False on a weighted graph ignores the weights.
+      delta:       the bucket width Δ of a weighted run; None derives it
+                   from the weights (:func:`~repro_torch.core.operators.auto_delta`).
       device:      None → the CUDA card (raises without one); "cpu" runs
                    the plain PyTorch versions of every kernel.
-      overlap, straggler, weighted, delta: accepted for signature parity
-                   with the JAX package; ``overlap`` and ``straggler``
-                   have no single-device meaning, and weighted BC raises
-                   until its slice is ported.
+      overlap, straggler: accepted for signature parity with the JAX
+                   package; neither has a single-device meaning.
     """
     if overlap != "none":
         raise ValueError(
@@ -151,8 +224,6 @@ def betweenness_centrality(
             "straggler scheduling is a sub-cluster feature; a single "
             "device has no replicas to steal rounds from or re-deal to"
         )
-    if weighted or delta is not None:
-        _not_ported("weighted BC (weighted=, delta=)", "weighted delta-stepping")
     if engine_kind not in ENGINE_KINDS:
         raise ValueError(f"unknown engine {engine_kind!r}; expected one of {ENGINE_KINDS}")
     dev = resolve_device(device)
@@ -170,11 +241,15 @@ def betweenness_centrality(
         )
     if plan.mode == "adaptive" and stop_rule is None:
         stop_rule = AdaptiveStopRule()
+    delta = check_weighted(graph, weighted, delta, heuristics, num_levels)
     schedule, prep, residual, omega_np = build_schedule(
         graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots
     )
     omega = torch.from_numpy(omega_np).to(device=dev, dtype=torch.float32)
-    op = make_operator(residual, engine_kind, dev)
+    if delta is None:
+        op = make_operator(residual, engine_kind, dev)
+    else:
+        op = make_weighted_operator(residual, engine_kind, delta, dev)
     driver = BCDriver(
         make_round_fn(op, omega, num_levels),
         schedule,

@@ -42,6 +42,16 @@ different collectives and hang.
 Sub-clustering (paper §3.3): ``fr`` replicas of the R×C grid each take
 one round of every dispatch block; BC is additive, so the driver sums the
 replica lanes.
+
+Weighted BC (``weighted=True``, bucketed delta-stepping) runs the same
+driver with a weighted 2-D operator: the arc list with its per-arc
+weights for ``sparse``
+(:class:`~repro_torch.core.operators.DistributedWeightedOperator`), the
+rank's dense f32 weight block for every fused engine
+(:class:`~repro_torch.core.operators.DistributedWeightedDenseOperator`;
+a BCSR cell's weighted tiles are turned into that block with
+:func:`~repro_torch.kernels.ref.tiles_to_dense`, as the JAX package does
+in its program body).  None of K1–K6 runs on a weighted round.
 """
 from __future__ import annotations
 
@@ -55,15 +65,18 @@ from ..distributed.groups import GridGroups, all_gather, device_for_rank
 from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, partition_2d
 from ..kernels.blocked_spmm import nonzero_index
+from ..kernels.ref import tiles_to_dense
 from ..roofline.model import cell_kernel_choice, device_hbm_footprint
 from ..serving.sampling import AdaptiveStopRule, eligible_roots, plan_sampling
-from .bc import apply_sampling_rescale
+from .bc import apply_sampling_rescale, check_weighted
 from .driver import BCDriver, traversal_round
 from .operators import (
     DistributedFusedHybridOperator,
     DistributedFusedOperator,
     DistributedFusedSparseOperator,
     DistributedOperator,
+    DistributedWeightedDenseOperator,
+    DistributedWeightedOperator,
 )
 from .scheduler import build_schedule
 
@@ -78,6 +91,8 @@ __all__ = [
     "make_distributed_round_fn",
     "distributed_betweenness_centrality",
     "one_degree_reduce_distributed",
+    "weighted_prior_levels",
+    "PRIOR_LEVELS",
 ]
 
 logger = logging.getLogger(__name__)
@@ -97,6 +112,21 @@ REFERENCE_DIST_ENGINE = {
     "fused_hybrid": "pallas_hybrid",
 }
 _TILED = ("fused_sparse", "fused_hybrid")
+
+#: the nominal traversal depth that stands in for a round's level count
+#: before any round has run (the JAX package's straggler and sampling prior)
+PRIOR_LEVELS = 16
+
+
+def weighted_prior_levels(w: np.ndarray, delta: float) -> int:
+    """Expected bucket count standing in for :data:`PRIOR_LEVELS` in a
+    weighted run: at the nominal hop depth a traversal spans about
+    ``PRIOR_LEVELS · w̄`` of distance, ``⌈PRIOR_LEVELS · w̄ / Δ⌉`` buckets,
+    never fewer than :data:`PRIOR_LEVELS` (a wide Δ merges buckets, but
+    each still costs at least a level's collectives)."""
+    w = np.asarray(w, np.float64)
+    w_mean = float(w.mean()) if w.size else 1.0
+    return max(PRIOR_LEVELS, int(np.ceil(PRIOR_LEVELS * w_mean / float(delta))))
 
 
 def _check_engine(engine_kind: str) -> None:
@@ -243,6 +273,7 @@ def distributed_graph_arrays(
     *,
     tile: tuple[int, int] | None = None,
     dense_cells: np.ndarray | None = None,
+    weights: np.ndarray | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Grid cell (i, j)'s graph operands on ``device``: the flat arc arrays
     ``(src_local, dst_local)`` (int64 [max_arcs]) for ``"sparse"``; the
@@ -256,26 +287,36 @@ def distributed_graph_arrays(
     here once per layout on a CUDA device, None on the CPU) for
     ``"fused_sparse"``; for ``"fused_hybrid"`` whichever of the last two
     ``dense_cells[i, j]`` (the :func:`hybrid_cell_choice`) picks — a rank
-    never holds both."""
+    never holds both.
+
+    ``weights`` (f32 [num_arcs], graph arc order) gives the weighted
+    operands instead: ``sparse`` grows a third f32 [max_arcs] arc-weight
+    array; the dense engines hold an f32 weight block, also under
+    ``fused_bf16`` (the equality masks need exact distances); a BCSR cell
+    holds its weighted tiles and no nonzero index (no K5/K6 runs)."""
     _check_engine(engine_kind)
     if engine_kind == "sparse":
-        return tuple(
+        arcs = tuple(
             torch.from_numpy(a[i, j]).to(device=device, dtype=torch.int64)
             for a in (partition.src_local, partition.dst_local)
         )
+        if weights is None:
+            return arcs
+        cell_w = partition.arc_weights(weights)[i, j]
+        return arcs + (torch.from_numpy(cell_w).to(device),)
     if engine_kind == "fused_hybrid":
         if dense_cells is None:
             raise ValueError("fused_hybrid needs dense_cells (hybrid_cell_choice)")
         engine_kind = "fused" if dense_cells[i, j] else "fused_sparse"
     if engine_kind == "fused_sparse":
         tiles, rows, cols = partition.cell_blocked_sparse(
-            i, j, *(tile or (None, None)), device=device
+            i, j, *(tile or (None, None)), device=device, weights=weights
         )
         m = partition.C * partition.chunk
-        index = nonzero_index(tiles, rows, cols, m) if tiles.device.type == "cuda" else None
-        return tiles, rows, cols, index
-    dtype = torch.bfloat16 if engine_kind == "fused_bf16" else torch.float32
-    return (partition.cell_dense_block(i, j, dtype, device),)
+        on_card = tiles.device.type == "cuda" and weights is None
+        return tiles, rows, cols, nonzero_index(tiles, rows, cols, m) if on_card else None
+    dtype = torch.bfloat16 if engine_kind == "fused_bf16" and weights is None else torch.float32
+    return (partition.cell_dense_block(i, j, dtype, device, weights=weights),)
 
 
 def make_distributed_operator(
@@ -286,11 +327,22 @@ def make_distributed_operator(
     groups: GridGroups,
     dense_cell: bool = False,
     split_backward: bool = False,
+    delta: float | None = None,
 ) -> DistributedOperator:
     """The rank's 2-D operator of an engine over its
     :func:`distributed_graph_arrays`; ``dense_cell`` is the rank's
-    ``fused_hybrid`` choice."""
+    ``fused_hybrid`` choice.  A ``delta`` builds the weighted operator
+    over weighted operands: the arc list for ``sparse``, else the dense
+    weight block (a BCSR cell's tiles turned into it here)."""
     kw = dict(chunk=chunk, groups=groups)
+    if delta is not None:
+        if engine_kind == "sparse":
+            return DistributedWeightedOperator(*graph_args, delta=delta, **kw)
+        if len(graph_args) == 1:  # a dense block
+            return DistributedWeightedDenseOperator(graph_args[0], delta=delta, **kw)
+        tiles, rows, cols, _ = graph_args
+        block = tiles_to_dense(tiles, rows, cols, groups.C * chunk, groups.R * chunk)
+        return DistributedWeightedDenseOperator(block, delta=delta, **kw)
     if engine_kind == "sparse":
         return DistributedOperator(*graph_args, split_backward=split_backward, **kw)
     if engine_kind == "fused_sparse":
@@ -308,6 +360,7 @@ def make_distributed_round_fn(
     fuse_backward_payload: bool = True,
     engine_kind: str = "sparse",
     dense_cells: np.ndarray | None = None,
+    delta: float | None = None,
 ):
     """Build this rank's sub-cluster-parallel, 2-D-distributed round function
 
@@ -326,7 +379,12 @@ def make_distributed_round_fn(
 
     ``fuse_backward_payload=False`` splits the backward exchange into two
     half-width collectives (the paper's unfused σ/d exchange, Fig. 9;
-    sparse engine only).  Barrier schedule, unweighted rounds.
+    sparse engine only).  Barrier schedule.
+
+    A bucket width ``delta`` runs the weighted (bucketed) round over
+    :func:`distributed_graph_arrays` built with ``weights=``;
+    the split payload is refused then (the operator checks ``delta``,
+    the round ``num_levels``).
     """
     if (groups.R, groups.C) != (partition.R, partition.C):
         raise ValueError(
@@ -338,6 +396,9 @@ def make_distributed_round_fn(
         raise ValueError("split backward payload is a sparse-engine benchmark mode")
     if engine_kind == "fused_hybrid" and dense_cells is None:
         raise ValueError("fused_hybrid needs dense_cells (hybrid_cell_choice)")
+    if delta is not None and not fuse_backward_payload:
+        raise ValueError("split backward payload is an unweighted sparse-engine "
+                         "benchmark mode")
     chunk = partition.chunk
     base = partition.owned_vertex_base(groups.i, groups.j)
     dense_cell = engine_kind == "fused_hybrid" and bool(dense_cells[groups.i, groups.j])
@@ -346,6 +407,7 @@ def make_distributed_round_fn(
         op = make_distributed_operator(
             engine_kind, graph_args, chunk=chunk, groups=groups, dense_cell=dense_cell,
             split_backward=not fuse_backward_payload,
+            delta=None if delta is None else float(delta),
         )
         bc, ns, roots, levels = traversal_round(
             op, sources[groups.f], derived[groups.f], omega[base : base + chunk],
@@ -491,10 +553,15 @@ def distributed_betweenness_centrality(
     ``cuda:LOCAL_RANK`` under NCCL; ``device="cpu"`` on the host under
     gloo.
 
+    ``weighted`` / ``delta`` run the bucketed weighted traversal, with the
+    single-device entry point's checks (``graph.w`` needed, heuristics in
+    ``WEIGHTED_HEURISTICS``, no ``num_levels``, Δ from ``auto_delta`` when
+    None); the BCSR and hybrid cells are turned into dense weight blocks.
+
     The remaining knobs keep the JAX signature and raise
     ``NotImplementedError`` until their ROADMAP item ports them:
     ``overlap`` (item 7), ``straggler``, ``chaos`` and ``integrity``
-    (item 8), ``autotune`` (item 9), ``weighted`` / ``delta`` (item 11).
+    (item 8), ``autotune`` (item 9).
 
     Returns ``(bc f64 [n], schedule)``, or the
     :class:`~repro_torch.core.driver.BCResult` with ``full_result``.
@@ -505,8 +572,6 @@ def distributed_betweenness_centrality(
         ("chaos", chaos, None, "8"),
         ("integrity", integrity, "off", "8"),
         ("autotune", autotune, "off", "9"),
-        ("weighted", weighted, False, "11"),
-        ("delta", delta, None, "11"),
     ):
         if value != default:
             raise NotImplementedError(
@@ -533,6 +598,7 @@ def distributed_betweenness_centrality(
         )
     if plan.mode == "adaptive" and stop_rule is None:
         stop_rule = AdaptiveStopRule()
+    delta = check_weighted(graph, weighted, delta, heuristics, num_levels)
     schedule, prep, residual, omega_np = build_schedule(
         graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots
     )
@@ -551,13 +617,15 @@ def distributed_betweenness_centrality(
         tile_counts=tile_counts, dense_cells=dense_cells,
     )
     round_fn = make_distributed_round_fn(
-        part, groups, num_levels=num_levels, engine_kind=engine_kind, dense_cells=dense_cells
+        part, groups, num_levels=num_levels, engine_kind=engine_kind, dense_cells=dense_cells,
+        delta=delta,
     )
     omega_pad = np.zeros(part.n_pad, np.float32)
     omega_pad[: graph.n] = omega_np
     omega = torch.from_numpy(omega_pad).to(dev)
     graph_args = distributed_graph_arrays(
-        part, engine_kind, groups.i, groups.j, dev, tile=tile, dense_cells=dense_cells
+        part, engine_kind, groups.i, groups.j, dev, tile=tile, dense_cells=dense_cells,
+        weights=None if delta is None else residual.w,
     )
     index = graph_args[3] if len(graph_args) == 4 else None  # a tiled cell's, on the card
     index_stats = None if index is None else {

@@ -5,7 +5,9 @@
 component-size (n_s) extraction, plus the round's traversal depth —
 written against the :class:`repro_torch.core.operators.TraversalOperator`
 protocol; with ``integrity != "off"`` it also returns the round's
-integrity record (ABFT residual, bc-sum claim).
+integrity record (ABFT residual, bc-sum claim).  A weighted operator's
+round is :func:`_weighted_round`, the bucket-loop analogue with the same
+return contract.
 
 :class:`BCDriver` is the host round loop: it deals the schedule's rounds
 in *dispatch blocks* of ``rounds_per_dispatch`` (1 on a single device;
@@ -39,6 +41,7 @@ from ..distributed.fault_tolerance import (
 )
 from . import engine
 from .heuristics.one_degree import OneDegreeReduction, leaf_correction
+from ..kernels.ops import bucket_index
 from .heuristics.two_degree import derive_two_degree_columns
 from .operators import TraversalOperator
 from .scheduler import Schedule
@@ -118,6 +121,9 @@ def traversal_round(
     block leaves the round.
     """
     integrity = normalize_integrity(integrity)
+    if getattr(op, "weighted", False):
+        return _weighted_round(op, sources, derived, omega, num_levels=num_levels,
+                               integrity=integrity)
     checksum = integrity == "checksum"
     row_ids = op.row_ids()
 
@@ -162,6 +168,54 @@ def traversal_round(
     else:
         err = torch.zeros((), dtype=torch.float32, device=bc_local.device)
     integ = torch.stack([err.to(torch.float32), claim.to(torch.float32)])
+    return bc_local, ns, roots, levels, integ
+
+
+def _weighted_round(op, sources, derived, omega, *, num_levels: int | None,
+                    integrity: str) -> tuple:
+    """One weighted BC round: the bucket-loop analogue of
+    :func:`traversal_round`, with the same return contract.  ``levels``
+    holds the round's bucket count.  The 2-degree derivation is level-based
+    and refused upstream for weighted runs, so ``derived`` is all padding
+    and its columns stay inert.  ``num_levels`` has no weighted meaning
+    (the bucket loop's trip count depends on the data) and
+    ``integrity="checksum"`` is a level-synchronous lane: both raise;
+    ``"audit"`` returns the bc-sum claim with a zero residual."""
+    if num_levels is not None:
+        raise ValueError(
+            "num_levels (static trip count) is not supported for weighted "
+            "traversal: the bucket loop's trip count is data-dependent"
+        )
+    if integrity == "checksum":
+        raise ValueError(
+            "integrity='checksum' (ABFT level checksums) is level-"
+            "synchronous and not supported for weighted traversal; use "
+            "integrity='audit'"
+        )
+    row_ids = op.row_ids()
+    src_onehot = (
+        (row_ids[:, None] == sources[None, :]) & (sources[None, :] >= 0)
+    ).to(torch.float32)
+    fwd = engine.forward_buckets(op, src_onehot)
+    bucket = bucket_index(fwd.dist, op.delta)  # the weighted depth structure
+    sigma_c, depth_c = derive_two_degree_columns(fwd.sigma, bucket, derived, row_ids=row_ids)
+    bucket_all = torch.cat([bucket, depth_c], dim=1)
+    grid_max = op.reduce_max_grid(bucket_all.max())
+    # the lockstep bound and the replica's own bucket count, in one readback
+    max_bucket, own_max = engine.readback(torch.stack([op.reduce_max_sync(grid_max), grid_max]))
+    delta_acc = engine.backward_buckets(op, fwd.sigma, fwd.dist, omega, max_bucket)
+    delta_all = torch.cat([delta_acc, torch.zeros_like(sigma_c)], dim=1)
+
+    roots = torch.cat([sources, derived[:, 0]])
+    mult = torch.where(roots >= 0, op.root_omega(roots, omega) + 1.0, 0.0)
+    root_onehot = row_ids[:, None] == roots[None, :]
+    bc_local = torch.where(root_onehot, 0.0, delta_all * mult[None, :]).sum(dim=1)
+    ns = op.reduce_sum(((bucket_all >= 0) * (1.0 + omega)[:, None]).sum(dim=0))
+    levels = int(own_max) + 1
+    if integrity == "off":
+        return bc_local, ns, roots, levels
+    claim = op.reduce_sum(bc_local.sum())
+    integ = torch.stack([torch.zeros_like(claim, dtype=torch.float32), claim.to(torch.float32)])
     return bc_local, ns, roots, levels, integ
 
 

@@ -32,10 +32,23 @@ partial kernels K3/K4 on the device's dense block),
 :class:`DistributedFusedSparseOperator` (around K5/K6 on the block's
 stored BCSR tiles) and :class:`DistributedFusedHybridOperator` (either
 of the two, per cell) on a grid.
+
+The weighted (bucketed delta-stepping) traversal has its own protocol,
+:class:`WeightedTraversalOperator` — ``relax`` / ``sigma_step`` /
+``delta_step`` plus ``reduce_min`` — which the bucket loops of the engine
+drive: :class:`WeightedDenseOperator` (broadcast min-plus and
+equality-masked ``einsum`` on an [n, n] weight matrix) and
+:class:`WeightedSparseOperator` (gathers, ``scatter_reduce_(amin)`` and
+sorted segment sums over the padded arc list) on one device,
+:class:`DistributedWeightedOperator` (arc list) and
+:class:`DistributedWeightedDenseOperator` (dense weight block) on a grid.
+As in the JAX package, these are tensor ops, not kernels.
 """
 from __future__ import annotations
 
 from typing import Callable
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -53,6 +66,12 @@ __all__ = [
     "DistributedFusedOperator",
     "DistributedFusedSparseOperator",
     "DistributedFusedHybridOperator",
+    "WeightedTraversalOperator",
+    "WeightedDenseOperator",
+    "WeightedSparseOperator",
+    "DistributedWeightedOperator",
+    "DistributedWeightedDenseOperator",
+    "auto_delta",
     "as_operator",
 ]
 
@@ -538,3 +557,296 @@ class DistributedFusedHybridOperator(DistributedFusedSparseOperator):
     def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
         cls = DistributedFusedOperator if self.dense_cell else DistributedFusedSparseOperator
         return cls._partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl)
+
+
+# --------------------------------------------------------------------------
+# Weighted traversal (delta-stepping buckets, Fan et al. arXiv:1701.05975)
+# --------------------------------------------------------------------------
+#
+# No kernel here, as in the JAX package: the bucket steps are equality-
+# masked min-plus / sum contractions in tensor ops.  Weights stay f32 on
+# every engine (the fused_bf16 ones included): distances feed exact
+# equality masks.
+
+_BIG_DIST = 1e30  # segment-min guard: anything above is "unreached"
+
+
+def auto_delta(graph) -> float:
+    """Bucket width from edge-weight statistics (host side): the mean
+    weight over the mean degree, the classic Θ(w̄ / degree) guidance,
+    clamped below by the minimum weight so that a bucket always makes
+    progress.  Deterministic in the graph."""
+    w = getattr(graph, "w", None)
+    if w is None or w.size == 0:
+        raise ValueError("auto_delta needs a weighted graph with at least one edge")
+    avg_degree = max(1.0, float(graph.num_arcs) / float(max(1, graph.n)))
+    return float(max(float(w.min()), float(w.mean()) / avg_degree))
+
+
+def _check_delta(delta) -> float:
+    delta = float(delta)
+    if not (delta > 0.0) or not math.isfinite(delta):
+        raise ValueError(f"bucket width delta must be positive and finite, got {delta}")
+    return delta
+
+
+def _bucket_split(w: torch.Tensor, delta: float, heavy: bool) -> torch.Tensor:
+    """Per-arc weight with the arcs not selected pushed to +inf: *light*
+    arcs (0 < w <= Δ) relax to a fixpoint inside a bucket, *heavy* ones
+    (w > Δ) once after it settles.  Weight 0 (padding, "no edge") is in
+    neither."""
+    sel = (w > delta) if heavy else (w > 0) & (w <= delta)
+    return torch.where(sel, w, torch.inf)
+
+
+def _weight_split(w: torch.Tensor, delta: float):
+    """``(light, heavy, full)`` weights of every operator: the two halves
+    of :func:`_bucket_split` and every edge's weight (+inf where w = 0,
+    no edge) for the equality masks."""
+    return (_bucket_split(w, delta, heavy=False), _bucket_split(w, delta, heavy=True),
+            torch.where(w > 0, w, torch.inf))
+
+
+def _pad_row(x: torch.Tensor, fill: float) -> torch.Tensor:
+    """``x`` with one extra row of ``fill``: the sentinel row the padding
+    arcs read from and write to."""
+    return torch.cat([x, x.new_full((1,) + tuple(x.shape[1:]), fill)], dim=0)
+
+
+def _segment_min(val: torch.Tensor, index: torch.Tensor, rows: int) -> torch.Tensor:
+    """Row-wise min of ``val`` [arcs, s] into ``rows`` segments (+inf where
+    no arc lands; the sentinel row ``rows`` dropped), then the
+    ``> _BIG_DIST → inf`` guard."""
+    out = val.new_full((rows + 1, val.shape[1]), torch.inf)
+    out.scatter_reduce_(0, index[:, None].expand_as(val), val, "amin", include_self=True)
+    out = out[:rows]
+    return torch.where(out > _BIG_DIST, torch.inf, out)
+
+
+def _by_destination(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, rows: int):
+    """The arcs reordered by destination (stable), and the arc count of
+    each of the ``rows + 1`` destination rows (the last the sentinel's)."""
+    order = torch.argsort(dst, stable=True)
+    dst = dst[order]
+    return src[order], dst, w[order], torch.bincount(dst, minlength=rows + 1)
+
+
+def _segment_sum(val: torch.Tensor, lengths: torch.Tensor, rows: int) -> torch.Tensor:
+    """Row-wise sum of ``val`` [arcs, s], arcs sorted by destination with
+    ``lengths`` arcs a row, the sentinel row dropped.  Each row is summed
+    in arc order by one thread, so the same inputs give the same bits: the
+    σ and δ fixpoints stop when a trip changes nothing, and ``index_add_``'s
+    atomics on the card would change the last bits of a fractional or
+    above-2^24 sum from trip to trip, so that they never stopped."""
+    return torch.segment_reduce(val, "sum", lengths=lengths, axis=0)[:rows]
+
+
+class WeightedTraversalOperator(TraversalOperator):
+    """Single-device weighted operator: the bucket-loop protocol that
+    :func:`repro_torch.core.engine.forward_buckets` /
+    :func:`~repro_torch.core.engine.backward_buckets` drive —
+
+      relax(dist, frontier, heavy)  min over the selected arcs (u, v) with
+          u in the frontier of ``dist[u] + w``; +inf where none relaxes v;
+      sigma_step(sigma_in, dist)    σ'_v = Σ_{u : d_v = d_u + w} σ_in[u]
+          (predecessor counting through the distance-equality mask);
+      delta_step(g, dist)           Σ_{v : d_v = d_u + w} g[v] per u (the
+          dependency sum over successors);
+
+    — and ``reduce_min`` for the bucket skip (the identity on one device).
+    """
+
+    weighted = True
+
+    def __init__(self, delta: float):
+        self.delta = _check_delta(delta)
+
+    def reduce_min(self, value: torch.Tensor) -> torch.Tensor:
+        return value
+
+    def relax(self, dist, frontier, heavy: bool):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def sigma_step(self, sigma_in, dist):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def delta_step(self, g, dist):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class WeightedDenseOperator(WeightedTraversalOperator):
+    """[n, n] f32 weight matrix (0 = no edge): min-plus relaxation and
+    equality-masked ``einsum``, all over [n, n, s] broadcasts — small n
+    only (n = 65 536 would need terabytes)."""
+
+    def __init__(self, weights: torch.Tensor, delta: float):
+        super().__init__(delta)
+        self.weights = weights.to(torch.float32)
+        self.n_rows = weights.shape[0]
+        self.device = weights.device
+        self.mask = self.weights > 0
+        self.w_light, self.w_heavy, self.w_full = _weight_split(self.weights, self.delta)
+
+    def relax(self, dist, frontier, heavy):
+        wsel = self.w_heavy if heavy else self.w_light
+        d = torch.where(frontier, dist, torch.inf)
+        # cand[v, s] = min_u d[u, s] + w[u, v]
+        return (d[:, None, :] + wsel[:, :, None]).amin(dim=0)
+
+    def _eq(self, dist):
+        # eq[u, v, s]: arc (u, v) lies on a shortest path into v
+        cand = dist[:, None, :] + self.w_full[:, :, None]
+        return self.mask[:, :, None] & torch.isfinite(cand) & (dist[None, :, :] == cand)
+
+    def sigma_step(self, sigma_in, dist):
+        return torch.einsum("uvs,us->vs", self._eq(dist).to(torch.float32), sigma_in)
+
+    def delta_step(self, g, dist):
+        return torch.einsum("uvs,vs->us", self._eq(dist).to(torch.float32), g)
+
+
+class WeightedSparseOperator(WeightedTraversalOperator):
+    """Padded arc list (int64 ``src`` / ``dst``, f32 ``w``): gathers,
+    ``scatter_reduce_(amin)`` for the relaxation, sorted segment sums
+    (:func:`_segment_sum`) for the σ and δ steps, over the arcs reordered
+    by destination once here.  Sentinel arcs point at vertex slot ``n``
+    with weight 0; every accumulation has n+1 rows and drops the sentinel
+    row, as :class:`SparseOperator` does."""
+
+    def __init__(self, src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, n: int,
+                 delta: float):
+        super().__init__(delta)
+        self.src, self.dst, self.w, self.lengths = _by_destination(
+            src, dst, w.to(torch.float32), n)
+        self.n_rows = n
+        self.device = src.device
+        self.w_light, self.w_heavy, self.w_full = _weight_split(self.w, self.delta)
+
+    def relax(self, dist, frontier, heavy):
+        wsel = self.w_heavy if heavy else self.w_light
+        d_pad = _pad_row(torch.where(frontier, dist, torch.inf), torch.inf)
+        return _segment_min(d_pad[self.src] + wsel[:, None], self.dst, self.n_rows)
+
+    def sigma_step(self, sigma_in, dist):
+        d_pad = _pad_row(dist, torch.inf)
+        cand = d_pad[self.src] + self.w_full[:, None]
+        eq = torch.isfinite(cand) & (d_pad[self.dst] == cand)
+        contrib = torch.where(eq, _pad_row(sigma_in, 0.0)[self.src], 0.0)
+        return _segment_sum(contrib, self.lengths, self.n_rows)
+
+    def delta_step(self, g, dist):
+        # the successor test from the dst side: the symmetric arc list
+        # serves both directions, so g accumulates over arcs (y, x) with
+        # d_y = d_x + w into x
+        d_pad = _pad_row(dist, torch.inf)
+        cand = d_pad[self.dst] + self.w_full[:, None]
+        eq = torch.isfinite(cand) & (d_pad[self.src] == cand)
+        contrib = torch.where(eq, _pad_row(g, 0.0)[self.src], 0.0)
+        return _segment_sum(contrib, self.lengths, self.n_rows)
+
+
+class DistributedWeightedOperator(DistributedOperator):
+    """The 2-D decomposition of the weighted traversal, arc-list local
+    compute (barrier schedule).
+
+    Per relax: expand the frontier's masked distances over the column
+    group (``all_gather``), a per-arc min-plus into the [C·chunk] partial
+    (``scatter_reduce_(amin)`` over the arcs reordered by destination),
+    then the *min-fold*: ``all_reduce(MIN)``
+    over the row group and the rank's owned chunk sliced out — the
+    min-plus analogue of the ``reduce_scatter`` fold.  σ / δ steps are
+    equality-masked sorted segment sums folded with ``reduce_scatter``; their
+    equality test needs the output-side distances, replicated with an
+    ``all_gather`` over the row group (block j = rank (i, j)'s chunk, the
+    order ``dst_local`` indexes).  ``reduce_min`` / ``reduce_any`` run on
+    the grid group, so every rank reads the same trip decisions.
+    """
+
+    weighted = True
+
+    def __init__(self, src_local, dst_local, w_local, *, delta: float, chunk: int,
+                 groups: GridGroups):
+        src_local, dst_local, w_local, self.lengths = _by_destination(
+            src_local, dst_local, w_local.to(torch.float32), groups.C * chunk)
+        super().__init__(src_local, dst_local, chunk=chunk, groups=groups)
+        self.delta = _check_delta(delta)
+        self._weights(w_local)
+
+    def _weights(self, w: torch.Tensor) -> None:
+        self.w_local = w.to(torch.float32)
+        self.w_light, self.w_heavy, self.w_full = _weight_split(self.w_local, self.delta)
+
+    # ------------------------------------------------ collective pieces
+    def _expand_out(self, x_owned: torch.Tensor) -> torch.Tensor:
+        """[chunk, s] → [C·chunk, s], block j holding rank (i, j)'s chunk."""
+        return all_gather(x_owned, self.groups.row)
+
+    def _min_fold(self, partial: torch.Tensor) -> torch.Tensor:
+        folded = partial.contiguous()
+        dist.all_reduce(folded, op=dist.ReduceOp.MIN, group=self.groups.row)
+        j = self.groups.j
+        return folded[j * self.chunk:(j + 1) * self.chunk]
+
+    def reduce_min(self, value):
+        return self._all_reduce(value, dist.ReduceOp.MIN)
+
+    # ------------------------------------------------------ bucket hooks
+    def relax(self, dist_, frontier, heavy):
+        wsel = self.w_heavy if heavy else self.w_light
+        d_col = self._expand(torch.where(frontier, dist_, torch.inf))  # [R·chunk, s]
+        partial = _segment_min(d_col[self.src_local] + wsel[:, None], self.dst_local,
+                               self.C * self.chunk)
+        return self._min_fold(partial)
+
+    def sigma_step(self, sigma_in, dist_):
+        s_col, d_col = self._expand(sigma_in), self._expand(dist_)
+        d_out = _pad_row(self._expand_out(dist_), torch.inf)
+        cand = d_col[self.src_local] + self.w_full[:, None]
+        eq = torch.isfinite(cand) & (d_out[self.dst_local] == cand)
+        contrib = torch.where(eq, s_col[self.src_local], 0.0)
+        return self._fold(_segment_sum(contrib, self.lengths, self.C * self.chunk))
+
+    def delta_step(self, g, dist_):
+        g_col, d_col = self._expand(g), self._expand(dist_)
+        d_out = _pad_row(self._expand_out(dist_), torch.inf)
+        cand = d_out[self.dst_local] + self.w_full[:, None]
+        eq = torch.isfinite(cand) & (d_col[self.src_local] == cand)
+        contrib = torch.where(eq, g_col[self.src_local], 0.0)
+        return self._fold(_segment_sum(contrib, self.lengths, self.C * self.chunk))
+
+
+class DistributedWeightedDenseOperator(DistributedWeightedOperator):
+    """The weighted 2-D decomposition on the rank's dense f32 weight block
+    W[rows_i, cols_j], [C·chunk, R·chunk] (0 = no edge): the collectives
+    of :class:`DistributedWeightedOperator` around [m, k, s] broadcasts.
+    The ``fused``, ``fused_bf16``, ``fused_sparse`` and ``fused_hybrid``
+    engines all run their weighted rounds through it (BCSR cells turned
+    into the dense block first), as the JAX package's Pallas engines run
+    theirs through its XLA counterpart; small blocks only."""
+
+    def __init__(self, weight_block: torch.Tensor, *, delta: float, chunk: int,
+                 groups: GridGroups):
+        DistributedOperator.__init__(self, None, None, chunk=chunk, groups=groups)
+        self.device = weight_block.device
+        self.delta = _check_delta(delta)
+        self._weights(weight_block)
+        self.mask = self.w_local > 0
+
+    def relax(self, dist_, frontier, heavy):
+        wsel = self.w_heavy if heavy else self.w_light
+        d_col = self._expand(torch.where(frontier, dist_, torch.inf))  # [k, s]
+        return self._min_fold((wsel[:, :, None] + d_col[None, :, :]).amin(dim=1))
+
+    def sigma_step(self, sigma_in, dist_):
+        s_col, d_col = self._expand(sigma_in), self._expand(dist_)
+        d_out = self._expand_out(dist_)  # [m, s]
+        cand = d_col[None, :, :] + self.w_full[:, :, None]  # [m, k, s]
+        eq = self.mask[:, :, None] & torch.isfinite(cand) & (d_out[:, None, :] == cand)
+        return self._fold(torch.where(eq, s_col[None, :, :], 0.0).sum(dim=1))
+
+    def delta_step(self, g, dist_):
+        g_col, d_col = self._expand(g), self._expand(dist_)
+        d_out = self._expand_out(dist_)
+        cand = d_out[:, None, :] + self.w_full[:, :, None]
+        eq = self.mask[:, :, None] & torch.isfinite(cand) & (d_col[None, :, :] == cand)
+        return self._fold(torch.where(eq, g_col[None, :, :], 0.0).sum(dim=1))

@@ -10,6 +10,7 @@ from .partition import (
     partition_arcs_2d,
 )
 from .generators import (
+    WEIGHT_MODES,
     complete_graph,
     cycle_graph,
     disjoint_union,
@@ -21,6 +22,7 @@ from .generators import (
     skewed_depth_graph,
     star_graph,
     suburb_graph,
+    weighted_copy,
 )
 
 __all__ = [
@@ -42,4 +44,6 @@ __all__ = [
     "road_like_graph",
     "suburb_graph",
     "skewed_depth_graph",
+    "WEIGHT_MODES",
+    "weighted_copy",
 ]

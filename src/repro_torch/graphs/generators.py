@@ -6,6 +6,16 @@ packages.  ``rmat_graph`` is the paper's synthetic workload (R-MAT with
 a=0.57, b=0.19, c=0.19, d=0.05; SCALE/EF parameterization, §4.1); the
 structured generators have closed-form BC scores; ``road_like_graph`` and
 ``suburb_graph`` are the long-diameter regimes the heuristics target.
+
+Weighted graphs: ``rmat_graph(..., weights=)`` and
+``road_like_graph(..., weights=)`` draw per-edge weights after the edges,
+from the same generator (so the topology of a seed does not depend on
+``weights``), and :func:`weighted_copy` weights any graph after the fact.
+The modes are :data:`WEIGHT_MODES`: ``"none"`` (``Graph.w is None``),
+``"unit"`` (every weight 1.0: the reduction check against the unweighted
+result) and ``"dyadic"`` (seeded draws from {0.25, 0.5, …, 4.0}, exactly
+representable, so every f32 distance sum is exact and the bucket and
+equality masks agree with the float64 Dijkstra oracle).
 """
 from __future__ import annotations
 
@@ -14,6 +24,9 @@ import numpy as np
 from .graph import Graph
 
 __all__ = [
+    "WEIGHT_MODES",
+    "sample_weights",
+    "weighted_copy",
     "rmat_graph",
     "path_graph",
     "cycle_graph",
@@ -27,6 +40,29 @@ __all__ = [
     "skewed_depth_graph",
 ]
 
+WEIGHT_MODES = ("none", "unit", "dyadic")
+
+
+def sample_weights(rng: np.random.Generator, count: int, weights: str) -> np.ndarray | None:
+    """Draw ``count`` edge weights for a :data:`WEIGHT_MODES` mode."""
+    if weights not in WEIGHT_MODES:
+        raise ValueError(f"weights must be one of {WEIGHT_MODES}, got {weights!r}")
+    if weights == "none":
+        return None
+    if weights == "unit":
+        return np.ones(count, dtype=np.float32)
+    # dyadic: k/4 for k in 1..16, exact f32 sums
+    return (rng.integers(1, 17, size=count) * 0.25).astype(np.float32)
+
+
+def weighted_copy(graph: Graph, weights: str = "dyadic", seed: int = 0) -> Graph:
+    """``graph`` with sampled edge weights, deterministic in ``seed``; both
+    arcs of an undirected edge share one weight."""
+    keep = graph.src < graph.dst  # each undirected edge once
+    edges = np.stack([graph.src[keep], graph.dst[keep]], axis=1)
+    w = sample_weights(np.random.default_rng(seed), edges.shape[0], weights)
+    return Graph.from_edges(graph.n, edges, weights=w)
+
 
 def rmat_graph(
     scale: int,
@@ -35,11 +71,14 @@ def rmat_graph(
     a: float = 0.57,
     b: float = 0.19,
     c: float = 0.19,
+    weights: str = "none",
 ) -> Graph:
     """R-MAT generator (Chakrabarti et al.), paper parameters by default.
 
     n = 2**scale vertices, m = edge_factor * n undirected edge samples
     (duplicates / self-loops dropped, as in Graph500 practice).
+    ``weights`` is a :data:`WEIGHT_MODES` mode; duplicate samples keep the
+    first draw's weight.
     """
     n = 1 << scale
     m = edge_factor * n
@@ -55,7 +94,8 @@ def rmat_graph(
         dst |= dst_bit.astype(np.int64) << bit
     # permute vertex ids so degree is not correlated with id
     perm = rng.permutation(n)
-    return Graph.from_edges(n, np.stack([perm[src], perm[dst]], axis=1))
+    w = sample_weights(rng, m, weights)
+    return Graph.from_edges(n, np.stack([perm[src], perm[dst]], axis=1), weights=w)
 
 
 def path_graph(n: int) -> Graph:
@@ -116,10 +156,12 @@ def skewed_depth_graph(pairs: int, block: int) -> Graph:
 
 
 def road_like_graph(
-    rows: int, cols: int, spur_fraction: float = 0.3, seed: int = 0
+    rows: int, cols: int, spur_fraction: float = 0.3, seed: int = 0, weights: str = "none"
 ) -> Graph:
     """Grid backbone + dangling spur paths: long diameter, rich in 1- and
-    2-degree vertices — the regime of the paper's Table 5 / Fig. 12."""
+    2-degree vertices — the regime of the paper's Table 5 / Fig. 12; with
+    a weighted :data:`WEIGHT_MODES` mode, the weighted road-network regime
+    (segment lengths over a long-diameter backbone)."""
     rng = np.random.default_rng(seed)
     base = grid_graph(rows, cols)
     n = base.n
@@ -134,7 +176,9 @@ def road_like_graph(
             edges.append(np.array([[prev, nxt]]))
             prev = nxt
             nxt += 1
-    return Graph.from_edges(nxt, np.concatenate(edges))
+    all_edges = np.concatenate(edges)
+    w = sample_weights(rng, all_edges.shape[0], weights)
+    return Graph.from_edges(nxt, all_edges, weights=w)
 
 
 def suburb_graph(rows: int, cols: int, leaf_fraction: float = 0.5, seed: int = 0) -> Graph:

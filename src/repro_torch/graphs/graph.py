@@ -6,9 +6,11 @@ This is the layout every traversal engine of :mod:`repro_torch.core`
 consumes — the dense engines build their [n, n] adjacency on the device
 from it, the sparse engine gathers and scatters along it.
 
-``w`` (optional float32 per arc, symmetric like the arc list) is carried
-so that graphs round-trip between packages (:mod:`repro_torch.interop`);
-the weighted traversal is not ported yet.
+``w`` (optional float32 per arc, symmetric like the arc list) feeds the
+bucketed weighted traversal (``weighted=`` on the BC entry points).
+Weights are strictly positive and finite: the bucket loop relies on
+``w > 0`` for its settled-distance invariant, and the dense weighted
+layouts encode "no edge" as weight 0.
 """
 from __future__ import annotations
 
@@ -91,6 +93,11 @@ class Graph:
         """Number of undirected edges."""
         return self.num_arcs // 2
 
+    @property
+    def weighted(self) -> bool:
+        """True when the graph carries per-arc weights."""
+        return self.w is not None
+
     def degrees(self) -> np.ndarray:
         """int64 [n] vertex degrees."""
         return np.bincount(self.src, minlength=self.n).astype(np.int64)
@@ -102,6 +109,15 @@ class Graph:
         a[self.src, self.dst] = 1
         return a
 
+    def dense_weights(self, dtype=np.float32) -> np.ndarray:
+        """[n, n] symmetric weight matrix on the host, 0 for "no edge"
+        (small weighted graphs only)."""
+        if self.w is None:
+            raise ValueError("dense_weights() requires a weighted graph")
+        a = np.zeros((self.n, self.n), dtype=dtype)
+        a[self.src, self.dst] = self.w
+        return a
+
     def adjacency_lists(self) -> list[np.ndarray]:
         """Per-vertex sorted neighbor arrays (oracle / scheduler use)."""
         order = np.argsort(self.src, kind="stable")
@@ -109,6 +125,16 @@ class Graph:
         starts = np.searchsorted(src, np.arange(self.n))
         ends = np.searchsorted(src, np.arange(self.n), side="right")
         return [dst[s:e] for s, e in zip(starts, ends)]
+
+    def weighted_adjacency_lists(self) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Per-vertex (neighbors, weights) pairs (Dijkstra oracle use)."""
+        if self.w is None:
+            raise ValueError("weighted_adjacency_lists() requires a weighted graph")
+        order = np.argsort(self.src, kind="stable")
+        src, dst, w = self.src[order], self.dst[order], self.w[order]
+        starts = np.searchsorted(src, np.arange(self.n))
+        ends = np.searchsorted(src, np.arange(self.n), side="right")
+        return [(dst[s:e], w[s:e]) for s, e in zip(starts, ends)]
 
     def connected_components(self) -> np.ndarray:
         """int64 [n] component label per vertex (host-side union-find)."""
@@ -137,3 +163,11 @@ class Graph:
         src = np.concatenate([self.src, np.full(pad, self.n, np.int32)])
         dst = np.concatenate([self.dst, np.full(pad, self.n, np.int32)])
         return src, dst, m2
+
+    def padded_arc_weights(self, multiple: int) -> np.ndarray:
+        """Weights aligned with :meth:`padded_arcs`; the sentinel arcs get
+        weight 0 (their destination row is discarded)."""
+        if self.w is None:
+            raise ValueError("padded_arc_weights() requires a weighted graph")
+        pad = (-self.num_arcs) % multiple
+        return np.concatenate([self.w, np.zeros(pad, np.float32)]).astype(np.float32)

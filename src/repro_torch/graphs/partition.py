@@ -29,10 +29,13 @@ their own cell on its device (:meth:`TwoDPartition.cell_blocked_sparse`);
 the host-side ``blocked_sparse`` / ``blocked_hybrid`` serve the tests and
 small graphs.
 
+Weighted layouts: every builder takes ``weights`` (f32 [num_arcs] in the
+graph's arc order) and stores the edge weights in place of the 0/1
+values, 0 meaning "no arc" — the bucketed traversal's operands.
+
 The same graph and grid give the same arrays as the JAX package's
 partitioner (:mod:`repro_torch.interop` carries one across).  The ring
-layouts arrive with their schedule (ROADMAP Queue 1 item 7), weighted
-tiles with the weighted traversal (item 11).
+layouts arrive with their schedule (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -72,14 +75,10 @@ def default_tile_dim(chunk: int, preferred: int = 128) -> int:
     return max(lane_aligned or divisors)
 
 
-def _no_ring_or_weights(ring: bool, weights) -> None:
+def _no_ring(ring: bool) -> None:
     if ring:
         raise NotImplementedError(
             "the ring-sliced tile layout is not ported yet (ROADMAP Queue 1 item 7)"
-        )
-    if weights is not None:
-        raise NotImplementedError(
-            "weighted tiles are not ported yet (ROADMAP Queue 1 item 11)"
         )
 
 
@@ -196,14 +195,35 @@ class TwoDPartition:
         valid = self.dst_local[i, j] != self.C * self.chunk
         return self.dst_local[i, j][valid], self.src_local[i, j][valid]
 
-    def dense_blocks(self, dtype=np.float32) -> np.ndarray:
+    def arc_weights(self, w: np.ndarray) -> np.ndarray:
+        """The graph's f32 [num_arcs] weights in the partitioned slot
+        layout: f32 [R, C, max_arcs] aligned with ``src_local`` /
+        ``dst_local``, 0 at padding slots (the dense layouts' "no arc")."""
+        if self.arc_perm is None:
+            raise ValueError("arc_weights needs arc_perm (partition_arcs_2d output)")
+        w = np.asarray(w, np.float32)
+        valid = self.arc_perm >= 0
+        return np.where(valid, w[np.clip(self.arc_perm, 0, None)], np.float32(0)).astype(
+            np.float32
+        )
+
+    def _cell_values(self, i: int, j: int, weights: np.ndarray | None):
+        """The values of cell (i, j)'s true arcs, in :meth:`_cell_arcs`
+        order: 1, or their weights (graph arc order in)."""
+        if weights is None:
+            return 1
+        perm = self.arc_perm[i, j]
+        return np.asarray(weights, np.float32)[perm[perm >= 0]]
+
+    def dense_blocks(self, dtype=np.float32, weights: np.ndarray | None = None) -> np.ndarray:
         """Dense per-device adjacency blocks [R, C, C·chunk, R·chunk] on the
         host (small graphs and tests only: the engines build one cell on
         its device with :meth:`cell_dense_block`).
 
         Block (i, j) is A[rows_i, cols_j] in the local index spaces the
         collectives use: rows index the [C·chunk] fold partial, columns
-        index the [R·chunk] column-gathered frontier.
+        index the [R·chunk] column-gathered frontier.  With ``weights`` the
+        blocks hold edge weights instead of 0/1.
         """
         blocks = np.zeros(
             (self.R, self.C, self.C * self.chunk, self.R * self.chunk), dtype
@@ -211,23 +231,27 @@ class TwoDPartition:
         for i in range(self.R):
             for j in range(self.C):
                 d, s = self._cell_arcs(i, j)
-                blocks[i, j, d, s] = 1
+                blocks[i, j, d, s] = self._cell_values(i, j, weights)
         return blocks
 
     def cell_dense_block(
-        self, i: int, j: int, dtype: torch.dtype = torch.float32, device=None
+        self, i: int, j: int, dtype: torch.dtype = torch.float32, device=None,
+        weights: np.ndarray | None = None,
     ) -> torch.Tensor:
-        """Cell (i, j)'s [C·chunk, R·chunk] 0/1 block, built on ``device``
-        from that cell's arcs, so the host never holds an n²/p matrix
-        (17.2 GB in f32 for the 1×1 grid at n = 65 536)."""
+        """Cell (i, j)'s [C·chunk, R·chunk] 0/1 block (or weight block, with
+        ``weights``), built on ``device`` from that cell's arcs, so the host
+        never holds an n²/p matrix (17.2 GB in f32 for the 1×1 grid at
+        n = 65 536)."""
         d, s = self._cell_arcs(i, j)
         block = torch.zeros(
             (self.C * self.chunk, self.R * self.chunk), dtype=dtype, device=device
         )
-        block[
-            torch.from_numpy(d).to(device=device, dtype=torch.int64),
-            torch.from_numpy(s).to(device=device, dtype=torch.int64),
-        ] = 1
+        index = (torch.from_numpy(d).to(device=device, dtype=torch.int64),
+                 torch.from_numpy(s).to(device=device, dtype=torch.int64))
+        if weights is None:
+            block[index] = 1
+        else:
+            block[index] = torch.from_numpy(self._cell_values(i, j, weights)).to(device, dtype)
         return block
 
     # ------------------------------------------------ blocked-sparse layout
@@ -351,9 +375,9 @@ class TwoDPartition:
         """Every cell's BCSR layout on the host (see BlockedSparseLayout;
         the JAX package's full form).  ``cells`` (bool [R, C]) stores tile
         data only for the selected cells; the others get the minimal
-        filler list.  ``ring=True`` (item 7) and ``weights`` (item 11)
-        raise ``NotImplementedError``."""
-        _no_ring_or_weights(ring, weights)
+        filler list; ``weights`` stores edge weights instead of 0/1.
+        ``ring=True`` (item 7) raises ``NotImplementedError``."""
+        _no_ring(ring)
         bm, bk = self._tile_dims(bm, bk)
         R, C = self.R, self.C
         num_tr = C * self.chunk // bm
@@ -373,7 +397,7 @@ class TwoDPartition:
                 tile_cols[i, j, : cols.size] = cols
                 if sel[i, j]:
                     d, s = self._cell_arcs(i, j)
-                    tiles[i, j, arc_tile, d % bm, s % bk] = 1
+                    tiles[i, j, arc_tile, d % bm, s % bk] = self._cell_values(i, j, weights)
                     nnz[i, j] = self._tile_pass(bm, bk)[i][j][0].size
         return BlockedSparseLayout(
             bm=bm, bk=bk, R=R, C=C, chunk=self.chunk, nnz_tiles=nnz,
@@ -392,36 +416,40 @@ class TwoDPartition:
     ) -> HybridLayout:
         """The JAX package's mixed host layout (see HybridLayout):
         ``dense_cells`` (bool [R, C], the per-cell kernel choice) get their
-        dense block, the others their tiles."""
-        _no_ring_or_weights(ring, weights)
+        dense block, the others their tiles; ``weights`` threads edge
+        weights into both sides."""
+        _no_ring(ring)
         dense_cells = np.asarray(dense_cells, bool)
         if dense_cells.shape != (self.R, self.C):
             raise ValueError(f"dense_cells shape {dense_cells.shape} != grid {(self.R, self.C)}")
-        sparse = self.blocked_sparse(bm, bk, dtype=dtype, cells=~dense_cells)
+        sparse = self.blocked_sparse(bm, bk, dtype=dtype, cells=~dense_cells, weights=weights)
         blocks = np.zeros((self.R, self.C, self.C * self.chunk, self.R * self.chunk), np.float32)
         for i in range(self.R):
             for j in range(self.C):
                 if dense_cells[i, j]:
                     d, s = self._cell_arcs(i, j)
-                    blocks[i, j, d, s] = 1
+                    blocks[i, j, d, s] = self._cell_values(i, j, weights)
         return HybridLayout(dense_cells=dense_cells, blocks=blocks, sparse=sparse)
 
     def cell_blocked_sparse(
-        self, i: int, j: int, bm: int | None = None, bk: int | None = None, device=None
+        self, i: int, j: int, bm: int | None = None, bk: int | None = None, device=None,
+        weights: np.ndarray | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Cell (i, j)'s BCSR tile list, built on ``device``: ``(tiles f32
         [T, bm, bk], tile_rows i32 [T], tile_cols i32 [T])``, row-sorted
         and row-complete, with no padding to a uniform T (each rank holds
-        only its own cell).  The host computes only the tile indices; the
-        tile data is written on the device from the cell's arcs, so the
-        host never holds it (15.7 GB at the 1×1 grid of R-MAT scale 16 and
-        tile 128)."""
+        only its own cell); ``weights`` stores edge weights instead of
+        0/1.  The host computes only the tile indices; the tile data is
+        written on the device from the cell's arcs, so the host never holds
+        it (15.7 GB at the 1×1 grid of R-MAT scale 16 and tile 128)."""
         bm, bk = self._tile_dims(bm, bk)
         rows, cols, arc_tile = self._cell_tile_order(i, j, bm, bk)
         d, s = self._cell_arcs(i, j)
         flat = (arc_tile * bm + d % bm) * bk + s % bk
         tiles = torch.zeros(rows.size * bm * bk, dtype=torch.float32, device=device)
-        tiles[torch.from_numpy(flat).to(device)] = 1
+        values = self._cell_values(i, j, weights)
+        tiles[torch.from_numpy(flat).to(device)] = (
+            values if weights is None else torch.from_numpy(values).to(device))
         return (
             tiles.view(rows.size, bm, bk),
             *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (rows, cols)),

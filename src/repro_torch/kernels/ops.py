@@ -11,7 +11,9 @@ combine); K5/K6 (:func:`frontier_spmm_sparse`,
 stored BCSR tiles only, summed on the card over the tiles' nonzero
 index.  K7 (:func:`segment_bag`) is the DLRM lookup's gather-reduce.
 :func:`checksum_append` / :func:`checksum_residual` are the ABFT lane's
-torch ops (no kernel), which the checked level steps put around K3/K4.
+torch ops (no kernel), which the checked level steps put around K3/K4;
+:func:`bucket_index` is the weighted traversal's bucket id (a torch op:
+the weighted path runs no kernel, in the JAX package or here).
 
 Each wrapper checks its operands (device, dtype, shape, contiguity) and
 raises on anything the kernel does not take.  Then:
@@ -26,6 +28,7 @@ went through the kernels; :func:`reset_launches` zeroes them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ref
@@ -44,6 +47,7 @@ __all__ = [
     "segment_bag",
     "checksum_append",
     "checksum_residual",
+    "bucket_index",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -202,6 +206,18 @@ def checksum_residual(t: torch.Tensor) -> torch.Tensor:
     scale = 1.0 + real.abs().sum(dim=1)
     ratio = (resid / scale).to(torch.float32)
     return ratio.max() if ratio.numel() else ratio.new_zeros(())
+
+
+def bucket_index(dist: torch.Tensor, delta: float, unreached: int = -1) -> torch.Tensor:
+    """i32 bucket ids ``⌊d/Δ⌋`` of a tentative-distance array, ``unreached``
+    where the distance is ``+inf``.  The floor runs on a 0-substituted copy
+    (``inf/Δ`` has no integer value) and is masked back: the weighted
+    round's analogue of the level array's -1.  A torch op, not a kernel."""
+    delta32 = float(np.float32(delta))  # Δ as the f32 it is on the card
+    finite = torch.isfinite(dist)
+    safe = torch.where(finite, dist, 0.0)
+    ids = torch.floor(safe / delta32).to(torch.int32)
+    return torch.where(finite, ids, unreached)
 
 
 def frontier_spmm(

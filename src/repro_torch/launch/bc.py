@@ -15,6 +15,9 @@ device or on a 2-D grid of devices.
         --engine fused_hybrid --tile 8 --device cpu
     # durable: a rerun with the same --ckpt-dir resumes past the committed rounds
     PYTHONPATH=src python -m repro_torch.launch.bc --grid 8x8 --device cpu --ckpt-dir ck
+    # weighted BC (bucketed delta-stepping) on generator weights:
+    PYTHONPATH=src python -m repro_torch.launch.bc --road 4x5 --weights dyadic --weighted \
+        --device cpu
 
 The graphs are the JAX launcher's, with the same seeds (R-MAT, grid and
 road-like; seed 1), so both launchers score the same graph.  ``--engine``
@@ -30,6 +33,11 @@ engines and need ``--mesh``; ``--tile BM[xBK]`` shapes their tiles,
 arms the memory guard, which refuses an engine whose per-device
 footprint exceeds that budget before anything is allocated.  The
 footprint and the stored-tile count are printed either way.
+
+``--weights unit|dyadic`` attaches generator weights to the graph (a
+``--grid`` through ``weighted_copy``, seed 1), ``--weighted`` runs the
+bucketed weighted traversal on them (heuristics h0/h1/h1t) and
+``--delta`` sets its bucket width (default: ``auto_delta``).
 
 ``--mesh`` runs :func:`~repro_torch.core.distributed.distributed_betweenness_centrality`
 with one process per grid device.  On cards, run the launcher under
@@ -54,7 +62,7 @@ from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centra
 from ..core.scheduler import HEURISTICS_MODES
 from ..distributed.fault_tolerance import BCCheckpoint
 from ..distributed.groups import GridGroups, run_gloo
-from ..graphs import grid_graph, rmat_graph, road_like_graph
+from ..graphs import WEIGHT_MODES, grid_graph, rmat_graph, road_like_graph, weighted_copy
 from ..serving.sampling import SAMPLING_MODES
 
 
@@ -108,6 +116,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sample-frac", type=float, default=None)
     ap.add_argument("--sample-k", type=int, default=None)
     ap.add_argument("--sample-seed", type=int, default=0)
+    ap.add_argument(
+        "--weighted",
+        action="store_true",
+        help="weighted BC through the bucketed (delta-stepping) traversal; needs "
+        "--weights; --heuristics h0, h1 or h1t",
+    )
+    ap.add_argument(
+        "--weights",
+        default="none",
+        choices=list(WEIGHT_MODES),
+        help="edge weights of the generated graph: 'unit' (all 1.0) or 'dyadic' "
+        "(k/4, k = 1..16: exact f32 distance sums); pair with --weighted",
+    )
+    ap.add_argument(
+        "--delta",
+        type=float,
+        default=None,
+        help="bucket width of the weighted traversal (needs --weighted; default: "
+        "derived from the weights, repro_torch.core.operators.auto_delta)",
+    )
     ap.add_argument(
         "--device", default=None, help="'cuda' (default) or 'cpu' (plain PyTorch versions)"
     )
@@ -169,18 +197,24 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
     if args.rmat_scale is not None:
-        graph = rmat_graph(args.rmat_scale, args.edge_factor, seed=1)
+        graph = rmat_graph(args.rmat_scale, args.edge_factor, seed=1, weights=args.weights)
         name = f"rmat_s{args.rmat_scale}_ef{args.edge_factor}"
     elif args.grid:
         r, c = map(int, args.grid.split("x"))
         graph = grid_graph(r, c)
+        if args.weights != "none":
+            graph = weighted_copy(graph, weights=args.weights, seed=1)
         name = f"grid_{r}x{c}"
     elif args.road:
         r, c = map(int, args.road.split("x"))
-        graph = road_like_graph(r, c, seed=1)
+        graph = road_like_graph(r, c, seed=1, weights=args.weights)
         name = f"road_{r}x{c}"
     else:
         raise SystemExit("pick --rmat-scale, --grid or --road")
+    if args.weighted and graph.w is None:
+        raise SystemExit("--weighted needs edge weights; pass --weights unit|dyadic")
+    if args.delta is not None and not args.weighted:
+        raise SystemExit("--delta sizes the weighted buckets; pass --weighted")
     mesh_shape = None
     if args.mesh:
         try:
@@ -229,11 +263,14 @@ def main(argv: list[str] | None = None) -> None:
                   + ("" if not gen else f" (from fallback generation {gen})"))
     kwargs = dict(batch_size=args.batch_size, heuristics=args.heuristics,
                   device=args.device, checkpoint=checkpoint, **sampling_kw)
+    if args.weighted:
+        kwargs.update(weighted=True, delta=args.delta)
     if is_rank0:
         print(
             f"{name}: n={graph.n} m={graph.num_edges} heuristics={args.heuristics} "
             f"engine={args.engine} sampling={args.sampling} device={args.device or 'cuda'}"
             + (f" mesh={args.mesh}" if mesh_shape else "")
+            + (f" weighted(delta={args.delta or 'auto'})" if args.weighted else "")
         )
     t0 = time.time()
     if mesh_shape is not None:

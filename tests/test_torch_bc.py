@@ -133,8 +133,8 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu(monkeypatch):
     "kwargs,error",
     [
         ({"checkpoint": object()}, AttributeError),
-        ({"weighted": True}, NotImplementedError),
-        ({"delta": 1.0}, NotImplementedError),
+        ({"weighted": True}, ValueError),  # the graph carries no weights
+        ({"delta": 1.0}, ValueError),  # delta without weighted=True
         ({"sampling": "adaptive", "heuristics": "h1"}, ValueError),
         ({"overlap": "expand"}, ValueError),
         ({"straggler": "steal"}, ValueError),

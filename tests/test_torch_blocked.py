@@ -105,11 +105,13 @@ def test_default_tile_dim_equals_jax():
 
 
 def test_ring_and_weighted_tiles_raise_with_their_item():
+    """The ring-sliced layout is item 7, weighted or not; weighted tiles
+    themselves are ported (tests/test_torch_weighted.py)."""
     _, got = _pair("gnp320", 2, 4)
     with pytest.raises(NotImplementedError, match="item 7"):
         got.blocked_sparse(8, 8, ring=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        got.blocked_hybrid(8, 8, dense_cells=np.ones((2, 4), bool),
+    with pytest.raises(NotImplementedError, match="item 7"):
+        got.blocked_hybrid(8, 8, dense_cells=np.ones((2, 4), bool), ring=True,
                            weights=np.ones(GRAPHS["gnp320"](pg).src.size, np.float32))
 
 

@@ -1,6 +1,7 @@
 """The port's CLI (``python -m repro_torch.launch.bc``) on the CPU, against
 the numpy oracle (rtol 1e-5 / atol 1e-5) and the JAX launcher's graphs."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -154,3 +155,31 @@ def test_cli_memory_guard_refuses_before_the_run():
     with pytest.raises(RuntimeError, match="MemoryError"):
         cli.main(["--grid", "4x8", "--mesh", "1x2", "--engine", "fused", "--hbm-gb", "1e-6",
                   "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,build", [
+    (["--road", "4x5"], lambda m: m.road_like_graph(4, 5, seed=1, weights="dyadic")),
+    (["--grid", "4x5", "--mesh", "2x2", "--engine", "fused_sparse", "--tile", "5"],
+     lambda m: m.generators.weighted_copy(m.grid_graph(4, 5), "dyadic", seed=1)),
+], ids=["road", "grid-mesh"])
+def test_cli_weighted_matches_the_dijkstra_oracle(argv, build, tmp_path, capsys):
+    """``--weights dyadic --weighted`` scores the JAX launcher's weighted
+    graph (same seed) with the bucketed traversal, on one device or a
+    spawned gloo grid."""
+    jgraph, pgraph = build(jg), build(pg)
+    np.testing.assert_array_equal(jgraph.w, pgraph.w)
+    out = tmp_path / "bc.npy"
+    cli.main(argv + ["--weights", "dyadic", "--weighted", "--batch-size", "8", "--device", "cpu",
+                     "--out", str(out)])
+    assert "weighted(delta=auto)" in capsys.readouterr().out
+    np.testing.assert_allclose(np.load(out), brandes_reference(pgraph), **TOL)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--weights", "dyadic", "--delta", "0.5"],
+     "--delta sizes the weighted buckets; pass --weighted"),
+    (["--weighted"], "--weighted needs edge weights; pass --weights unit|dyadic"),
+], ids=["delta-unweighted", "weighted-no-weights"])
+def test_cli_weighted_flags_exit_with_the_jax_launchers_message(argv, message):
+    with pytest.raises(SystemExit, match=re.escape(message)):
+        cli.main(["--road", "4x5", "--device", "cpu", *argv])

@@ -34,6 +34,12 @@ import repro_torch.graphs as pg
 from repro_torch.core import bc as pbc
 from repro_torch.core import brandes_reference
 from repro_torch.core.distributed import distributed_betweenness_centrality
+from repro_torch.core.operators import (
+    DistributedWeightedDenseOperator,
+    DistributedWeightedOperator,
+    WeightedDenseOperator,
+    WeightedSparseOperator,
+)
 from repro_torch.distributed import GridGroups
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
@@ -602,6 +608,54 @@ def test_2d_path_on_a_1x1_nccl_grid_matches_dense(nccl_1x1, engine, kw):
     assert ops.LAUNCHES["frontier_spmm"] == ops.LAUNCHES["dependency_spmm"] == 0
     assert res.round_levels == want.round_levels
     np.testing.assert_allclose(res.bc, want.bc, rtol=1e-5, atol=1e-5)
+
+
+def _bucket_hooks_on_the_card(monkeypatch) -> list:
+    """Wrap the weighted operators' bucket hooks to record, per call,
+    whether every tensor in and out was on the card."""
+    seen = []
+    for cls in (WeightedSparseOperator, WeightedDenseOperator, DistributedWeightedOperator,
+                DistributedWeightedDenseOperator):
+        for hook in ("relax", "sigma_step", "delta_step"):
+            def wrapped(self, *args, _orig=getattr(cls, hook), **kw):
+                out = _orig(self, *args, **kw)
+                seen.append(all(t.is_cuda for t in args + (out,) if isinstance(t, torch.Tensor)))
+                return out
+
+            monkeypatch.setattr(cls, hook, wrapped)
+    return seen
+
+
+@pytest.mark.parametrize("engine", ["sparse", "dense"])
+def test_weighted_engines_on_the_card_match_the_cpu(cuda, engine, monkeypatch):
+    """A weighted call on the card equals the same call on the CPU, launches
+    no kernel (the weighted path has none) and keeps every bucket step on
+    the card."""
+    g = pg.rmat_graph(8, 8, seed=1, weights="dyadic")
+    kw = dict(batch_size=32, engine_kind=engine, weighted=True)
+    want = pbc.betweenness_centrality(g, device="cpu", **kw)
+    seen = _bucket_hooks_on_the_card(monkeypatch)
+    ops.reset_launches()
+    got = pbc.betweenness_centrality(g, **kw)
+    assert seen and all(seen)
+    assert not any(ops.LAUNCHES.values())
+    assert got.round_levels == want.round_levels
+    np.testing.assert_allclose(got.bc, want.bc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("engine", ["sparse", "fused", "fused_sparse"])
+def test_weighted_2d_path_on_a_1x1_nccl_grid_matches_one_device(nccl_1x1, engine, monkeypatch):
+    g = pg.road_like_graph(6, 6, seed=1, weights="dyadic")
+    want = pbc.betweenness_centrality(g, batch_size=32, heuristics="h1", weighted=True)
+    seen = _bucket_hooks_on_the_card(monkeypatch)
+    ops.reset_launches()
+    res = distributed_betweenness_centrality(g, nccl_1x1, batch_size=32, heuristics="h1",
+                                             engine_kind=engine, weighted=True, full_result=True)
+    assert seen and all(seen)
+    assert not any(ops.LAUNCHES.values())
+    assert res.round_levels == want.round_levels
+    np.testing.assert_allclose(res.bc, want.bc, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(res.bc, brandes_reference(g), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("engine", ["fused", "fused_bf16"])

@@ -1,4 +1,5 @@
-"""Rank-side case runner for tests/test_torch_dist.py.
+"""Rank-side case runner for tests/test_torch_dist.py and
+tests/test_torch_dist_weighted.py.
 
 ``run_cases`` is what each spawned gloo rank executes
 (:func:`repro_torch.distributed.run_gloo` pickles it by reference, so the
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.driver import traversal_round
 from repro_torch.core.distributed import (
     distributed_betweenness_centrality,
     distributed_graph_arrays,
@@ -21,6 +23,7 @@ from repro_torch.core.distributed import (
 )
 from repro_torch.core.scheduler import build_schedule
 from repro_torch.graphs.partition import partition_2d
+from repro_torch.kernels.ops import bucket_index
 
 S = 8  # sources of an operator-state case (tests/test_operators.py)
 
@@ -72,7 +75,48 @@ def _one_degree(groups, graph):
     return one_degree_reduce_distributed(graph, "cpu")
 
 
-RUNNERS = {"bc": _bc, "state": _state, "round": _first_round, "one_degree": _one_degree}
+def _weighted_op(groups, graph, engine_kind, delta):
+    part = partition_2d(graph, groups.R, groups.C)
+    args = distributed_graph_arrays(part, engine_kind, groups.i, groups.j, "cpu",
+                                    weights=graph.w)
+    op = make_distributed_operator(engine_kind, args, chunk=part.chunk, groups=groups,
+                                   delta=delta)
+    return part, op
+
+
+def _weighted_state(groups, graph, engine_kind, delta):
+    """(σ, dist, δ) [n, S] of the bucket loops through the rank's weighted
+    2-D operator, sources 0..S-1, ω from seed 7, in vertex order."""
+    part, op = _weighted_op(groups, graph, engine_kind, delta)
+    omega_pad = np.zeros(part.n_pad, np.float32)
+    omega_pad[: graph.n] = np.random.default_rng(7).integers(0, 3, graph.n)
+    base = part.owned_vertex_base(groups.i, groups.j)
+    sources = torch.arange(min(S, graph.n), dtype=torch.int32)
+    onehot = (op.row_ids()[:, None] == sources[None, :]).to(torch.float32)
+    fwd = engine.forward_buckets(op, onehot)
+    max_bucket = int(op.reduce_max(bucket_index(fwd.dist, delta).max()))
+    delta_acc = engine.backward_buckets(
+        op, fwd.sigma, fwd.dist, torch.from_numpy(omega_pad[base : base + part.chunk]),
+        max_bucket)
+    return tuple(groups.gather_vertices(x)[0, : graph.n].numpy()
+                 for x in (fwd.sigma, fwd.dist, delta_acc))
+
+
+def _weighted_checksum(groups, graph):
+    """The weighted round's refusal of the level-synchronous checksum lane,
+    raised on every rank before any collective."""
+    _, op = _weighted_op(groups, graph, "sparse", 0.5)
+    try:
+        traversal_round(op, torch.arange(4, dtype=torch.int32),
+                        torch.full((2, 3), -1, dtype=torch.int32), torch.zeros(op.chunk),
+                        integrity="checksum")
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+RUNNERS = {"bc": _bc, "state": _state, "round": _first_round, "one_degree": _one_degree,
+           "wstate": _weighted_state, "wchecksum": _weighted_checksum}
 
 
 def run_cases(groups, cases):
