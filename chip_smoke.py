@@ -7,11 +7,13 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 6, 7: phase 9 first,
-while nothing else holds device memory, because its tables take 65 GiB;
-phases 8, 10 and 11 share phase 5's NCCL process group, and phase 7's
-kernel table carries phase 8's and 10's launches and K7's times, which
-phase 9 takes on its tables):
+Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 12, 6, 7: phase 9
+first, while nothing else holds device memory, because its tables take
+65 GiB; phases 8, 10, 11 and 12 share phase 5's NCCL process group, and
+phase 7's kernel table carries phase 8's, 10's and 12's launches, K7's
+times, which phase 9 takes on its tables, and the acc-mode chains that
+phase 12 (b) times; a kernel's launches count its plain and its acc
+mode):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
@@ -137,7 +139,32 @@ phase 9 takes on its tables):
      per round, forward / backward buckets and inner trips, the host
      readbacks, the loops stopped unconverged at their trip cap (which
      must be none) and peak memory beside the card's name and power limit;
-     (a) and (c) once more under torch.profiler (busy share, top ops).
+     (a) and (c) once more under torch.profiler (busy share, top ops);
+ 12. the ring schedules and the grid's checked steps, on the 1×1 NCCL
+     grid (R − 1 = C − 1 = 0: no hop is posted; each ring runs one acc
+     step): (a) phase 4's graph and roots through
+     ``distributed_betweenness_centrality`` under overlap="expand" and
+     "expand+fold" on fused, fused_bf16, fused_sparse (tile 128),
+     fused_hybrid and sparse, and "auto" once on fused (the pick
+     printed), each equal to the single-device dense BC (rtol 1e-5 /
+     atol 1e-5, same levels per round); the fused runs launch only the
+     acc modes of K3/K4 (dense) or K5/K6 (tiled), none of K1/K2; the
+     frontier collectives and hops made inside the level steps are
+     counted per group and must be none under "expand+fold"; (b) the ring
+     steps of a real R > 1 cell in one process: cell (0, 0) of the 2×4
+     partition of the same graph ([32768, 16384], 2 column slabs; 2 BCSR
+     slots at tile 128, each with its own nonzero index), K3/K4 and K5/K6
+     chained in acc mode over the slots with the operand's chunks in ring
+     order, against the barrier partial of the whole cell (K3/K5 exact,
+     K4/K6 rtol 1e-5 / atol 1e-6) and against the plain versions' chain,
+     timed with cuda_time_ms beside the barrier launch, the plain chain,
+     one library call and the bound (phase 7's acc rows); (c)
+     integrity="checksum" under "expand+fold" on fused (residual under
+     CHECKSUM_TOL, BC equal to (a)'s), then integrity="audit" on a
+     weighted 1×1 run (phase 11 (a)'s graph and Δ, one round): no block
+     quarantined; (d) phase 8 (b)'s strips on fused_sparse under
+     "expand+fold", equal to the barrier run, the wall printed beside the
+     barrier's (recorded, no claim).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -822,7 +849,8 @@ def durable_phase(dev, graph, groups, fused_ref) -> dict:
               f"unchecked fused call")
         check(ist["max_checksum_residual"] < CHECKSUM_TOL and ist["checksum_failures"] == 0
               and ist["audit_failures"] == 0, "[10] (b) the checksum lane failed on a clean run")
-        check(lb["frontier_spmm_partial"] > 0 and lb["dependency_spmm_partial"] > 0
+        check(kernel_launches(lb, "frontier_spmm_partial") > 0
+              and kernel_launches(lb, "dependency_spmm_partial") > 0
               and lb["frontier_spmm"] == lb["dependency_spmm"] == 0,
               "[10] (b) the checked steps did not run on K3/K4 alone")
         check(checked.rounds_run == MAIN_SAMPLE_K // MAIN_BATCH, "[10] (b) expected 4 rounds")
@@ -922,6 +950,321 @@ def durable_phase(dev, graph, groups, fused_ref) -> dict:
             served(f"(e) run_serving 1x1 {engine}", out, straight.bc)
     print(f"[10] durable, self-checking and served BC ok in {time.perf_counter() - t10:.1f}s")
     return lb
+
+
+# phase 12: the ring schedules and the grid's checked steps
+RING_POLICIES = ("expand", "expand+fold")
+RING_ENGINES = ("fused", "fused_bf16", "fused_sparse", "fused_hybrid", "sparse")
+STRIPS_BARRIER_PR17_S = 3.507  # phase 8 (b)'s fused_sparse strips wall, chip run 3 of PR 17
+RING_KERNELS = ("frontier_spmm_partial", "dependency_spmm_partial", "frontier_spmm_sparse",
+                "dependency_spmm_sparse")
+
+
+def kernel_launches(launches: dict, name: str) -> int:
+    """A kernel's launches: its plain and its ``acc``-mode count (K3–K6
+    count the two apart, ``ops.LAUNCHES``)."""
+    return launches[name] + launches.get(name + "_acc", 0)
+
+
+class LevelCollectives:
+    """Counts the frontier collectives and ring hops (``all_gather_into_tensor``,
+    ``reduce_scatter_tensor``, ``batch_isend_irecv``) per group, made inside
+    the distributed operators' level steps, and the level steps, while
+    entered."""
+
+    CALLS = {"all_gather_into_tensor": "gather", "reduce_scatter_tensor": "reduce_scatter",
+             "batch_isend_irecv": "hops"}
+    STEPS = ("forward_level", "backward_level", "forward_level_checked",
+             "backward_level_checked")
+
+    def __init__(self, groups):
+        import torch.distributed as dist
+
+        from repro_torch.core.operators import DistributedFusedOperator, DistributedOperator
+
+        self.dist, self.groups = dist, groups
+        self.classes = (DistributedOperator, DistributedFusedOperator)
+        self.counts, self.levels, self.depth = {}, 0, 0
+
+    def _group(self, group) -> str:
+        for name in ("column", "row", "grid", "replica"):
+            if group is getattr(self.groups, name):
+                return name
+        return "default" if group is None else "other"
+
+    def __enter__(self):
+        self.saved = [(self.dist, n, getattr(self.dist, n)) for n in self.CALLS]
+        for _, name, fn in self.saved:
+            setattr(self.dist, name, self._call(fn, self.CALLS[name]))
+        for cls in self.classes:
+            for name in self.STEPS:
+                self.saved.append((cls, name, cls.__dict__.get(name)))
+                setattr(cls, name, self._step(getattr(cls, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+
+    def _call(self, fn, kind):
+        def counted(*args, **kwargs):
+            if self.depth:
+                group = args[0][0].group if kind == "hops" else kwargs.get("group")
+                key = f"{self._group(group)}/{kind}"
+                self.counts[key] = self.counts.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def _step(self, fn):
+        def counted(op, *args, **kwargs):
+            self.depth += 1
+            self.levels += self.depth == 1
+            try:
+                return fn(op, *args, **kwargs)
+            finally:
+                self.depth -= 1
+        return counted
+
+
+def ring_phase(dev, graph, groups, dense_ref, part_blk, blk_states, strips, strips_barrier,
+               strips_barrier_wall, smi: str) -> list[dict]:
+    """Phase 12: (a) phase 4's graph and roots through every distributed
+    engine under both ring policies (and "auto" once) on the 1×1 NCCL
+    grid, each equal to the single-device dense BC (``dense_ref``), with
+    the acc modes of K3–K6 launched and nothing else, and the collectives
+    of the level loop counted; (b) the ring steps of a real R > 1 cell in
+    one process: cell (0, 0) of the 2×4 partition (``part_blk``, states
+    ``blk_states``), K3/K4 chained in acc mode over its 2 column slabs and
+    K5/K6 over its 2 tile slots, against the barrier partial, timed; (c)
+    integrity="checksum" under "expand+fold", and a weighted
+    integrity="audit" run; (d) phase 8 (b)'s strips under "expand+fold"
+    against their barrier run (``strips_barrier``).  Returns the acc-mode
+    rows of phase 7's kernel table."""
+    from repro_torch.core.distributed import distributed_betweenness_centrality
+    from repro_torch.core.driver import CHECKSUM_TOL
+    from repro_torch.core.operators import auto_delta
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.blocked_spmm import nonzero_index
+
+    t12 = time.perf_counter()
+    kw = dict(batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed", sample_k=MAIN_SAMPLE_K,
+              sample_seed=0, full_result=True)
+
+    def run(tag, g, want, **run_kw):
+        """One 2-D call with the launch counts zeroed just before and read
+        just after, the level loop's collectives counted; checked against
+        ``want`` (a BCResult) to rtol 1e-5 / atol 1e-5."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with LevelCollectives(groups) as coll:
+            t = time.perf_counter()
+            res = distributed_betweenness_centrality(g, groups, **run_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = dict(ops.LAUNCHES)
+        ok, err = close(torch.from_numpy(res.bc), torch.from_numpy(want.bc), 1e-5, 1e-5)
+        a_level = {k: v / max(coll.levels, 1) for k, v in coll.counts.items()}
+        print(f"[12] {tag}: wall {wall:.3f}s (round loop {res.wall_s:.3f}s), overlap "
+              f"{res.layout_stats['overlap']}, levels per round {res.round_levels}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, {coll.levels} level steps, "
+              f"collectives in the level loop {coll.counts} ({a_level} a level), peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; max abs err {err:.3g} "
+              f"[{smi}]")
+        check(res.bc.shape == (g.n,) and bool(np.isfinite(res.bc).all()),
+              f"[12] {tag}: BC must be finite of shape ({g.n},)")
+        check(ok, f"[12] {tag}: BC disagrees with its reference")
+        check(res.round_levels == want.round_levels, f"[12] {tag}: levels per round differ")
+        return res, launches, coll, wall
+
+    # ---- (a) every engine under both rings, on the main path's graph and roots
+    ring_launches, ring_res = {}, {}
+    for engine in RING_ENGINES:
+        for policy in RING_POLICIES:
+            tag = f"(a) rmat16 1x1 {engine} {policy}"
+            res, launches, coll, _ = run(tag, graph, dense_ref, engine_kind=engine,
+                                         overlap=policy, **kw)
+            ring_launches[(engine, policy)] = launches
+            ring_res[(engine, policy)] = res
+            dense_cell = engine in ("fused", "fused_bf16")
+            tiled = engine in ("fused_sparse", "fused_hybrid")
+            if engine == "fused_hybrid":
+                check(res.layout_stats["dense_cells"] == [[0]],
+                      "[12] the bytes model should pick BCSR for the 1x1 R-MAT cell")
+            check(launches["frontier_spmm"] + launches["dependency_spmm"] == 0,
+                  f"[12] {tag}: launched K1/K2")
+            for kname in RING_KERNELS:
+                want_acc = dense_cell if "partial" in kname else tiled
+                check(launches[kname] == 0, f"[12] {tag}: {kname} launched without acc")
+                check((launches[kname + "_acc"] > 0) == want_acc,
+                      f"[12] {tag}: {kname} acc launches {launches[kname + '_acc']}")
+            check(coll.levels > 0, f"[12] {tag}: no level step ran")
+            if policy == "expand+fold":
+                check(not coll.counts, f"[12] {tag}: the 1x1 ring made collectives "
+                      f"{coll.counts} in its level loop")
+            torch.cuda.empty_cache()
+    auto = run("(a) rmat16 1x1 fused auto", graph, dense_ref, engine_kind="fused",
+               overlap="auto", **kw)[0]
+    print(f"[12] (a) overlap='auto' on the 1x1 fused cell picked "
+          f"{auto.layout_stats['overlap']!r}")
+
+    # ---- (b) the ring steps of a real R > 1 cell, in one process
+    R, chunk = part_blk.R, part_blk.chunk
+    m = part_blk.C * chunk
+    order = [(0 - t) % R for t in range(R)]  # the chunk rank (0, 0) holds at step t
+    block = part_blk.cell_dense_block(0, 0, torch.float32, dev)
+    slabs = part_blk.cell_dense_slabs(0, 0, torch.float32, dev)
+    tiles, rows, cols = part_blk.cell_blocked_sparse(0, 0, 128, 128, device=dev)
+    full_index = nonzero_index(tiles, rows, cols, m)
+    slots = [slot + (nonzero_index(*slot, m),)
+             for slot in part_blk.cell_ring_blocked_sparse(0, 0, 128, 128, device=dev)]
+    valid = part_blk.dst_local[0, 0] != m
+    idx = torch.from_numpy(np.stack([part_blk.dst_local[0, 0][valid],
+                                     part_blk.src_local[0, 0][valid]]).astype(np.int64)).to(dev)
+    csr = torch.sparse_coo_tensor(idx, torch.ones(idx.shape[1], device=dev),
+                                  (m, R * chunk)).coalesce().to_sparse_csr()
+    del idx
+    check(slabs.shape == (R, m, chunk) and len(slots) == R,
+          "[12] (b) the 2x4 cell should hold 2 slabs and 2 slots")
+    print(f"[12] (b) cell (0, 0) of the 2x4 grid: block {tuple(block.shape)}, {R} slabs "
+          f"{tuple(slabs.shape[1:])}; BCSR tile 128: {tiles.shape[0]} tiles "
+          f"({full_index.col.numel()} nonzeros) against slots of "
+          f"{[int(sl[0].shape[0]) for sl in slots]} tiles "
+          f"({[int(sl[3].col.numel()) for sl in slots]} nonzeros)")
+    entries = []
+    for kname, s, replaces in (
+        ("frontier_spmm_partial", MAIN_BATCH, "src/repro/kernels/frontier_spmm.py:178"),
+        ("dependency_spmm_partial", MAIN_BATCH + MAIN_BATCH // 2,
+         "src/repro/kernels/dependency_spmm.py:174"),
+        ("frontier_spmm_sparse", MAIN_BATCH, "src/repro/kernels/blocked_spmm.py:144"),
+        ("dependency_spmm_sparse", MAIN_BATCH + MAIN_BATCH // 2,
+         "src/repro/kernels/blocked_spmm.py:146"),
+    ):
+        sigma, depth, delta, omega = blk_states[s]
+        forward = kname.startswith("frontier")
+        state = (sigma, depth) if forward else (sigma, depth, delta, omega)
+        lvl = 2 if forward else 1
+        parts = [tuple(x[r * chunk:(r + 1) * chunk].contiguous() for x in state) for r in order]
+        fn = getattr(ops, kname)
+        plain_fn = {"frontier_spmm_partial": ref.frontier_partial_ref,
+                    "dependency_spmm_partial": ref.dependency_partial_ref,
+                    "frontier_spmm_sparse": ref.frontier_sparse_ref,
+                    "dependency_spmm_sparse": ref.dependency_sparse_ref}[kname]
+        if "partial" in kname:
+            operands = [(slabs[r],) for r in order]
+            barrier = lambda: fn(block, *state, lvl)  # noqa: E731
+            step = lambda op, st, acc: fn(*op, *st, lvl, acc)  # noqa: E731
+            plain_step = lambda op, st, acc: plain_fn(*op, *st, lvl, acc)  # noqa: E731
+            nbytes = partial_bytes(block, *state)
+            nnz = m * R * chunk
+        else:
+            operands = [slots[r] for r in order]
+            barrier = lambda: fn(tiles, rows, cols, *state, lvl, m=m,  # noqa: E731
+                                 index=full_index)
+            step = lambda op, st, acc: fn(*op[:3], *st, lvl, m=m, acc=acc,  # noqa: E731
+                                          index=op[3])
+            plain_step = lambda op, st, acc: plain_fn(*op[:3], *st, lvl, m, acc)  # noqa: E731
+            nbytes = (sum(sl[3].ptr.nbytes + sl[3].col.nbytes + sl[3].val.nbytes for sl in slots)
+                      + sum(x.nbytes for x in state) + m * s * 4)
+            nnz = sum(int(sl[3].col.numel()) for sl in slots)
+
+        def chain(step=step):
+            acc = torch.zeros((m, s), device=dev)
+            for op, st in zip(operands, parts):
+                acc = step(op, st, acc)
+            return acc
+
+        want = barrier()
+        got = chain()
+        plain = chain(plain_step)
+        exact = forward
+        ok, err = close(got, want, 0.0 if exact else 1e-5, 0.0 if exact else 1e-6)
+        ok_p, err_p = close(got, plain, 0.0 if exact else 1e-5, 0.0 if exact else 1e-6)
+        check(ok, f"[12] (b) {kname}: the acc chain disagrees with the barrier partial "
+              f"(err {err:.3g})")
+        check(ok_p, f"[12] (b) {kname}: the acc chain disagrees with its plain version "
+              f"(err {err_p:.3g})")
+        chain_ms = cuda_time_ms(chain)
+        barrier_ms = cuda_time_ms(barrier)
+        plain_ms = cuda_time_ms(lambda: chain(plain_step))
+        if "partial" in kname:
+            operand = (sigma * (depth == 1) if forward else dep_operand(*state))
+            lib_ms = cuda_time_ms(lambda: torch.matmul(block, operand))
+            lib = "torch.matmul of the whole block"
+        else:
+            operand = (sigma * (depth == 1) if forward else dep_operand(*state))
+            lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, operand), reps=20)
+            lib = f"torch.sparse.mm of the cell as CSR ({csr.values().numel()} nonzeros)"
+        del operand
+        t_ops = 2.0 * nnz * s / PEAK_F32_FLOP_PER_S * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        engine = "fused" if "partial" in kname else "fused_sparse"
+        launches = ring_launches[(engine, "expand+fold")][kname + "_acc"]
+        entries.append({
+            "name": f"{kname}[acc, ring chain over the {R} slots of 2x4 cell (0, 0), "
+                    f"m={m}, k={R}x{chunk}, s={s}]",
+            "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/partial_spmm.cu" if "partial" in kname
+                       else "src/repro_torch/kernels/csrc/sparse_spmm.cu"),
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err_p,
+            "ms": chain_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        })
+        print(f"[12] (b) {kname} s={s}: acc chain of {R} launches {chain_ms:.3f} ms against the "
+              f"barrier launch {barrier_ms:.3f} ms ({chain_ms / barrier_ms:.2f}x); plain chain "
+              f"{plain_ms:.3f} ms; {lib} {lib_ms:.3f} ms; bound {bound:.4f} ms "
+              f"({entries[-1]['bound_by']}); vs barrier err {err:.3g}, vs plain err {err_p:.3g}; "
+              f"{launches} acc launches in (a)'s {engine} expand+fold run [{smi}]")
+    del block, slabs, tiles, rows, cols, full_index, slots, csr
+    torch.cuda.empty_cache()
+
+    # ---- (c) checked runs: the checksum lane under a ring, a weighted audit
+    checked, launches, _, _ = run("(c) rmat16 1x1 fused expand+fold checksum", graph,
+                                  ring_res[("fused", "expand+fold")], engine_kind="fused",
+                                  overlap="expand+fold", integrity="checksum", **kw)
+    integ = checked.recovery_stats["integrity"]
+    print(f"[12] (c) checksum under expand+fold: max residual {integ['max_checksum_residual']:.3g}"
+          f" (tol {CHECKSUM_TOL:g}), failures {integ['checksum_failures']}, quarantined "
+          f"{checked.recovery_stats['quarantined_blocks']}")
+    check(integ["max_checksum_residual"] < CHECKSUM_TOL and integ["checksum_failures"] == 0
+          and checked.recovery_stats["quarantined_blocks"] == 0,
+          "[12] (c) the checksum run under expand+fold failed its audit")
+    check(launches["frontier_spmm_partial_acc"] > 0 and launches["dependency_spmm_partial_acc"] > 0,
+          "[12] (c) the checked ring run did not launch K3/K4 in acc mode")
+    wgraph = rmat_graph(MAIN_N_SCALE, MAIN_EF, seed=1, weights="dyadic")
+    delta = auto_delta(wgraph)
+    w_kw = dict(batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed", sample_k=MAIN_BATCH,
+                sample_seed=0, full_result=True, weighted=True, delta=delta, engine_kind="sparse")
+    w_plain = distributed_betweenness_centrality(wgraph, groups, **w_kw)
+    audited = run(f"(c) weighted rmat16 dyadic 1x1 sparse audit, delta {delta}", wgraph, w_plain,
+                  integrity="audit", **w_kw)[0]
+    print(f"[12] (c) weighted audit: quarantined {audited.recovery_stats['quarantined_blocks']}, "
+          f"buckets per round {audited.round_levels}")
+    check(audited.recovery_stats["quarantined_blocks"] == 0,
+          "[12] (c) the weighted audit quarantined a healthy block")
+    del checked, audited, w_plain
+    torch.cuda.empty_cache()
+
+    # ---- (d) the strips under expand+fold, against their barrier run
+    _, _, coll, wall = run("(d) strips 1x1 fused_sparse expand+fold", strips, strips_barrier,
+                           engine_kind="fused_sparse", overlap="expand+fold",
+                           batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed",
+                           sample_k=STRIP_SAMPLE_K, sample_seed=0, full_result=True)
+    print(f"[12] (d) strips fused_sparse: expand+fold wall {wall:.3f}s beside the barrier's "
+          f"{strips_barrier_wall:.3f}s in phase 8 (b) of this run and {STRIPS_BARRIER_PR17_S}s "
+          f"in chip run 3 of PR 17 (recorded, no claim) [{smi}]")
+    print(f"[12] ring phase ok in {time.perf_counter() - t12:.1f}s")
+    return entries
 
 
 # phase 11: weighted BC (bucketed delta-stepping) at full width
@@ -1458,8 +1801,8 @@ def main() -> None:
                 check(k12 == 0, f"2-D {engine}: launched the single-device kernels K1/K2")
                 fused = engine != "sparse"
                 for kname in ("frontier_spmm_partial", "dependency_spmm_partial"):
-                    check((launches_2d[engine][kname] > 0) == fused,
-                          f"2-D {engine}: {kname} launches {launches_2d[engine][kname]}")
+                    n_k = kernel_launches(launches_2d[engine], kname)
+                    check((n_k > 0) == fused, f"2-D {engine}: {kname} launches {n_k}")
                 del res
                 torch.cuda.empty_cache()
             trace5 = trace_run("[5] 2-D 1x1 fused", lambda: run_2d("fused"), {
@@ -1474,6 +1817,7 @@ def main() -> None:
             print(f"[8] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
             k14 = ("frontier_spmm", "dependency_spmm", "frontier_spmm_partial",
                    "dependency_spmm_partial")
+            walls_8 = {}
 
             def run_8(tag, g, want, **kw):
                 """One BCSR run, checked against ``want`` (a BCResult)."""
@@ -1488,6 +1832,7 @@ def main() -> None:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
                 launches_2d[tag] = dict(ops.LAUNCHES)
+                walls_8[tag] = wall
                 check(res.bc.shape == (g.n,) and bool(np.isfinite(res.bc).all()),
                       f"[8] {tag}: BC must be finite of shape ({g.n},)")
                 ok, err = close(torch.from_numpy(res.bc), torch.from_numpy(want.bc), 1e-5, 1e-5)
@@ -1508,9 +1853,10 @@ def main() -> None:
                       f"{launches_2d[tag]}; max abs err {err:.3g}")
                 check(ok, f"[8] {tag}: BC disagrees with its reference")
                 check(res.round_levels == want.round_levels, f"[8] {tag}: levels per round differ")
-                check(sum(launches_2d[tag][k] for k in k14) == 0, f"[8] {tag}: launched K1-K4")
-                check(launches_2d[tag]["frontier_spmm_sparse"] > 0
-                      and launches_2d[tag]["dependency_spmm_sparse"] > 0,
+                check(sum(kernel_launches(launches_2d[tag], k) for k in k14) == 0,
+                      f"[8] {tag}: launched K1-K4")
+                check(kernel_launches(launches_2d[tag], "frontier_spmm_sparse") > 0
+                      and kernel_launches(launches_2d[tag], "dependency_spmm_sparse") > 0,
                       f"[8] {tag}: the run did not launch K5 and K6")
                 return res
 
@@ -1548,7 +1894,7 @@ def main() -> None:
                   f"round {arc.round_levels}")
             check(arc.bc.shape == (strips.n,) and bool(np.isfinite(arc.bc).all()),
                   "[8] the arc-list BC of the strip graph must be finite")
-            run_8(strip_tag, strips, arc, engine_kind="fused_sparse", **b_kw)
+            strips_barrier = run_8(strip_tag, strips, arc, engine_kind="fused_sparse", **b_kw)
             torch.cuda.empty_cache()
             trace_run(f"[8] {strip_tag} fused_sparse", lambda: distributed_betweenness_centrality(
                 strips, groups, batch_size=MAIN_BATCH, heuristics="h0", engine_kind="fused_sparse",
@@ -1564,6 +1910,10 @@ def main() -> None:
 
             # ------------------------- 11. weighted BC at full width
             weighted_phase(graph, groups, results["dense"], smi, trace_run)
+
+            # ---------- 12. the ring schedules and the grid's checked steps
+            ring_entries = ring_phase(dev, graph, groups, results["dense"], part, blk_states,
+                                      strips, strips_barrier, walls_8[strip_tag], smi)
         finally:
             dist.destroy_process_group()
 
@@ -1735,7 +2085,7 @@ def main() -> None:
                     "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/partial_spmm.cu",
                     "replaces": replaces,
-                    "launches": launches_2d[partial_engine[tag]][kname],
+                    "launches": kernel_launches(launches_2d[partial_engine[tag]], kname),
                     "max_abs_err": err,
                     "ms": ms,
                     "plain_ms": plain_ms,
@@ -1787,7 +2137,7 @@ def main() -> None:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partial_spmm.cu",
             "replaces": replaces,
-            "launches": launches_10[kname],
+            "launches": kernel_launches(launches_10, kname),
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
@@ -1799,7 +2149,7 @@ def main() -> None:
               f"{column_tile(s)}, operand stride {operand_stride(s)}): kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {bound:.3f} ms "
               f"({entries[-1]['bound_by']}), {100 * bound / ms:.1f}% of bound, "
-              f"{launches_10[kname]} launches in phase 10 (b); err {err:.3g}")
+              f"{kernel_launches(launches_10, kname)} launches in phase 10 (b); err {err:.3g}")
         del sigma, depth, delta, omega, operand
     del A_main, A_blk
     torch.cuda.empty_cache()
@@ -1855,7 +2205,7 @@ def main() -> None:
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/sparse_spmm.cu",
                 "replaces": replaces,
-                "launches": launches_2d[tag][kname],
+                "launches": kernel_launches(launches_2d[tag], kname),
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,
@@ -1876,6 +2226,7 @@ def main() -> None:
             del operand
         del tiles, rows, cols, csr, index
         torch.cuda.empty_cache()
+    entries.extend(ring_entries)  # timed in phase 12 (b), on the 2x4 cell's slabs and slots
     entries.extend(k7_entries)  # timed in phase 9, on its tables
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
     print(f"[7] total {time.perf_counter() - t_all:.1f}s")

@@ -23,9 +23,20 @@ distributed/groups.py for the process groups):
       ``reduce_scatter`` of the partials over the rank's row group — sums
       the C contributions and delivers each rank exactly its owned chunk.
 
-This is the barrier schedule (``overlap="none"``); the ring schedules
-are ROADMAP Queue 1 item 7.  The traversal itself — level loops, round
-algebra, host loop — is not implemented here: the round function builds
+That is the barrier schedule (``overlap="none"``).  The ring schedules
+(paper §3.2 Fig. 2) replace it with point-to-point hops:
+``overlap="expand"`` passes the owned chunks round the column group in
+R-1 hops, each step multiplying the chunk in hand against its slot of the
+cell (the ring layouts of graphs/partition.py: arc slots, dense column
+slabs or BCSR tile slots, with the kernels' ``acc`` running sum);
+``"expand+fold"`` also folds with a C-1-hop reduce ring over the row
+group; ``"auto"`` picks one from the roofline level times
+(:func:`resolve_overlap`).  Under a ring the replicas of a sub-clustered
+grid agree on their loop bounds over every rank (``sync_axes``).
+``integrity="audit"`` / ``"checksum"`` make every round self-checking
+(the ABFT lane of the checked level steps rides every exchange, hop and
+fold).  The traversal itself — level loops, round algebra, host loop — is
+not implemented here: the round function builds
 a :class:`~repro_torch.core.operators.DistributedOperator` (or its fused
 subclass) and runs the same
 :func:`~repro_torch.core.driver.traversal_round` /
@@ -44,7 +55,9 @@ one round of every dispatch block; BC is additive, so the driver sums the
 replica lanes.
 
 Weighted BC (``weighted=True``, bucketed delta-stepping) runs the same
-driver with a weighted 2-D operator: the arc list with its per-arc
+driver with a weighted 2-D operator, always on the barrier layouts and
+collectives (a ring policy only adds the replica lockstep; ``"auto"``
+resolves to ``"none"``): the arc list with its per-arc
 weights for ``sparse``
 (:class:`~repro_torch.core.operators.DistributedWeightedOperator`), the
 rank's dense f32 weight block for every fused engine
@@ -64,19 +77,30 @@ import torch.distributed as dist
 from ..distributed.groups import GridGroups, all_gather, device_for_rank
 from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, partition_2d
-from ..kernels.blocked_spmm import nonzero_index
+from ..kernels.blocked_spmm import NonzeroIndex, nonzero_index
 from ..kernels.ref import tiles_to_dense
-from ..roofline.model import cell_kernel_choice, device_hbm_footprint
+from ..roofline.model import (
+    H100,
+    HardwareSpec,
+    adjacency_stream_bytes,
+    auto_overlap_policy,
+    cell_kernel_choice,
+    device_hbm_footprint,
+    exchange_operands,
+    sparse_tile_bytes,
+)
 from ..serving.sampling import AdaptiveStopRule, eligible_roots, plan_sampling
 from .bc import apply_sampling_rescale, check_weighted
-from .driver import BCDriver, traversal_round
+from .driver import BCDriver, normalize_integrity, traversal_round
 from .operators import (
+    SYNC_AXES,
     DistributedFusedHybridOperator,
     DistributedFusedOperator,
     DistributedFusedSparseOperator,
     DistributedOperator,
     DistributedWeightedDenseOperator,
     DistributedWeightedOperator,
+    normalize_overlap,
 )
 from .scheduler import build_schedule
 
@@ -86,6 +110,8 @@ __all__ = [
     "hybrid_cell_choice",
     "estimate_device_footprint",
     "check_device_memory",
+    "level_time_estimates",
+    "resolve_overlap",
     "distributed_graph_arrays",
     "make_distributed_operator",
     "make_distributed_round_fn",
@@ -173,43 +199,52 @@ def estimate_device_footprint(
     *,
     bm: int | None = None,
     bk: int | None = None,
+    overlap: str = "none",
     tile_counts: dict | None = None,
     dense_cells: np.ndarray | None = None,
 ) -> dict:
     """Per-device adjacency + state bytes of one engine, before anything is
     allocated: :func:`repro_torch.roofline.model.device_hbm_footprint` with
-    the partition's quantities, for the largest rank.
+    the partition's quantities, for the largest rank, under the layout the
+    ``overlap`` policy builds (the JAX package's pricing).
 
     ``fused_sparse`` prices the stored tiles of the fullest cell (nonzero
-    tiles + row fillers, from the counting pass; no tile data is built).
+    tiles + row fillers, from the counting pass; no tile data is built),
+    under a ring the R slots padded to the fullest slot (``stored_tiles_ring``).
+    ``sparse`` under a ring prices the 2·R·max_ring_arcs arc slots
+    (:meth:`TwoDPartition.ring_arcs_max`); the dense column slabs hold the
+    block's bytes.
     ``fused_hybrid`` prices what the port allocates: each rank's chosen
     representation only — the dense block of a dense-chosen cell, the
     tiles of a sparse-chosen one (``dense_cells``, default: the
-    break-even choice of :func:`hybrid_cell_choice`) — and the largest
-    rank decides.  This is less
+    break-even choice of :func:`hybrid_cell_choice`; a sparse cell's ring
+    slots priced as R times its fullest slot) — and the largest rank
+    decides.  This is less
     than the JAX package's hybrid footprint, which prices the union of
     both operand sets that ``shard_map`` ships to every device.
     ``bm``/``bk`` are the tile the engine will be built with.
     """
     R, C, chunk = partition.R, partition.C, partition.chunk
+    ring = normalize_overlap(overlap) != "none"
     grid = dict(R=R, C=C, chunk=chunk, batch_size=batch_size)
     if engine_kind == "sparse":
-        return device_hbm_footprint(
-            engine_kind, max_arcs=int(partition.src_local.shape[-1]), **grid
-        )
+        max_arcs = R * partition.ring_arcs_max() if ring else int(partition.src_local.shape[-1])
+        return device_hbm_footprint(engine_kind, max_arcs=max_arcs, **grid)
     if engine_kind not in _TILED:
         return device_hbm_footprint(engine_kind, **grid)
     counts = tile_counts or partition.blocked_sparse_counts(bm, bk)
     tile = dict(bm=counts["bm"], bk=counts["bk"])
     if engine_kind == "fused_sparse":
         return device_hbm_footprint(
-            engine_kind, nnz_tiles=counts["stored_tiles_full"], **tile, **grid
+            engine_kind, nnz_tiles=counts["stored_tiles_ring" if ring else "stored_tiles_full"],
+            **tile, **grid
         )
     if dense_cells is None:
         dense_cells, _ = hybrid_cell_choice(partition, tile_counts=counts)
+    stored = (R * counts["stored_ring_slot_cell"] if ring else counts["stored_full_cell"])
     feet = [
         device_hbm_footprint(
-            engine_kind, nnz_tiles=int(counts["stored_full_cell"][i, j]),
+            engine_kind, nnz_tiles=int(stored[i, j]),
             dense_cell=bool(dense_cells[i, j]), **tile, **grid,
         )
         for i in range(R) for j in range(C)
@@ -225,17 +260,19 @@ def check_device_memory(
     *,
     bm: int | None = None,
     bk: int | None = None,
+    overlap: str = "none",
     tile_counts: dict | None = None,
     dense_cells: np.ndarray | None = None,
 ) -> dict:
     """Fail-fast memory guard: raise ``MemoryError`` before anything is
-    allocated when the footprint (:func:`estimate_device_footprint`)
-    exceeds ``hbm_limit_bytes`` — the card's capacity, an input here —
-    with a suggestion (``fused_sparse`` where it fits, a larger grid).
-    Returns the footprint record, which is always computed and logged."""
+    allocated when the footprint (:func:`estimate_device_footprint`, of the
+    ``overlap`` policy's layout) exceeds ``hbm_limit_bytes`` — the card's
+    capacity, an input here — with a suggestion (``fused_sparse`` where
+    it fits, a larger grid).  Returns the footprint record, which is
+    always computed and logged."""
     foot = estimate_device_footprint(
-        partition, engine_kind, batch_size, bm=bm, bk=bk, tile_counts=tile_counts,
-        dense_cells=dense_cells,
+        partition, engine_kind, batch_size, bm=bm, bk=bk, overlap=overlap,
+        tile_counts=tile_counts, dense_cells=dense_cells,
     )
     logger.info(
         "per-device memory footprint (%s): adjacency %.3f GiB + state %.3f GiB = %.3f GiB%s",
@@ -247,7 +284,8 @@ def check_device_memory(
         suggestions = []
         if engine_kind in ("fused", "fused_bf16", "fused_hybrid"):
             sparse_foot = estimate_device_footprint(
-                partition, "fused_sparse", batch_size, bm=bm, bk=bk, tile_counts=tile_counts
+                partition, "fused_sparse", batch_size, bm=bm, bk=bk, overlap=overlap,
+                tile_counts=tile_counts
             )
             if sparse_foot["total_bytes"] <= hbm_limit_bytes:
                 suggestions.append(
@@ -264,6 +302,94 @@ def check_device_memory(
     return foot
 
 
+def level_time_estimates(
+    partition: TwoDPartition,
+    engine_kind: str,
+    batch_size: int,
+    *,
+    bm: int | None = None,
+    bk: int | None = None,
+    tile_counts: dict | None = None,
+    dense_cells: np.ndarray | None = None,
+    hw: HardwareSpec = H100,
+) -> tuple[float, float, float]:
+    """Roofline prices of one traversal level on ``hw``: (compute, expand,
+    fold) seconds — the JAX package's model with the port's engine names.
+    Block compute is the larger of its FLOPs over ``hw.peak_flops`` and
+    its adjacency bytes over ``hw.hbm_bandwidth``; the hybrid is priced per
+    cell (each streams its chosen representation, ``dense_cells``,
+    default the break-even choice) and the level waits for the slowest.
+    The expand moves (R−1)·chunk·s·4 bytes per forward operand and the
+    fold (C−1)/C of the [C·chunk, s] f32 partial, over
+    ``hw.link_bandwidth``."""
+    R, C, chunk, s = partition.R, partition.C, partition.chunk, batch_size
+    compute_s = None
+    if engine_kind in ("fused", "fused_bf16"):
+        flops = 2.0 * (C * chunk) * (R * chunk) * s
+        a_bytes = adjacency_stream_bytes(engine_kind, R=R, C=C, chunk=chunk)
+    elif engine_kind == "fused_sparse":
+        counts = tile_counts or partition.blocked_sparse_counts(bm, bk)
+        bm, bk, nnz = counts["bm"], counts["bk"], counts["nnz_max"]
+        flops = 2.0 * nnz * bm * bk * s
+        a_bytes = adjacency_stream_bytes(engine_kind, R=R, C=C, chunk=chunk, nnz_tiles=nnz,
+                                         bm=bm, bk=bk)
+    elif engine_kind == "fused_hybrid":
+        counts = tile_counts or partition.blocked_sparse_counts(bm, bk)
+        if dense_cells is None:
+            dense_cells, _ = hybrid_cell_choice(partition, tile_counts=counts)
+        bm, bk = counts["bm"], counts["bk"]
+        dense_flops = 2.0 * (C * chunk) * (R * chunk) * s
+        dense_bytes = adjacency_stream_bytes("fused", R=R, C=C, chunk=chunk)
+        stored = np.asarray(counts["stored_full_cell"], np.float64)
+        cell_flops = np.where(dense_cells, dense_flops, 2.0 * stored * bm * bk * s)
+        cell_bytes = np.where(dense_cells, dense_bytes, stored * sparse_tile_bytes(bm, bk))
+        cell_s = np.maximum(cell_flops / hw.peak_flops, cell_bytes / hw.hbm_bandwidth)
+        compute_s = float(cell_s.max())  # the level waits for the slowest cell
+    else:  # the arc list: one gather + add per arc per source column
+        max_arcs = int(partition.src_local.shape[-1])
+        flops = 2.0 * max_arcs * s
+        a_bytes = adjacency_stream_bytes(engine_kind, R=R, C=C, chunk=chunk,
+                                         max_arcs=max_arcs)
+    if compute_s is None:
+        compute_s = max(flops / hw.peak_flops, a_bytes / hw.hbm_bandwidth)
+    n_operands = exchange_operands(engine_kind)[0]  # the forward exchange set
+    expand_s = (R - 1) * chunk * s * 4 * n_operands / hw.link_bandwidth
+    fold_s = (C - 1) / C * (C * chunk) * s * 4 / hw.link_bandwidth
+    return compute_s, expand_s, fold_s
+
+
+def resolve_overlap(
+    overlap: str | None,
+    partition: TwoDPartition,
+    engine_kind: str,
+    batch_size: int,
+    *,
+    bm: int | None = None,
+    bk: int | None = None,
+    tile_counts: dict | None = None,
+    dense_cells: np.ndarray | None = None,
+    hw: HardwareSpec = H100,
+) -> str:
+    """``overlap="auto"`` resolved to the schedule
+    :func:`~repro_torch.roofline.model.auto_overlap_policy` prices fastest
+    from :func:`level_time_estimates` (the tile and the hybrid choice the
+    engine is built with); the pick and the estimates are logged.  An
+    explicit policy is only validated.  (The JAX package's ``measured=``
+    walls wait for the autotuner, ROADMAP item 9.)"""
+    if overlap != "auto":
+        return normalize_overlap(overlap)
+    compute_s, expand_s, fold_s = level_time_estimates(
+        partition, engine_kind, batch_size, bm=bm, bk=bk, tile_counts=tile_counts,
+        dense_cells=dense_cells, hw=hw,
+    )
+    policy, estimates = auto_overlap_policy(compute_s, expand_s, fold_s, partition.R,
+                                            partition.C, hw=hw)
+    logger.info("overlap='auto' -> %r for engine %s (roofline per-level estimates on %s: %s)",
+                policy, engine_kind, hw.name,
+                {k: f"{v * 1e6:.2f}us" for k, v in estimates.items()})
+    return policy
+
+
 def distributed_graph_arrays(
     partition: TwoDPartition,
     engine_kind: str,
@@ -271,10 +397,11 @@ def distributed_graph_arrays(
     j: int,
     device,
     *,
+    overlap: str = "none",
     tile: tuple[int, int] | None = None,
     dense_cells: np.ndarray | None = None,
     weights: np.ndarray | None = None,
-) -> tuple[torch.Tensor, ...]:
+) -> tuple:
     """Grid cell (i, j)'s graph operands on ``device``: the flat arc arrays
     ``(src_local, dst_local)`` (int64 [max_arcs]) for ``"sparse"``; the
     dense block ``(A[rows_i, cols_j],)`` ([C·chunk, R·chunk], bf16 for
@@ -289,12 +416,24 @@ def distributed_graph_arrays(
     ``dense_cells[i, j]`` (the :func:`hybrid_cell_choice`) picks — a rank
     never holds both.
 
+    Under a ring ``overlap`` the same operands in their ring form: the arc
+    slots ``(ring_src, ring_dst)`` (int64 [R, max_ring_arcs],
+    :meth:`TwoDPartition.cell_ring_arcs`); the dense block as R contiguous
+    column slabs ``(slabs,)`` ([R, C·chunk, chunk],
+    :meth:`TwoDPartition.cell_dense_slabs`); the BCSR cell as its R slots,
+    ``(tiles, tile_rows, tile_cols, index)`` each a tuple of R (the slots of
+    :meth:`TwoDPartition.cell_ring_blocked_sparse`, and one nonzero index
+    per slot at m = C·chunk, built once here on the card).
+
     ``weights`` (f32 [num_arcs], graph arc order) gives the weighted
-    operands instead: ``sparse`` grows a third f32 [max_arcs] arc-weight
+    operands instead, always in the barrier form: ``sparse`` grows a third f32 [max_arcs] arc-weight
     array; the dense engines hold an f32 weight block, also under
     ``fused_bf16`` (the equality masks need exact distances); a BCSR cell
     holds its weighted tiles and no nonzero index (no K5/K6 runs)."""
     _check_engine(engine_kind)
+    ring = weights is None and normalize_overlap(overlap) != "none"
+    if engine_kind == "sparse" and ring:
+        return partition.cell_ring_arcs(i, j, device)
     if engine_kind == "sparse":
         arcs = tuple(
             torch.from_numpy(a[i, j]).to(device=device, dtype=torch.int64)
@@ -308,14 +447,22 @@ def distributed_graph_arrays(
         if dense_cells is None:
             raise ValueError("fused_hybrid needs dense_cells (hybrid_cell_choice)")
         engine_kind = "fused" if dense_cells[i, j] else "fused_sparse"
+    m = partition.C * partition.chunk
+    if engine_kind == "fused_sparse" and ring:
+        slots = partition.cell_ring_blocked_sparse(i, j, *(tile or (None, None)),
+                                                   device=device)
+        indexes = tuple(nonzero_index(*slot, m) if slot[0].device.type == "cuda" else None
+                        for slot in slots)
+        return tuple(zip(*slots)) + (indexes,)
     if engine_kind == "fused_sparse":
         tiles, rows, cols = partition.cell_blocked_sparse(
             i, j, *(tile or (None, None)), device=device, weights=weights
         )
-        m = partition.C * partition.chunk
         on_card = tiles.device.type == "cuda" and weights is None
         return tiles, rows, cols, nonzero_index(tiles, rows, cols, m) if on_card else None
     dtype = torch.bfloat16 if engine_kind == "fused_bf16" and weights is None else torch.float32
+    if ring:
+        return (partition.cell_dense_slabs(i, j, dtype, device),)
     return (partition.cell_dense_block(i, j, dtype, device, weights=weights),)
 
 
@@ -328,13 +475,17 @@ def make_distributed_operator(
     dense_cell: bool = False,
     split_backward: bool = False,
     delta: float | None = None,
+    overlap: str = "none",
+    sync_axes: tuple[str, ...] = (),
 ) -> DistributedOperator:
     """The rank's 2-D operator of an engine over its
-    :func:`distributed_graph_arrays`; ``dense_cell`` is the rank's
-    ``fused_hybrid`` choice.  A ``delta`` builds the weighted operator
-    over weighted operands: the arc list for ``sparse``, else the dense
-    weight block (a BCSR cell's tiles turned into it here)."""
-    kw = dict(chunk=chunk, groups=groups)
+    :func:`distributed_graph_arrays` (built with the same ``overlap``);
+    ``dense_cell`` is the rank's ``fused_hybrid`` choice, ``sync_axes``
+    the replica lockstep.  A ``delta`` builds the weighted operator over
+    weighted operands, on the barrier schedule whatever the ``overlap``:
+    the arc list for ``sparse``, else the dense weight block (a BCSR
+    cell's tiles turned into it here)."""
+    kw = dict(chunk=chunk, groups=groups, sync_axes=sync_axes)
     if delta is not None:
         if engine_kind == "sparse":
             return DistributedWeightedOperator(*graph_args, delta=delta, **kw)
@@ -343,6 +494,11 @@ def make_distributed_operator(
         tiles, rows, cols, _ = graph_args
         block = tiles_to_dense(tiles, rows, cols, groups.C * chunk, groups.R * chunk)
         return DistributedWeightedDenseOperator(block, delta=delta, **kw)
+    kw["overlap"] = overlap
+    if engine_kind == "sparse" and normalize_overlap(overlap) != "none":
+        ring_src, ring_dst = graph_args
+        return DistributedOperator(None, None, ring_src_local=ring_src, ring_dst_local=ring_dst,
+                                   split_backward=split_backward, **kw)
     if engine_kind == "sparse":
         return DistributedOperator(*graph_args, split_backward=split_backward, **kw)
     if engine_kind == "fused_sparse":
@@ -361,6 +517,8 @@ def make_distributed_round_fn(
     engine_kind: str = "sparse",
     dense_cells: np.ndarray | None = None,
     delta: float | None = None,
+    overlap: str = "none",
+    integrity: str = "off",
 ):
     """Build this rank's sub-cluster-parallel, 2-D-distributed round function
 
@@ -379,12 +537,24 @@ def make_distributed_round_fn(
 
     ``fuse_backward_payload=False`` splits the backward exchange into two
     half-width collectives (the paper's unfused σ/d exchange, Fig. 9;
-    sparse engine only).  Barrier schedule.
+    sparse engine, barrier schedule only).
+
+    ``overlap`` (:data:`~repro_torch.core.operators.OVERLAP_POLICIES`,
+    resolved: not ``"auto"``) picks the schedule; ``graph_args`` must be
+    built with the same policy.  Under a ring with ``groups.fr > 1`` the
+    replicas agree on their loop bounds over every rank (``sync_axes``).
+
+    ``integrity`` (:data:`~repro_torch.core.driver.INTEGRITY_MODES`) makes
+    the round self-checking: a fifth output, f32 [fr, 2] — per replica the
+    max ABFT checksum residual of its level steps (``"checksum"``; 0 under
+    ``"audit"``) and its claimed bc sum.  ``"checksum"`` needs the fused
+    backward payload: the lane must travel with every exchanged operand.
 
     A bucket width ``delta`` runs the weighted (bucketed) round over
-    :func:`distributed_graph_arrays` built with ``weights=``;
-    the split payload is refused then (the operator checks ``delta``,
-    the round ``num_levels``).
+    :func:`distributed_graph_arrays` built with ``weights=``, on the
+    barrier collectives whatever the ``overlap`` (which then only sets the
+    lockstep); the split payload and ``integrity="checksum"`` are refused
+    then (the operator checks ``delta``, the round ``num_levels``).
     """
     if (groups.R, groups.C) != (partition.R, partition.C):
         raise ValueError(
@@ -399,6 +569,20 @@ def make_distributed_round_fn(
     if delta is not None and not fuse_backward_payload:
         raise ValueError("split backward payload is an unweighted sparse-engine "
                          "benchmark mode")
+    overlap = normalize_overlap(overlap)
+    integrity = normalize_integrity(integrity)
+    if integrity == "checksum" and not fuse_backward_payload:
+        raise ValueError("integrity='checksum' needs the fused backward payload: the "
+                         "checksum lane must travel with every exchanged operand")
+    if overlap != "none" and not fuse_backward_payload:
+        raise ValueError("split backward payload is a barrier-schedule benchmark mode; it "
+                         "cannot be combined with a ring overlap policy")
+    if delta is not None and integrity == "checksum":
+        raise ValueError("integrity='checksum' is a level-synchronous ABFT lane; weighted "
+                         "rounds support integrity='audit'")
+    # the replicas agree on loop bounds under a ring (the JAX package's
+    # ppermute spans the whole mesh; see DistributedOperator)
+    sync_axes = SYNC_AXES if groups.fr > 1 and overlap != "none" else ()
     chunk = partition.chunk
     base = partition.owned_vertex_base(groups.i, groups.j)
     dense_cell = engine_kind == "fused_hybrid" and bool(dense_cells[groups.i, groups.j])
@@ -408,10 +592,11 @@ def make_distributed_round_fn(
             engine_kind, graph_args, chunk=chunk, groups=groups, dense_cell=dense_cell,
             split_backward=not fuse_backward_payload,
             delta=None if delta is None else float(delta),
+            overlap=overlap if delta is None else "none", sync_axes=sync_axes,
         )
-        bc, ns, roots, levels = traversal_round(
+        bc, ns, roots, levels, *integ = traversal_round(
             op, sources[groups.f], derived[groups.f], omega[base : base + chunk],
-            num_levels=num_levels,
+            num_levels=num_levels, integrity=integrity,
         )
         level_t = torch.tensor([levels], dtype=torch.int32, device=bc.device)
         return (
@@ -419,7 +604,7 @@ def make_distributed_round_fn(
             groups.gather_replicas(ns),
             groups.gather_replicas(roots),
             groups.gather_replicas(level_t)[:, 0],
-        )
+        ) + tuple(groups.gather_replicas(x) for x in integ)
 
     return round_fn
 
@@ -553,24 +738,33 @@ def distributed_betweenness_centrality(
     ``cuda:LOCAL_RANK`` under NCCL; ``device="cpu"`` on the host under
     gloo.
 
+    ``overlap`` picks the collective schedule: ``"none"`` (barrier),
+    ``"expand"``, ``"expand+fold"`` (the ring schedules, on the ring
+    layouts, priced by the memory guard as such) or ``"auto"``
+    (:func:`resolve_overlap`, logged).  ``integrity`` ("audit" or
+    "checksum", :data:`~repro_torch.core.driver.INTEGRITY_MODES`) audits
+    every block on the driver's quarantine ladder.
+
     ``weighted`` / ``delta`` run the bucketed weighted traversal, with the
     single-device entry point's checks (``graph.w`` needed, heuristics in
     ``WEIGHTED_HEURISTICS``, no ``num_levels``, Δ from ``auto_delta`` when
     None); the BCSR and hybrid cells are turned into dense weight blocks.
+    A weighted run keeps the barrier layouts and collectives (a ring
+    policy only puts the replicas in lockstep, ``"auto"`` resolves to
+    ``"none"``), refuses ``integrity="checksum"`` (``ValueError``: the lane
+    is level-synchronous) and audits its rounds against a bucket bound,
+    ⌈n·w_max/Δ⌉ + 2, instead of n + 1 levels.
 
     The remaining knobs keep the JAX signature and raise
     ``NotImplementedError`` until their ROADMAP item ports them:
-    ``overlap`` (item 7), ``straggler``, ``chaos`` and ``integrity``
-    (item 8), ``autotune`` (item 9).
+    ``straggler`` and ``chaos`` (item 8), ``autotune`` (item 9).
 
     Returns ``(bc f64 [n], schedule)``, or the
     :class:`~repro_torch.core.driver.BCResult` with ``full_result``.
     """
     for name, value, default, item in (
-        ("overlap", overlap, "none", "7"),
         ("straggler", straggler, "none", "8"),
         ("chaos", chaos, None, "8"),
-        ("integrity", integrity, "off", "8"),
         ("autotune", autotune, "off", "9"),
     ):
         if value != default:
@@ -579,6 +773,9 @@ def distributed_betweenness_centrality(
                 f"(ROADMAP Queue 1 item {item})"
             )
     _check_engine(engine_kind)
+    if overlap != "auto":
+        overlap = normalize_overlap(overlap)
+    integrity = normalize_integrity(integrity)
     dev = device_for_rank(device)
     backend = dist.get_backend()
     want = "gloo" if dev.type == "cpu" else "nccl"
@@ -612,24 +809,43 @@ def distributed_betweenness_centrality(
         dense_cells, _ = hybrid_cell_choice(
             part, threshold=hybrid_threshold, tile_counts=tile_counts
         )
+    if delta is not None:
+        # weighted collectives run the barrier schedule; a ring policy only
+        # puts the replicas in lockstep, so "auto" has nothing to price
+        if overlap == "auto":
+            logger.info("overlap='auto' -> 'none' (weighted rounds are barrier-schedule)")
+            overlap = "none"
+    else:
+        overlap = resolve_overlap(overlap, part, engine_kind, batch_size, bm=bm, bk=bk,
+                                  tile_counts=tile_counts, dense_cells=dense_cells)
+    layout_overlap = "none" if delta is not None else overlap
     foot = check_device_memory(
-        part, engine_kind, batch_size, hbm_limit_bytes, bm=bm, bk=bk,
+        part, engine_kind, batch_size, hbm_limit_bytes, bm=bm, bk=bk, overlap=layout_overlap,
         tile_counts=tile_counts, dense_cells=dense_cells,
     )
     round_fn = make_distributed_round_fn(
         part, groups, num_levels=num_levels, engine_kind=engine_kind, dense_cells=dense_cells,
-        delta=delta,
+        delta=delta, overlap=overlap, integrity=integrity,
     )
     omega_pad = np.zeros(part.n_pad, np.float32)
     omega_pad[: graph.n] = omega_np
     omega = torch.from_numpy(omega_pad).to(dev)
     graph_args = distributed_graph_arrays(
-        part, engine_kind, groups.i, groups.j, dev, tile=tile, dense_cells=dense_cells,
-        weights=None if delta is None else residual.w,
+        part, engine_kind, groups.i, groups.j, dev, overlap=layout_overlap, tile=tile,
+        dense_cells=dense_cells, weights=None if delta is None else residual.w,
     )
-    index = graph_args[3] if len(graph_args) == 4 else None  # a tiled cell's, on the card
-    index_stats = None if index is None else {
-        "nnz": index.col.numel(), "bytes": index.nbytes(), "build_s": index.build_s}
+    index = graph_args[3] if len(graph_args) == 4 else None  # a tiled cell's: one, or one a slot
+    indexes = (index,) if isinstance(index, NonzeroIndex) else tuple(index or ())
+    index_stats = None
+    if indexes and all(ix is not None for ix in indexes):  # built on the card
+        index_stats = {"nnz": sum(ix.col.numel() for ix in indexes),
+                       "bytes": sum(ix.nbytes() for ix in indexes),
+                       "build_s": sum(ix.build_s for ix in indexes)}
+    level_bound = None
+    if delta is not None:
+        # the audit's "levels" are bucket indices: at most ⌈(n-1)·w_max/Δ⌉
+        w_max = float(residual.w.max()) if residual.w.size else 1.0
+        level_bound = int(np.ceil(graph.n * w_max / delta)) + 2
     driver = BCDriver(
         lambda sources, derived: round_fn(graph_args, omega, sources, derived),
         schedule,
@@ -640,9 +856,12 @@ def distributed_betweenness_centrality(
         checkpoint=None if checkpoint is None else _GridCheckpoint(checkpoint, dev),
         stop_rule=None if stop_rule is None else _GridStopRule(stop_rule, dev),
         rounds_per_dispatch=groups.fr,
+        integrity=integrity,
+        level_bound=level_bound,
     )
     result = apply_sampling_rescale(driver.run(), plan)
     result.layout_stats = _layout_stats(foot, tile_counts, dense_cells, index_stats)
+    result.layout_stats["overlap"] = overlap
     return result if full_result else (result.bc, schedule)
 
 
@@ -650,8 +869,8 @@ def _layout_stats(foot: dict, tile_counts: dict | None, dense_cells: np.ndarray 
                   index_stats: dict | None) -> dict:
     """The run's footprint record and, for the tiled engines, the tile
     shape and the stored-tile counts of the ranks that hold tiles, and
-    this rank's nonzero index (entries, bytes, build seconds) if it holds
-    tiles."""
+    this rank's nonzero index (entries, bytes, build seconds; summed over
+    the slots under a ring) if it holds tiles."""
     stats = {"footprint": foot}
     if index_stats is not None:
         stats["index"] = index_stats

@@ -318,7 +318,9 @@ class BCDriver:
     arms the watchdog on ``clock``; the numeric guard (``numeric_guard``,
     on by default only with a ``fallback_round_fn``) quarantines
     non-finite blocks; ``integrity`` (:data:`INTEGRITY_MODES`) audits
-    every block; a block that keeps failing is recomputed through
+    every block, a round's depth against ``level_bound`` (default n + 1
+    levels; a weighted caller passes its bucket bound); a block that keeps
+    failing is recomputed through
     ``fallback_round_fn`` when the caller passed one.
     ``straggler`` keeps the JAX driver's signature; anything but "none"
     raises until ROADMAP Queue 1 item 8 ports the multi-ledger loop.
@@ -346,6 +348,7 @@ class BCDriver:
         dispatch_deadline_s: float | None = None,
         clock: Callable[[], float] | None = None,
         sleeper: Callable[[float], None] | None = None,
+        level_bound: int | None = None,
     ):
         if straggler != "none":
             raise NotImplementedError(
@@ -372,6 +375,10 @@ class BCDriver:
             fallback_round_fn is not None if numeric_guard is None else bool(numeric_guard)
         )
         self.integrity = normalize_integrity(integrity)
+        #: the audit's bound on a round's reported depth: None is the
+        #: unweighted n + 1 levels; a weighted caller passes its bucket
+        #: bound, since bucket indices scale with max distance / Δ, not n
+        self.level_bound = level_bound
         self.dispatch_deadline_s = (
             None if dispatch_deadline_s is None else float(dispatch_deadline_s)
         )
@@ -480,7 +487,8 @@ class BCDriver:
             return f"negative BC contribution (min {mn:.3e})"
         if levels is not None:
             lv = _host(levels)
-            if lv.min() < 0 or lv.max() > self.n + 1:  # a round has at most n + 1 levels
+            bound = self.level_bound if self.level_bound is not None else self.n + 1
+            if lv.min() < 0 or lv.max() > bound:
                 return f"level bound violation (levels {lv.tolist()})"
         ns_max = float(ns.max()) if ns.numel() else 0.0
         if ns_max > self.n * (1.0 + 1e-5) + 1e-6:

@@ -17,7 +17,9 @@ round loop, and operators everything below a level:
                         "checksum"; the fused operator runs K3/K4)
   reduce_any/max/sum    agreement on liveness, max depth and additive
                         per-column facts (identity on one device,
-                        ``all_reduce`` over the grid group on a 2-D grid)
+                        ``all_reduce`` over the grid group on a 2-D grid;
+                        liveness and depth over every rank when replicas
+                        run in lockstep, ``sync_axes``)
   row_ids / level_cap   which vertices the rows are; worst-case levels
   root_omega            ω at the round's root vertices
 
@@ -31,7 +33,8 @@ Implementations: :class:`DenseOperator` (``torch.matmul`` on a dense
 partial kernels K3/K4 on the device's dense block),
 :class:`DistributedFusedSparseOperator` (around K5/K6 on the block's
 stored BCSR tiles) and :class:`DistributedFusedHybridOperator` (either
-of the two, per cell) on a grid.
+of the two, per cell) on a grid.  Each runs the barrier schedule or one
+of the ring schedules of :data:`OVERLAP_POLICIES` (paper §3.2 Fig. 2).
 
 The weighted (bucketed delta-stepping) traversal has its own protocol,
 :class:`WeightedTraversalOperator` — ``relax`` / ``sigma_step`` /
@@ -53,9 +56,8 @@ import math
 import torch
 import torch.distributed as dist
 
-from ..distributed.groups import GridGroups, all_gather, reduce_scatter
+from ..distributed.groups import GridGroups, all_gather, reduce_scatter, ring_hop
 from ..kernels import ops
-from ..kernels.blocked_spmm import NonzeroIndex
 
 __all__ = [
     "TraversalOperator",
@@ -73,7 +75,35 @@ __all__ = [
     "DistributedWeightedDenseOperator",
     "auto_delta",
     "as_operator",
+    "OVERLAP_POLICIES",
+    "normalize_overlap",
 ]
+
+# Collective schedules of the distributed operators (paper §3.2 Fig. 2
+# pipelining).  "none" is the barrier schedule: an all_gather expand, the
+# block compute, a reduce_scatter fold, every rank idle through both
+# collectives.  "expand" turns the expand into R-1 point-to-point ring
+# hops over the column group, interleaved with per-chunk block compute
+# (the next chunk is in flight while the one in hand multiplies).
+# "expand+fold" also turns the fold into a C-1-hop reduce ring over the
+# row group, so no collective of the group's whole width remains on a
+# level.  Single-device operators have no collectives and accept only
+# "none".
+OVERLAP_POLICIES = ("none", "expand", "expand+fold")
+
+#: the replica-lockstep axis a ring schedule adds to the loop-bound
+#: agreement (the JAX package's ``sync_axes`` names its ``pod`` axis)
+SYNC_AXES = ("replica",)
+
+
+def normalize_overlap(policy: str | None) -> str:
+    """Validate an overlap policy string (None means "none")."""
+    policy = "none" if policy is None else policy
+    if policy not in OVERLAP_POLICIES:
+        raise ValueError(
+            f"unknown overlap policy {policy!r}; expected one of {OVERLAP_POLICIES}"
+        )
+    return policy
 
 
 def _forward_level(op: "TraversalOperator", lvl: int, sigma, depth):
@@ -300,17 +330,12 @@ class FusedDenseOperator(TraversalOperator):
         return delta + torch.where(depth == lvl, sigma * t[:, :-1], 0.0), err
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 class DistributedOperator(TraversalOperator):
     """2-D-decomposed operator (paper §3.2) of one rank of a
     :class:`~repro_torch.distributed.groups.GridGroups` grid — the
-    counterpart of the JAX package's ``DistributedOperator``, barrier
-    schedule only.
+    counterpart of the JAX package's ``DistributedOperator``.
 
-    Per application:
+    Per application, barrier schedule (``overlap="none"``):
       expand (Alg. 2 line 15):  ``all_gather`` over the rank's column group
           delivers the frontier slice of grid column j, ``[R·chunk, s]``.
       local compute:            gather ``x_col[src_local]`` and
@@ -322,9 +347,26 @@ class DistributedOperator(TraversalOperator):
     Only the frontier-σ / g tensor travels; the depth test of the far
     endpoint is folded into it.  ``split_backward`` splits the backward
     exchange into two half-width collectives (the paper's unfused σ/d
-    exchange, the Fig. 9 benchmark mode).  The ring schedules
-    (``overlap != "none"``) and replica lockstep (``sync_axes``) are not
-    ported yet and raise.
+    exchange, the Fig. 9 benchmark mode; barrier schedule only).
+
+    ``overlap`` picks the schedule (:data:`OVERLAP_POLICIES`).  Under a
+    ring the expand is R-1 point-to-point hops of the owned chunk over the
+    column group (:meth:`_ring_partial`), each step adding only the arcs
+    sourced in the chunk in hand — the ring arc slots ``ring_src_local`` /
+    ``ring_dst_local`` (int64 [R, max_ring_arcs],
+    :meth:`~repro_torch.graphs.partition.TwoDPartition.cell_ring_arcs`) —
+    and under ``"expand+fold"`` the fold is a C-1-hop reduce ring over the
+    row group (:meth:`_fold_ring`).
+
+    ``sync_axes`` (:data:`SYNC_AXES`) puts the replicas of a sub-clustered
+    grid in lockstep: liveness and max depth (``reduce_any`` /
+    ``reduce_max``) agree over every rank, so each replica runs the
+    maximum level count over the replicas (the extra levels are masked
+    no-ops), while ``reduce_max_grid`` stays on the replica's own grid
+    and still reads its own depth.  The JAX package needs it because a
+    ``ppermute`` spans the whole mesh; torch's point-to-point hops of
+    different replicas never meet, but the port keeps the reference's
+    behaviour.
     """
 
     def __init__(
@@ -336,20 +378,30 @@ class DistributedOperator(TraversalOperator):
         groups: GridGroups,
         split_backward: bool = False,
         overlap: str = "none",
+        ring_src_local: torch.Tensor | None = None,  # int64 [R, max_ring_arcs], chunk-relative
+        ring_dst_local: torch.Tensor | None = None,  # int64 [R, max_ring_arcs]
         sync_axes: tuple[str, ...] = (),
     ):
-        if overlap != "none":
-            raise _not_ported(f"overlap={overlap!r} (the ring schedules)", 7)
-        if sync_axes:
-            raise _not_ported("sync_axes (replica lockstep under a ring schedule)", 7)
+        self.overlap = normalize_overlap(overlap)
+        if self.overlap != "none" and split_backward:
+            raise ValueError(
+                "split_backward is a barrier-schedule benchmark mode; it cannot be "
+                "combined with a ring overlap policy"
+            )
+        self.sync_axes = tuple(sync_axes)
+        if any(a not in SYNC_AXES for a in self.sync_axes):
+            raise ValueError(f"sync_axes must be drawn from {SYNC_AXES}, got {sync_axes}")
         self.src_local = src_local
         self.dst_local = dst_local
+        self.ring_src_local = ring_src_local
+        self.ring_dst_local = ring_dst_local
         self.chunk = chunk
         self.groups = groups
         self.R, self.C = groups.R, groups.C
         self.split_backward = split_backward
         self.n_rows = chunk
-        self.device = None if src_local is None else src_local.device
+        arcs = src_local if src_local is not None else ring_src_local
+        self.device = None if arcs is None else arcs.device
 
     # ---------------------------------------------- collective skeleton
     def _expand(self, x_owned: torch.Tensor) -> torch.Tensor:
@@ -364,14 +416,79 @@ class DistributedOperator(TraversalOperator):
         out = x_col.new_zeros((rows + 1,) + tuple(x_col.shape[1:]))
         return out.index_add_(0, self.dst_local, msgs)[:rows]
 
+    # ------------------------------------------------- ring schedules
+    def _column_hop(self, tensors) -> tuple[list, list]:
+        """Post one expand hop: rank (i, j) sends to (i + 1, j)."""
+        g = self.groups
+        return ring_hop(tensors, g.col_next, g.col_prev, g.column)
+
+    def _ring_steps(self, operands, step_fn, acc: torch.Tensor):
+        """The ring-pipelined expand over the column group.
+
+        ``operands`` are owned [chunk, ...] tensors that travel together;
+        ``step_fn(r, hand, acc)`` folds the product of the chunk in hand —
+        grid row ``r``'s, ``r = (i − t) mod R`` at step t — into the running
+        accumulator, which starts as the zeros ``acc``, and returns it.  The
+        hop of step t + 1 is posted before step t's compute, into fresh
+        buffers, so the transfer overlaps the compute."""
+        hand = list(operands)
+        for t in range(self.R):
+            nxt = self._column_hop(hand) if t + 1 < self.R else None
+            acc = step_fn((self.groups.i - t) % self.R, hand, acc)
+            if nxt is not None:
+                hand, works = nxt
+                for w in works:
+                    w.wait()
+        return acc
+
+    def _ring_partial(self, x_owned: torch.Tensor) -> torch.Tensor:
+        """The arc-list ring expand: at each step only the chunk in hand's
+        arcs (ring slot r) are added into the ``C·chunk + 1`` accumulator."""
+        if self.ring_src_local is None or self.ring_dst_local is None:
+            raise ValueError("overlap != 'none' needs the ring arc slots "
+                             "(TwoDPartition.cell_ring_arcs)")
+        rows = self.C * self.chunk
+
+        def step(r, hand, acc):
+            return acc.index_add_(0, self.ring_dst_local[r],
+                                  hand[0].index_select(0, self.ring_src_local[r]))
+
+        acc = x_owned.new_zeros((rows + 1,) + tuple(x_owned.shape[1:]))
+        return self._ring_steps((x_owned,), step, acc)[:rows]
+
+    def _fold_ring(self, partial: torch.Tensor) -> torch.Tensor:
+        """The reduce-ring fold: C-1 hops over the row group.  Block m of
+        ``partial`` (rows [m·chunk, (m+1)·chunk)) belongs to rank (i, m).
+        Rank j starts with its block (j − 1) mod C and, after each hop from
+        rank j − 1, adds its block (j − 1 − t) mod C; after C-1 hops it
+        holds its own block summed over the row: the ``reduce_scatter``
+        result."""
+        C, chunk, g = self.C, self.chunk, self.groups
+        if C == 1:
+            return partial
+
+        def block(m):
+            m %= C
+            return partial[m * chunk:(m + 1) * chunk]
+
+        acc = block(g.j - 1)
+        for t in range(1, C):
+            (acc,), works = ring_hop([acc], g.row_next, g.row_prev, g.row)
+            for w in works:
+                w.wait()
+            acc = acc + block(g.j - 1 - t)
+        return acc
+
+    def _fold_partial(self, partial: torch.Tensor) -> torch.Tensor:
+        """Fold the [C·chunk, s] partial by the overlap policy."""
+        if self.overlap == "expand+fold":
+            return self._fold_ring(partial)
+        return self._fold(partial)
+
     def apply(self, x_owned):
-        return self._fold(self._local(self._expand(x_owned)))
-
-    def forward_level_checked(self, lvl, sigma, depth):
-        raise _not_ported("the ABFT checksum lane on a 2-D grid (integrity='checksum')", 8)
-
-    def backward_level_checked(self, lvl, sigma, depth, omega, delta):
-        raise _not_ported("the ABFT checksum lane on a 2-D grid (integrity='checksum')", 8)
+        if self.overlap == "none":
+            return self._fold(self._local(self._expand(x_owned)))
+        return self._fold_partial(self._ring_partial(x_owned))
 
     def apply_backward(self, g):
         if not self.split_backward:
@@ -380,16 +497,33 @@ class DistributedOperator(TraversalOperator):
         return torch.cat([self.apply(g[:, :half]), self.apply(g[:, half:])], dim=1)
 
     # ------------------------------------------- collective agreements
-    def _all_reduce(self, value: torch.Tensor, op) -> torch.Tensor:
+    @staticmethod
+    def _all_reduce(value: torch.Tensor, op, group) -> torch.Tensor:
         out = value.reshape(1).clone()
-        dist.all_reduce(out, op=op, group=self.groups.grid)
+        dist.all_reduce(out, op=op, group=group)
         return out[0]
 
+    @property
+    def _loop_group(self):
+        """Where the loop bounds agree: every rank under replica lockstep,
+        else the replica's own grid."""
+        return self.groups.loop if self.sync_axes else self.groups.grid
+
     def reduce_any(self, alive):
-        return self._all_reduce(alive.to(torch.int32), dist.ReduceOp.SUM) > 0
+        return self._all_reduce(alive.to(torch.int32), dist.ReduceOp.SUM, self._loop_group) > 0
 
     def reduce_max(self, value):
-        return self._all_reduce(value, dist.ReduceOp.MAX)
+        return self._all_reduce(value, dist.ReduceOp.MAX, self._loop_group)
+
+    def reduce_max_grid(self, value):
+        # grid-local (never spans sync_axes): the replica's own depth
+        return self._all_reduce(value, dist.ReduceOp.MAX, self.groups.grid)
+
+    def reduce_max_sync(self, value):
+        # the replica extension of a grid max (no collective without sync_axes)
+        if not self.sync_axes:
+            return value
+        return self._all_reduce(value, dist.ReduceOp.MAX, self.groups.replica)
 
     def reduce_sum(self, value):
         out = value.clone()
@@ -413,18 +547,26 @@ class DistributedOperator(TraversalOperator):
 class DistributedFusedOperator(DistributedOperator):
     """The 2-D decomposition with the partial kernels K3/K4 as block-local
     compute — the counterpart of the JAX package's
-    ``DistributedPallasOperator`` (barrier schedule).
+    ``DistributedPallasOperator``.
 
     ``block`` is the rank's dense adjacency block A[rows_i, cols_j],
-    ``[C·chunk, R·chunk]`` (f32, or bf16: 0/1 values are exact).  The
-    kernels fuse the frontier mask / g recompute into the block product;
-    the state update needs the t summed over the grid row, so it runs in
-    torch after the fold.  The exchanges therefore carry (σ, d) forward
-    and (σ, d, δ, ω) backward — the paper's §3.2 exchange set — instead of
-    the arc-list operator's one pre-masked tensor.  The block product is
-    the ``_partial_forward`` / ``_partial_backward`` hook, which the BCSR
-    and hybrid subclasses replace; the collectives and the epilogue are
-    written once, here.
+    ``[C·chunk, R·chunk]`` (f32, or bf16: 0/1 values are exact); under a
+    ring schedule it is the same block as R contiguous column slabs
+    ``[R, C·chunk, chunk]``
+    (:meth:`~repro_torch.graphs.partition.TwoDPartition.cell_dense_slabs`),
+    slab r the operand of the step whose chunk in hand is grid row r's.
+    The kernels fuse the frontier mask / g recompute into the block
+    product; the state update needs the t summed over the grid row, so it
+    runs in torch after the fold.  The exchanges therefore carry (σ, d)
+    forward and (σ, d, δ, ω) backward — the paper's §3.2 exchange set —
+    instead of the arc-list operator's one pre-masked tensor.
+
+    The block seam: ``_full_block()`` / ``_ring_block(r)`` give the
+    barrier schedule's and ring step r's A-operand, ``_partial_forward`` /
+    ``_partial_backward`` hand it to the kernel, with the running sum of
+    the ring steps as the kernels' ``acc`` operand.  The BCSR and hybrid
+    subclasses replace only the seam; the schedules, the checked steps and
+    the epilogue are written once, here.
     """
 
     def __init__(
@@ -441,57 +583,119 @@ class DistributedFusedOperator(DistributedOperator):
         self.block = block
         self.device = block.device
 
-    # ------------------------------------------------------ block hooks
-    def _partial_forward(self, sigma_col, depth_col, lvl):
-        return ops.frontier_spmm_partial(self.block, sigma_col, depth_col, lvl)
+    # ------------------------------------------------------ block seam
+    def _full_block(self):
+        """The barrier schedule's A-operand: the whole block."""
+        return self.block
 
-    def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
-        return ops.dependency_spmm_partial(
-            self.block, sigma_col, depth_col, delta_col, omega_col, lvl
-        )
+    def _ring_block(self, r: int):
+        """Ring step r's A-operand: the columns of grid row r's chunk."""
+        return self.block[r]
+
+    def _partial_forward(self, block, sigma, depth, lvl, acc=None):
+        return ops.frontier_spmm_partial(block, sigma, depth, lvl, acc)
+
+    def _partial_backward(self, block, sigma, depth, delta, omega, lvl, acc=None):
+        return ops.dependency_spmm_partial(block, sigma, depth, delta, omega, lvl, acc)
+
+    # ----------------------------------------------------- the products
+    def _ring_acc(self, sigma: torch.Tensor) -> torch.Tensor:
+        """The ring's zero [C·chunk, s] f32 running sum: every step, the
+        first too, runs the kernels' ``acc`` mode, as the JAX package's
+        ring does."""
+        return torch.zeros((self.C * self.chunk, sigma.shape[1]), dtype=torch.float32,
+                           device=sigma.device)
+
+    def _forward_partial(self, lvl, sigma, depth):
+        """The [C·chunk, s] pre-fold forward partial under the schedule."""
+        if self.overlap == "none":
+            return self._partial_forward(self._full_block(), self._expand(sigma),
+                                         self._expand(depth), lvl)
+        return self._ring_steps((sigma, depth), lambda r, hand, acc: self._partial_forward(
+            self._ring_block(r), hand[0], hand[1], lvl, acc), self._ring_acc(sigma))
+
+    def _backward_partial(self, lvl, sigma, depth, delta, omega):
+        """The [C·chunk, s] pre-fold backward partial under the schedule."""
+        if self.overlap == "none":
+            return self._partial_backward(
+                self._full_block(), self._expand(sigma), self._expand(depth),
+                self._expand(delta), self._expand(omega), lvl)
+        return self._ring_steps(
+            (sigma, depth, delta, omega), lambda r, hand, acc: self._partial_backward(
+                self._ring_block(r), hand[0], hand[1], hand[2], hand[3], lvl, acc),
+            self._ring_acc(sigma))
 
     # ------------------------------------------------------ level steps
     def forward_level(self, lvl, sigma, depth):
-        partial = self._partial_forward(
-            self._expand(sigma), self._expand(depth), lvl
-        )  # [C*chunk, s]
-        t = self._fold(partial)  # [chunk, s]
+        t = self._fold_partial(self._forward_partial(lvl, sigma, depth))  # [chunk, s]
         newly = (t > 0) & (depth < 0)
         depth = torch.where(newly, lvl, depth)
         sigma = sigma + torch.where(newly, t, 0.0)
         return sigma, depth, newly.any()
 
     def backward_level(self, lvl, sigma, depth, omega, delta):
-        partial = self._partial_backward(
-            self._expand(sigma), self._expand(depth), self._expand(delta),
-            self._expand(omega), lvl,
-        )
-        t = self._fold(partial)
+        t = self._fold_partial(self._backward_partial(lvl, sigma, depth, delta, omega))
         return delta + torch.where(depth == lvl, sigma * t, 0.0)
+
+    # The checked steps: the single-device fused operator's extended
+    # operands (the lane column's σ, d, δ make the kernels' own recompute
+    # land on the column sum), through the same expand or ring and fold —
+    # the lane survives the all_gather, every hop and the reduce_scatter
+    # because each is linear per column, so one residual on the folded t
+    # audits the whole pipeline.  The BCSR and hybrid subclasses inherit
+    # them through the block seam.
+    def forward_level_checked(self, lvl, sigma, depth):
+        fsum = (sigma * (depth == lvl - 1)).sum(dim=1, keepdim=True)
+        sg = torch.cat([sigma, fsum], dim=1)
+        dp = torch.cat([depth, torch.full_like(depth[:, :1], lvl - 1)], dim=1)
+        t = self._fold_partial(self._forward_partial(lvl, sg, dp))
+        err = ops.checksum_residual(t)
+        contrib = t[:, :-1]
+        newly = (contrib > 0) & (depth < 0)
+        depth2 = torch.where(newly, lvl, depth)
+        sigma2 = sigma + torch.where(newly, contrib, 0.0)
+        return sigma2, depth2, newly.any(), err
+
+    def backward_level_checked(self, lvl, sigma, depth, omega, delta):
+        safe_sigma = torch.where(sigma > 0, sigma, 1.0)
+        g = torch.where(depth == lvl + 1, (1.0 + delta + omega[:, None]) / safe_sigma, 0.0)
+        sg = torch.cat([sigma, torch.ones_like(sigma[:, :1])], dim=1)
+        dp = torch.cat([depth, torch.full_like(depth[:, :1], lvl + 1)], dim=1)
+        dl = torch.cat([delta, g.sum(dim=1, keepdim=True) - 1.0 - omega[:, None]], dim=1)
+        t = self._fold_partial(self._backward_partial(lvl, sg, dp, dl, omega))
+        err = ops.checksum_residual(t)
+        return delta + torch.where(depth == lvl, sigma * t[:, :-1], 0.0), err
 
 
 class DistributedFusedSparseOperator(DistributedFusedOperator):
     """The 2-D decomposition with the BCSR partial kernels K5/K6 as
     block-local compute — the counterpart of the JAX package's
-    ``DistributedPallasSparseOperator`` (barrier schedule).
+    ``DistributedPallasSparseOperator``.
 
-    The rank's block is its stored tile list (``tiles`` f32 [T, bm, bk],
-    ``tile_rows`` / ``tile_cols`` i32 [T], row-sorted; built on the device
-    by :meth:`~repro_torch.graphs.partition.TwoDPartition.cell_blocked_sparse`),
+    Barrier schedule: the rank's block is its stored tile list (``tiles``
+    f32 [T, bm, bk], ``tile_rows`` / ``tile_cols`` i32 [T], row-sorted;
+    built on the device by
+    :meth:`~repro_torch.graphs.partition.TwoDPartition.cell_blocked_sparse`),
     so the rank holds O(T·bm·bk) adjacency bytes instead of the dense
     block's (C·chunk)·(R·chunk).  K5/K6 read the tiles' nonzero ``index``
     (:func:`~repro_torch.kernels.blocked_spmm.nonzero_index`, built once
     per layout by :func:`~repro_torch.core.distributed.distributed_graph_arrays`;
     None on the CPU, where the plain versions read the tiles) instead of
     the tiles, so a level streams O(nnz) of them.
+
+    Ring schedules: each of the four operands is a length-R sequence, slot
+    r's tile list (tile-cols re-based to the chunk,
+    :meth:`~repro_torch.graphs.partition.TwoDPartition.cell_ring_blocked_sparse`)
+    and its own nonzero index (m = C·chunk, k = chunk), the operand of
+    the step whose chunk in hand is grid row r's.
     """
 
     def __init__(
         self,
-        tiles: torch.Tensor,
-        tile_rows: torch.Tensor,
-        tile_cols: torch.Tensor,
-        index: NonzeroIndex | None,
+        tiles,
+        tile_rows,
+        tile_cols,
+        index,
         *,
         chunk: int,
         groups: GridGroups,
@@ -500,36 +704,45 @@ class DistributedFusedSparseOperator(DistributedFusedOperator):
     ):
         DistributedOperator.__init__(self, None, None, chunk=chunk, groups=groups,
                                      overlap=overlap, sync_axes=sync_axes)
-        self.device = tiles.device
-        self.tiles, self.tile_rows, self.tile_cols = tiles, tile_rows, tile_cols
+        if self.overlap == "none":
+            self.full = (tiles, tile_rows, tile_cols, index)
+            self.device = tiles.device
+        else:
+            self.slots = list(zip(tiles, tile_rows, tile_cols, index))
+            if len(self.slots) != self.R:
+                raise ValueError(f"a ring needs {self.R} tile slots, got {len(self.slots)}")
+            self.device = self.slots[0][0].device
         self.m = self.C * chunk
-        self.index = index
 
-    def _partial_forward(self, sigma_col, depth_col, lvl):
-        return ops.frontier_spmm_sparse(
-            self.tiles, self.tile_rows, self.tile_cols, sigma_col, depth_col, lvl,
-            m=self.m, index=self.index,
-        )
+    def _full_block(self):
+        return self.full
 
-    def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
-        return ops.dependency_spmm_sparse(
-            self.tiles, self.tile_rows, self.tile_cols, sigma_col, depth_col, delta_col,
-            omega_col, lvl, m=self.m, index=self.index,
-        )
+    def _ring_block(self, r: int):
+        return self.slots[r]
+
+    def _partial_forward(self, block, sigma, depth, lvl, acc=None):
+        tiles, rows, cols, index = block
+        return ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, lvl, m=self.m,
+                                        acc=acc, index=index)
+
+    def _partial_backward(self, block, sigma, depth, delta, omega, lvl, acc=None):
+        tiles, rows, cols, index = block
+        return ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, lvl,
+                                          m=self.m, acc=acc, index=index)
 
 
 class DistributedFusedHybridOperator(DistributedFusedSparseOperator):
     """The 2-D decomposition with a per-cell dense/BCSR kernel choice — the
-    counterpart of the JAX package's ``DistributedPallasHybridOperator``
-    (barrier schedule).
+    counterpart of the JAX package's ``DistributedPallasHybridOperator``.
 
     One rank per device, so each rank knows its own cell's choice on the
     host: a dense-chosen cell (``dense_cell``) holds only its dense block
-    (``operands = (block,)``) and runs K3/K4, a sparse-chosen cell only its
-    tile list and its nonzero index (``operands = (tiles, tile_rows,
-    tile_cols, index)``) and runs K5/K6.  The branch is taken in Python,
-    inside the block-local hooks only, so every rank of a mixed grid runs
-    the same collectives.
+    (``operands = (block,)``, slabs under a ring) and runs K3/K4, a
+    sparse-chosen cell only its tile list and its nonzero index
+    (``operands = (tiles, tile_rows, tile_cols, index)``, R slots of each
+    under a ring) and runs K5/K6.  The branch is taken in Python, inside
+    the block seam only, so every rank of a mixed grid runs the same
+    collectives and hops under every schedule.
     (The JAX package ships both operand sets to every device and branches
     with ``lax.cond``, because ``shard_map`` needs uniform shapes.)
     """
@@ -537,7 +750,7 @@ class DistributedFusedHybridOperator(DistributedFusedSparseOperator):
     def __init__(
         self,
         dense_cell: bool,
-        *operands: torch.Tensor,
+        *operands,
         chunk: int,
         groups: GridGroups,
         overlap: str = "none",
@@ -550,13 +763,20 @@ class DistributedFusedHybridOperator(DistributedFusedSparseOperator):
         else:
             super().__init__(*operands, **kw)
 
-    def _partial_forward(self, sigma_col, depth_col, lvl):
-        cls = DistributedFusedOperator if self.dense_cell else DistributedFusedSparseOperator
-        return cls._partial_forward(self, sigma_col, depth_col, lvl)
+    def _cls(self):
+        return DistributedFusedOperator if self.dense_cell else DistributedFusedSparseOperator
 
-    def _partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl):
-        cls = DistributedFusedOperator if self.dense_cell else DistributedFusedSparseOperator
-        return cls._partial_backward(self, sigma_col, depth_col, delta_col, omega_col, lvl)
+    def _full_block(self):
+        return self._cls()._full_block(self)
+
+    def _ring_block(self, r):
+        return self._cls()._ring_block(self, r)
+
+    def _partial_forward(self, block, sigma, depth, lvl, acc=None):
+        return self._cls()._partial_forward(self, block, sigma, depth, lvl, acc)
+
+    def _partial_backward(self, block, sigma, depth, delta, omega, lvl, acc=None):
+        return self._cls()._partial_backward(self, block, sigma, depth, delta, omega, lvl, acc)
 
 
 # --------------------------------------------------------------------------
@@ -759,16 +979,19 @@ class DistributedWeightedOperator(DistributedOperator):
     equality test needs the output-side distances, replicated with an
     ``all_gather`` over the row group (block j = rank (i, j)'s chunk, the
     order ``dst_local`` indexes).  ``reduce_min`` / ``reduce_any`` run on
-    the grid group, so every rank reads the same trip decisions.
+    the grid group, so every rank reads the same trip decisions — on every
+    rank with ``sync_axes``, the only part of a ring policy a weighted run
+    takes (its collectives stay on the barrier schedule, as in the JAX
+    package).
     """
 
     weighted = True
 
     def __init__(self, src_local, dst_local, w_local, *, delta: float, chunk: int,
-                 groups: GridGroups):
+                 groups: GridGroups, sync_axes: tuple[str, ...] = ()):
         src_local, dst_local, w_local, self.lengths = _by_destination(
             src_local, dst_local, w_local.to(torch.float32), groups.C * chunk)
-        super().__init__(src_local, dst_local, chunk=chunk, groups=groups)
+        super().__init__(src_local, dst_local, chunk=chunk, groups=groups, sync_axes=sync_axes)
         self.delta = _check_delta(delta)
         self._weights(w_local)
 
@@ -788,7 +1011,7 @@ class DistributedWeightedOperator(DistributedOperator):
         return folded[j * self.chunk:(j + 1) * self.chunk]
 
     def reduce_min(self, value):
-        return self._all_reduce(value, dist.ReduceOp.MIN)
+        return self._all_reduce(value, dist.ReduceOp.MIN, self._loop_group)
 
     # ------------------------------------------------------ bucket hooks
     def relax(self, dist_, frontier, heavy):
@@ -825,8 +1048,9 @@ class DistributedWeightedDenseOperator(DistributedWeightedOperator):
     theirs through its XLA counterpart; small blocks only."""
 
     def __init__(self, weight_block: torch.Tensor, *, delta: float, chunk: int,
-                 groups: GridGroups):
-        DistributedOperator.__init__(self, None, None, chunk=chunk, groups=groups)
+                 groups: GridGroups, sync_axes: tuple[str, ...] = ()):
+        DistributedOperator.__init__(self, None, None, chunk=chunk, groups=groups,
+                                     sync_axes=sync_axes)
         self.device = weight_block.device
         self.delta = _check_delta(delta)
         self._weights(weight_block)

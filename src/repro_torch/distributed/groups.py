@@ -17,7 +17,16 @@ the collectives rely on:
   grid group    the R·C ranks of replica f: liveness, depth and n_s
                 agreement (``psum``/``pmax`` over both grid axes);
   replica group the fr ranks (·, i, j): each replica's per-round results
-                travel across the sub-cluster axis (``pod``).
+                travel across the sub-cluster axis (``pod``);
+  loop group    replica ∪ grid, every rank: the loop-bound agreement that
+                keeps replicas in lockstep under a ring schedule
+                (``sync_axes``).
+
+The ring schedules replace the expand and the fold with point-to-point
+hops (:func:`ring_hop`, JAX's ``ppermute`` with device s sending to
+s + 1): over the column group rank (f, i, j) sends to ((i + 1) mod R)
+and receives from ((i − 1) mod R); over the row group the same in j.
+:class:`GridGroups` holds those neighbours' global ranks.
 
 :func:`run_gloo` spawns such a grid of gloo processes on the host (the
 CLI's ``--mesh … --device cpu`` and the CPU tests).
@@ -37,7 +46,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["GridGroups", "device_for_rank", "all_gather", "reduce_scatter", "run_gloo"]
+__all__ = ["GridGroups", "device_for_rank", "all_gather", "reduce_scatter", "ring_hop",
+           "run_gloo"]
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -56,6 +66,21 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def ring_hop(tensors, send_to: int, recv_from: int, group) -> tuple[list, list]:
+    """Post one ring hop: send every tensor of ``tensors`` to global rank
+    ``send_to`` and receive as many, of the same shapes and dtypes, from
+    ``recv_from``, as one ``batch_isend_irecv`` over ``group``.  Returns
+    ``(buffers, works)``: fresh receive buffers (the tensors sent are never
+    written) and the works to ``wait()`` before reading them (on the card
+    that makes the current stream wait, not the host).  The caller skips
+    a one-member ring, which has nowhere to send."""
+    tensors = [t.contiguous() for t in tensors]
+    bufs = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t, send_to, group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, b, recv_from, group) for b in bufs]
+    return bufs, dist.batch_isend_irecv(ops)
+
+
 def device_for_rank(device: str | torch.device | None = None) -> torch.device:
     """This rank's device: the CPU when the caller asks for it, otherwise
     the card ``cuda:LOCAL_RANK`` (raises without one), made current."""
@@ -67,9 +92,10 @@ def device_for_rank(device: str | torch.device | None = None) -> torch.device:
 
 
 class GridGroups:
-    """Rank → (f, i, j) and the column, row, grid and replica groups of an
-    fr × R × C grid (see the module docstring), built from the default
-    process group.  Every rank must construct it, in the same order
+    """Rank → (f, i, j), the column, row, grid, replica and loop groups
+    of an fr × R × C grid and the global ranks of the rank's ring
+    neighbours (see the module docstring), built from the default process
+    group.  Every rank must construct it, in the same order
     relative to its other ``new_group`` calls: group creation is
     collective."""
 
@@ -109,6 +135,12 @@ class GridGroups:
                 g = dist.new_group([rank_of(f, i, j) for f in range(fr)])
                 if (i, j) == (self.i, self.j):
                     self.replica = g
+        self.loop = None  # replica ∪ grid is every rank: the default group
+        # ring neighbours (global ranks): the column ring over i, the row ring over j
+        self.col_next = rank_of(self.f, (self.i + 1) % R, self.j)
+        self.col_prev = rank_of(self.f, (self.i - 1) % R, self.j)
+        self.row_next = rank_of(self.f, self.i, (self.j + 1) % C)
+        self.row_prev = rank_of(self.f, self.i, (self.j - 1) % C)
 
     def gather_vertices(self, x_owned: torch.Tensor) -> torch.Tensor:
         """Every rank's owned ``[chunk, ...]`` slice, assembled on every rank

@@ -33,9 +33,19 @@ Weighted layouts: every builder takes ``weights`` (f32 [num_arcs] in the
 graph's arc order) and stores the edge weights in place of the 0/1
 values, 0 meaning "no arc" — the bucketed traversal's operands.
 
+Ring layouts (the ``overlap="expand"`` / ``"expand+fold"`` schedules):
+at ring step t rank (i, j) holds the owned chunk of grid row
+``r = (i − t) mod R`` and must process exactly the arcs or tiles sourced
+in that chunk, so each cell's operand is re-sliced by source row-chunk
+into R slots: :meth:`TwoDPartition.ring_arcs` (arc slots),
+``blocked_sparse(ring=True)`` (tile slots, column ids re-based to the
+chunk) in the JAX package's host form, and the per-cell forms a rank
+holds on its device: :meth:`TwoDPartition.cell_ring_arcs`,
+:meth:`TwoDPartition.cell_dense_slabs` (the dense block as R contiguous
+column slabs) and :meth:`TwoDPartition.cell_ring_blocked_sparse`.
+
 The same graph and grid give the same arrays as the JAX package's
-partitioner (:mod:`repro_torch.interop` carries one across).  The ring
-layouts arrive with their schedule (ROADMAP Queue 1 item 7).
+partitioner (:mod:`repro_torch.interop` carries one across).
 """
 from __future__ import annotations
 
@@ -75,18 +85,34 @@ def default_tile_dim(chunk: int, preferred: int = 128) -> int:
     return max(lane_aligned or divisors)
 
 
-def _no_ring(ring: bool) -> None:
-    if ring:
-        raise NotImplementedError(
-            "the ring-sliced tile layout is not ported yet (ROADMAP Queue 1 item 7)"
+def _row_complete(r_u: np.ndarray, c_u: np.ndarray, num_tr: int):
+    """A tile list made row-complete: one zero filler (tile-col 0) appended
+    for every tile-row absent from ``r_u``, then stably sorted by row.
+    Returns ``(rows, cols, position)``: the stored list and the stored
+    position of each input tile."""
+    missing = np.setdiff1d(np.arange(num_tr, dtype=np.int64), r_u)
+    rows = np.concatenate([r_u, missing])
+    cols = np.concatenate([c_u, np.zeros(missing.size, np.int64)])
+    order = np.argsort(rows, kind="stable")
+    position = np.empty(order.size, np.int64)
+    position[order] = np.arange(order.size)
+    return rows[order], cols[order], position[: r_u.size]
+
+
+def _check_ring_weights(ring: bool, weights) -> None:
+    if ring and weights is not None:
+        raise ValueError(
+            "weighted tiles are barrier-schedule only (ring pipelining of the bucketed "
+            "relaxation is not implemented); build with ring=False"
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockedSparseLayout:
-    """Host-side BCSR layout of every cell, in the JAX package's full form
+    """Host-side BCSR layout of every cell, in the JAX package's form
     (small graphs and tests: the engines build their own cell on its
-    device with :meth:`TwoDPartition.cell_blocked_sparse`).
+    device with :meth:`TwoDPartition.cell_blocked_sparse` /
+    :meth:`TwoDPartition.cell_ring_blocked_sparse`).
 
     Attributes:
       bm, bk:     tile shape (rows × cols); both divide ``chunk``.
@@ -96,9 +122,13 @@ class BlockedSparseLayout:
       tile_cols:  i32 [R, C, T] operand tile-col (into [R·chunk/bk]).
       nnz_tiles:  i64 [R, C] true nonzero-tile count per cell (fillers and
                   padding excluded).
-    Every tile-row of a cell holds at least one (possibly all-zero filler)
-    tile, and cells are padded with zero tiles on their last tile-row to
-    the worst cell's T.
+      ring_*:     the ring form (``ring=True``): slot r of [R, C, R, Tr, ...]
+                  holds the cell's tiles sourced in grid row r's chunk,
+                  ``ring_tile_cols`` re-based to [0, chunk/bk).
+    Every tile-row of a cell (of a slot) holds at least one (possibly
+    all-zero filler) tile, and cells (slots) are padded with zero tiles on
+    their last tile-row to the worst one's T.  Exactly one of the two forms
+    is built; the other's arrays are None.
     """
 
     bm: int
@@ -107,9 +137,12 @@ class BlockedSparseLayout:
     C: int
     chunk: int
     nnz_tiles: np.ndarray
-    tiles: np.ndarray
-    tile_rows: np.ndarray
-    tile_cols: np.ndarray
+    tiles: np.ndarray | None = None
+    tile_rows: np.ndarray | None = None
+    tile_cols: np.ndarray | None = None
+    ring_tiles: np.ndarray | None = None
+    ring_tile_rows: np.ndarray | None = None
+    ring_tile_cols: np.ndarray | None = None
 
     @property
     def num_tile_rows(self) -> int:
@@ -120,11 +153,13 @@ class BlockedSparseLayout:
         return self.R * self.chunk // self.bk
 
     def adjacency_bytes(self, dtype_bytes: int = 4) -> int:
-        """Stored per-device adjacency bytes (tile data + index maps),
-        padding included."""
+        """Stored per-device adjacency bytes (tile data + index maps) of the
+        form built, padding included."""
         cells = self.R * self.C
-        return (self.tiles.size // cells * dtype_bytes
-                + (self.tile_rows.size + self.tile_cols.size) // cells * 4)
+        tiles, rows, cols = ((self.ring_tiles, self.ring_tile_rows, self.ring_tile_cols)
+                             if self.ring_tiles is not None
+                             else (self.tiles, self.tile_rows, self.tile_cols))
+        return tiles.size // cells * dtype_bytes + (rows.size + cols.size) // cells * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +230,60 @@ class TwoDPartition:
         valid = self.dst_local[i, j] != self.C * self.chunk
         return self.dst_local[i, j][valid], self.src_local[i, j][valid]
 
+    # ---------------------------------------------------- ring arc slots
+    def _cell_ring_slots(self, i: int, j: int) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Cell (i, j)'s true arcs split by source row-chunk: slot r holds
+        ``(src_local mod chunk, dst_local)`` of the arcs sourced in global
+        chunk ``j·R + r``, in slot order."""
+        d, s = self._cell_arcs(i, j)
+        r_all = s // self.chunk
+        return [(s[r_all == r] % self.chunk, d[r_all == r]) for r in range(self.R)]
+
+    def ring_arcs(self, arc_pad_multiple: int = 8) -> tuple[np.ndarray, np.ndarray]:
+        """The ring-sliced arc layout: ``(ring_src, ring_dst)`` int32
+        [R, C, R, max_ring_arcs], slot (i, j, r) holding cell (i, j)'s arcs
+        sourced in global chunk ``j·R + r``.  ``ring_src`` is chunk-relative
+        ([0, chunk): it indexes the chunk in hand, not the gathered slice),
+        ``ring_dst`` as ``dst_local`` ([0, C·chunk], sentinel-padded);
+        padding slots hold src 0 / dst sentinel (the discarded row)."""
+        R, C = self.R, self.C
+        max_ring = self.ring_arcs_max(arc_pad_multiple)
+        ring_src = np.zeros((R, C, R, max_ring), np.int32)
+        ring_dst = np.full((R, C, R, max_ring), C * self.chunk, np.int32)
+        for i in range(R):
+            for j in range(C):
+                for r, (s_r, d_r) in enumerate(self._cell_ring_slots(i, j)):
+                    ring_src[i, j, r, : s_r.size] = s_r
+                    ring_dst[i, j, r, : d_r.size] = d_r
+        return ring_src, ring_dst
+
+    def ring_arcs_max(self, arc_pad_multiple: int = 8) -> int:
+        """``max_ring_arcs`` of :meth:`ring_arcs` without building it: the
+        worst (cell, slot) arc count, padded to ``arc_pad_multiple``.  The
+        ring arc layout holds 2·R·max_ring_arcs indices a rank, which the
+        memory guard prices under a ring schedule."""
+        max_ring = 1
+        for i in range(self.R):
+            for j in range(self.C):
+                _, s = self._cell_arcs(i, j)
+                if s.size:
+                    max_ring = max(max_ring, int(np.bincount(s // self.chunk,
+                                                             minlength=self.R).max()))
+        return max_ring + (-max_ring) % arc_pad_multiple
+
+    def cell_ring_arcs(self, i: int, j: int, device=None,
+                       arc_pad_multiple: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cell (i, j)'s ring arc slots on ``device``: ``(ring_src,
+        ring_dst)`` int64 [R, max_ring_arcs], equal to ``ring_arcs()[k][i,
+        j]`` (the same worst-slot padding on every rank)."""
+        max_ring = self.ring_arcs_max(arc_pad_multiple)
+        ring_src = np.zeros((self.R, max_ring), np.int64)
+        ring_dst = np.full((self.R, max_ring), self.C * self.chunk, np.int64)
+        for r, (s_r, d_r) in enumerate(self._cell_ring_slots(i, j)):
+            ring_src[r, : s_r.size] = s_r
+            ring_dst[r, : d_r.size] = d_r
+        return (torch.from_numpy(ring_src).to(device), torch.from_numpy(ring_dst).to(device))
+
     def arc_weights(self, w: np.ndarray) -> np.ndarray:
         """The graph's f32 [num_arcs] weights in the partitioned slot
         layout: f32 [R, C, max_arcs] aligned with ``src_local`` /
@@ -254,6 +343,22 @@ class TwoDPartition:
             block[index] = torch.from_numpy(self._cell_values(i, j, weights)).to(device, dtype)
         return block
 
+    def cell_dense_slabs(
+        self, i: int, j: int, dtype: torch.dtype = torch.float32, device=None,
+    ) -> torch.Tensor:
+        """Cell (i, j)'s dense block as R contiguous column slabs, [R,
+        C·chunk, chunk]: slab r is ``A[rows_i, cols_j][:, r·chunk:(r+1)·chunk]``,
+        the operand of ring step r (K3/K4 take no strided view).  Built on
+        ``device`` from the cell's arcs, once: the slabs hold exactly the
+        block's bytes."""
+        d, s = self._cell_arcs(i, j)
+        slabs = torch.zeros((self.R, self.C * self.chunk, self.chunk), dtype=dtype,
+                            device=device)
+        index = tuple(torch.from_numpy(a).to(device=device, dtype=torch.int64)
+                      for a in (s // self.chunk, d, s % self.chunk))
+        slabs[index] = 1
+        return slabs
+
     # ------------------------------------------------ blocked-sparse layout
     def _tile_dims(self, bm: int | None, bk: int | None) -> tuple[int, int]:
         bm = default_tile_dim(self.chunk) if bm is None else bm
@@ -296,7 +401,8 @@ class TwoDPartition:
 
         Stored = true nonzero tiles + one filler per empty tile-row; the
         full form pads every cell to the worst cell's count, the ring form
-        (ROADMAP item 7) stores R per-slot slices each with its own fillers.
+        stores R per-slot slices each with its own fillers, padded to the
+        worst slot.
         ``bytes_full`` / ``bytes_ring`` price those layouts.  ``cells``
         (bool [R, C], default all) restricts which cells store data;
         deselected cells count as their filler-only list.  The per-cell
@@ -353,14 +459,26 @@ class TwoDPartition:
         (row-sorted, one zero filler per empty tile-row) and the stored
         position of every arc's tile."""
         r_u, c_u, inv = self._tile_pass(bm, bk)[i][j]
-        num_tr = self.C * self.chunk // bm
-        missing = np.setdiff1d(np.arange(num_tr, dtype=np.int64), r_u)
-        rows = np.concatenate([r_u, missing])
-        cols = np.concatenate([c_u, np.zeros(missing.size, np.int64)])
-        order = np.argsort(rows, kind="stable")
-        position = np.empty(order.size, np.int64)
-        position[order] = np.arange(order.size)
-        return rows[order], cols[order], position[inv]
+        rows, cols, position = _row_complete(r_u, c_u, self.C * self.chunk // bm)
+        return rows, cols, position[inv]
+
+    def _slot_tile_orders(self, i: int, j: int, bm: int, bk: int) -> list[tuple]:
+        """Cell (i, j)'s ring slots without data: for each r, ``(rows,
+        cols, arcs, arc_tile)`` — slot r's row-complete tile list (tiles
+        sourced in grid row r's chunk, tile-cols re-based to the chunk),
+        the cell arcs (positions in :meth:`_cell_arcs` order) it holds
+        and the stored position of each one's tile."""
+        r_u, c_u, inv = self._tile_pass(bm, bk)[i][j]
+        num_tr, cpk = self.C * self.chunk // bm, self.chunk // bk
+        slot_of = c_u // cpk
+        out = []
+        for r in range(self.R):
+            pick = slot_of == r
+            rows, cols, position = _row_complete(r_u[pick], c_u[pick] - r * cpk, num_tr)
+            within = np.cumsum(pick) - 1  # unique tile -> its index among the picked
+            arcs = np.flatnonzero(pick[inv])
+            out.append((rows, cols, arcs, position[within[inv[arcs]]]))
+        return out
 
     def blocked_sparse(
         self,
@@ -373,35 +491,53 @@ class TwoDPartition:
         weights: np.ndarray | None = None,
     ) -> BlockedSparseLayout:
         """Every cell's BCSR layout on the host (see BlockedSparseLayout;
-        the JAX package's full form).  ``cells`` (bool [R, C]) stores tile
-        data only for the selected cells; the others get the minimal
-        filler list; ``weights`` stores edge weights instead of 0/1.
-        ``ring=True`` (item 7) raises ``NotImplementedError``."""
-        _no_ring(ring)
+        the JAX package's form): the full tile list, or with ``ring=True``
+        the R per-slot lists of the ring schedules.  ``cells`` (bool
+        [R, C]) stores tile data only for the selected cells; the others
+        get the minimal filler list; ``weights`` stores edge weights instead
+        of 0/1 (full form only: a weighted ring layout raises
+        ``ValueError``, as in the JAX package)."""
+        _check_ring_weights(ring, weights)
         bm, bk = self._tile_dims(bm, bk)
         R, C = self.R, self.C
         num_tr = C * self.chunk // bm
         sel = np.ones((R, C), bool) if cells is None else np.asarray(cells, bool)
-        empty = (np.arange(num_tr, dtype=np.int64), np.zeros(num_tr, np.int64), None)
-        lists = [[self._cell_tile_order(i, j, bm, bk) if sel[i, j] else empty
-                  for j in range(C)] for i in range(R)]
-        t_max = max(rows.size for row in lists for rows, _, _ in row)
-        tile_rows = np.full((R, C, t_max), num_tr - 1, np.int32)
-        tile_cols = np.zeros((R, C, t_max), np.int32)
-        tiles = np.zeros((R, C, t_max, bm, bk), dtype)
+        empty = (np.arange(num_tr, dtype=np.int64), np.zeros(num_tr, np.int64),
+                 np.zeros(0, np.int64), np.zeros(0, np.int64))
+        # per cell, its list of (rows, cols, arcs, arc_tile): one entry, or R slots
+        lists = []
+        for i in range(R):
+            for j in range(C):
+                if not sel[i, j]:
+                    lists.append([empty] * (R if ring else 1))
+                elif ring:
+                    lists.append(self._slot_tile_orders(i, j, bm, bk))
+                else:
+                    rows, cols, arc_tile = self._cell_tile_order(i, j, bm, bk)
+                    lists.append([(rows, cols, np.arange(arc_tile.size), arc_tile)])
+        t_max = max(1, max(e[0].size for cell in lists for e in cell))
+        lead = (R, C, R) if ring else (R, C)
+        tile_rows = np.full(lead + (t_max,), num_tr - 1, np.int32)
+        tile_cols = np.zeros(lead + (t_max,), np.int32)
+        tiles = np.zeros(lead + (t_max, bm, bk), dtype)
         nnz = np.zeros((R, C), np.int64)
         for i in range(R):
             for j in range(C):
-                rows, cols, arc_tile = lists[i][j]
-                tile_rows[i, j, : rows.size] = rows
-                tile_cols[i, j, : cols.size] = cols
+                d, s = self._cell_arcs(i, j)
+                values = self._cell_values(i, j, weights)
+                for r, (rows, cols, arcs, arc_tile) in enumerate(lists[i * C + j]):
+                    at = (i, j, r) if ring else (i, j)
+                    tile_rows[at][: rows.size] = rows
+                    tile_cols[at][: cols.size] = cols
+                    vals = values if np.isscalar(values) else values[arcs]
+                    tiles[at][arc_tile, d[arcs] % bm, s[arcs] % bk] = vals
                 if sel[i, j]:
-                    d, s = self._cell_arcs(i, j)
-                    tiles[i, j, arc_tile, d % bm, s % bk] = self._cell_values(i, j, weights)
                     nnz[i, j] = self._tile_pass(bm, bk)[i][j][0].size
+        form = "ring_" if ring else ""
         return BlockedSparseLayout(
             bm=bm, bk=bk, R=R, C=C, chunk=self.chunk, nnz_tiles=nnz,
-            tiles=tiles, tile_rows=tile_rows, tile_cols=tile_cols,
+            **{f"{form}tiles": tiles, f"{form}tile_rows": tile_rows,
+               f"{form}tile_cols": tile_cols},
         )
 
     def blocked_hybrid(
@@ -416,13 +552,14 @@ class TwoDPartition:
     ) -> HybridLayout:
         """The JAX package's mixed host layout (see HybridLayout):
         ``dense_cells`` (bool [R, C], the per-cell kernel choice) get their
-        dense block, the others their tiles; ``weights`` threads edge
-        weights into both sides."""
-        _no_ring(ring)
+        dense block, the others their tiles (the ring slots with
+        ``ring=True``); ``weights`` threads edge weights into both sides."""
+        _check_ring_weights(ring, weights)
         dense_cells = np.asarray(dense_cells, bool)
         if dense_cells.shape != (self.R, self.C):
             raise ValueError(f"dense_cells shape {dense_cells.shape} != grid {(self.R, self.C)}")
-        sparse = self.blocked_sparse(bm, bk, dtype=dtype, cells=~dense_cells, weights=weights)
+        sparse = self.blocked_sparse(bm, bk, ring=ring, dtype=dtype, cells=~dense_cells,
+                                     weights=weights)
         blocks = np.zeros((self.R, self.C, self.C * self.chunk, self.R * self.chunk), np.float32)
         for i in range(self.R):
             for j in range(self.C):
@@ -454,6 +591,27 @@ class TwoDPartition:
             tiles.view(rows.size, bm, bk),
             *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (rows, cols)),
         )
+
+    def cell_ring_blocked_sparse(
+        self, i: int, j: int, bm: int | None = None, bk: int | None = None, device=None,
+    ) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Cell (i, j)'s ring slots built on ``device``: for each r, slot
+        r's ``(tiles f32 [T_r, bm, bk], tile_rows i32 [T_r], tile_cols i32
+        [T_r])`` — the tiles sourced in grid row r's chunk, row-complete,
+        tile-cols re-based to [0, chunk/bk), no padding: the JAX ring
+        layout's slot (i, j, r) without its pad.  Each slot is the operand
+        of ring step r (K5/K6 at m = C·chunk, k = chunk)."""
+        bm, bk = self._tile_dims(bm, bk)
+        d, s = self._cell_arcs(i, j)
+        slots = []
+        for rows, cols, arcs, arc_tile in self._slot_tile_orders(i, j, bm, bk):
+            flat = (arc_tile * bm + d[arcs] % bm) * bk + s[arcs] % bk
+            tiles = torch.zeros(rows.size * bm * bk, dtype=torch.float32, device=device)
+            tiles[torch.from_numpy(flat).to(device)] = 1
+            slots.append((tiles.view(rows.size, bm, bk),
+                          *(torch.from_numpy(a.astype(np.int32)).to(device)
+                            for a in (rows, cols))))
+        return slots
 
 
 def partition_2d(graph: Graph, R: int, C: int, arc_pad_multiple: int = 8) -> TwoDPartition:

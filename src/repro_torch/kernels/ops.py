@@ -24,7 +24,9 @@ raises on anything the kernel does not take.  Then:
 
 :data:`LAUNCHES` counts kernel launches per wrapper (plain ints, bumped
 only where a kernel was launched), so a run can show that its main path
-went through the kernels; :func:`reset_launches` zeroes them.
+went through the kernels; :func:`reset_launches` zeroes them.  A K3–K6
+launch with an ``acc`` operand counts under its wrapper's name plus
+``_acc``: the ring schedules chain those, the barrier schedule never does.
 """
 from __future__ import annotations
 
@@ -52,7 +54,10 @@ __all__ = [
     "reset_launches",
 ]
 
-#: kernel launches per wrapper since the last :func:`reset_launches`
+#: kernel launches per wrapper since the last :func:`reset_launches`; the
+#: ``*_acc`` keys count K3–K6 launched with an ``acc`` running sum (the
+#: ring schedules' chained partials), the plain keys the launches without
+#: one, so a kernel's launches are the sum of its two keys
 LAUNCHES = {
     "frontier_spmm": 0,
     "dependency_spmm": 0,
@@ -60,6 +65,10 @@ LAUNCHES = {
     "dependency_spmm_partial": 0,
     "frontier_spmm_sparse": 0,
     "dependency_spmm_sparse": 0,
+    "frontier_spmm_partial_acc": 0,
+    "dependency_spmm_partial_acc": 0,
+    "frontier_spmm_sparse_acc": 0,
+    "dependency_spmm_sparse_acc": 0,
     "segment_bag": 0,
 }
 
@@ -277,7 +286,7 @@ def frontier_spmm_partial(
     if adjacency.shape[0] == 0 or sigma.shape[1] == 0:
         return _empty(adjacency.shape[0], sigma, acc)
     out = frontier_partial_cuda(adjacency, sigma, depth, lvl, acc)
-    LAUNCHES["frontier_spmm_partial"] += 1
+    LAUNCHES["frontier_spmm_partial" if acc is None else "frontier_spmm_partial_acc"] += 1
     return out
 
 
@@ -298,7 +307,7 @@ def dependency_spmm_partial(
     if adjacency.shape[0] == 0 or sigma.shape[1] == 0:
         return _empty(adjacency.shape[0], sigma, acc)
     out = dependency_partial_cuda(adjacency, sigma, depth, delta, omega, lvl, acc)
-    LAUNCHES["dependency_spmm_partial"] += 1
+    LAUNCHES["dependency_spmm_partial" if acc is None else "dependency_spmm_partial_acc"] += 1
     return out
 
 
@@ -330,7 +339,7 @@ def frontier_spmm_sparse(
     if m == 0 or sigma.shape[1] == 0:
         return _empty(m, sigma, acc)
     out = frontier_sparse_cuda(index, sigma, depth, lvl, m, acc)
-    LAUNCHES["frontier_spmm_sparse"] += 1
+    LAUNCHES["frontier_spmm_sparse" if acc is None else "frontier_spmm_sparse_acc"] += 1
     return out
 
 
@@ -359,7 +368,7 @@ def dependency_spmm_sparse(
     if m == 0 or sigma.shape[1] == 0:
         return _empty(m, sigma, acc)
     out = dependency_sparse_cuda(index, sigma, depth, delta, omega, lvl, m, acc)
-    LAUNCHES["dependency_spmm_sparse"] += 1
+    LAUNCHES["dependency_spmm_sparse" if acc is None else "dependency_spmm_sparse_acc"] += 1
     return out
 
 

@@ -10,6 +10,9 @@ device or on a 2-D grid of devices.
     PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x4 --device cpu
     PYTHONPATH=src torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.bc \
         --rmat-scale 16 --edge-factor 16 --mesh 2x4 --engine fused
+    # the ring-pipelined collective schedules (--overlap expand | expand+fold | auto):
+    PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x4 --engine fused \
+        --overlap expand+fold --device cpu
     # blocked-sparse (BCSR) tiles, or a per-cell dense/BCSR choice:
     PYTHONPATH=src python -m repro_torch.launch.bc --rmat-scale 8 --mesh 2x4 \
         --engine fused_hybrid --tile 8 --device cpu
@@ -33,6 +36,13 @@ engines and need ``--mesh``; ``--tile BM[xBK]`` shapes their tiles,
 arms the memory guard, which refuses an engine whose per-device
 footprint exceeds that budget before anything is allocated.  The
 footprint and the stored-tile count are printed either way.
+
+``--overlap`` picks the 2-D path's collective schedule (needs ``--mesh``):
+``none`` (the barrier all_gather / reduce_scatter), ``expand`` (the
+expand as R−1 point-to-point ring hops overlapped with the block
+compute, paper Fig. 2), ``expand+fold`` (the fold as a C−1-hop reduce
+ring too) or ``auto`` (picked from the roofline level times, logged as
+"overlap='auto' -> ...").
 
 ``--weights unit|dyadic`` attaches generator weights to the graph (a
 ``--grid`` through ``weighted_copy``, seed 1), ``--weighted`` runs the
@@ -59,6 +69,7 @@ import torch.distributed as dist
 
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
 from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centrality
+from ..core.operators import OVERLAP_POLICIES
 from ..core.scheduler import HEURISTICS_MODES
 from ..distributed.fault_tolerance import BCCheckpoint
 from ..distributed.groups import GridGroups, run_gloo
@@ -82,6 +93,13 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="RxC or FRxRxC: the 2-D decomposed path on FR·R·C ranks "
         "(torchrun on the card; spawned gloo processes with --device cpu)",
+    )
+    ap.add_argument(
+        "--overlap",
+        default="none",
+        choices=list(OVERLAP_POLICIES) + ["auto"],
+        help="distributed collective schedule (ring pipelining; needs --mesh; "
+        "'auto' picks from the roofline estimate)",
     )
     ap.add_argument(
         "--tile",
@@ -223,6 +241,8 @@ def main(argv: list[str] | None = None) -> None:
             mesh_shape = ()
         if len(mesh_shape) not in (2, 3) or min(mesh_shape) < 1:
             raise SystemExit("--mesh takes RxC or FRxRxC (positive integers)")
+    if args.overlap != "none" and mesh_shape is None:
+        raise SystemExit("--overlap is a distributed schedule; pass --mesh RxC")
     if args.engine in ("fused_sparse", "fused_hybrid") and mesh_shape is None:
         raise SystemExit(f"{args.engine} is a distributed engine; pass --mesh RxC")
     tile = None
@@ -269,7 +289,7 @@ def main(argv: list[str] | None = None) -> None:
         print(
             f"{name}: n={graph.n} m={graph.num_edges} heuristics={args.heuristics} "
             f"engine={args.engine} sampling={args.sampling} device={args.device or 'cuda'}"
-            + (f" mesh={args.mesh}" if mesh_shape else "")
+            + (f" mesh={args.mesh} overlap={args.overlap}" if mesh_shape else "")
             + (f" weighted(delta={args.delta or 'auto'})" if args.weighted else "")
         )
     t0 = time.time()
@@ -278,12 +298,15 @@ def main(argv: list[str] | None = None) -> None:
         engine = "sparse" if args.engine in ("dense", "sparse") else args.engine
         hbm = args.hbm_gb * 2**30 if args.hbm_gb > 0 else None
         out = run_grid(_mesh_rank, graph, mesh_shape, dict(
-            kwargs, engine_kind=engine, tile=tile, hybrid_threshold=args.hybrid_threshold,
-            hbm_limit_bytes=hbm), on_cpu=args.device == "cpu")
+            kwargs, engine_kind=engine, overlap=args.overlap, tile=tile,
+            hybrid_threshold=args.hybrid_threshold, hbm_limit_bytes=hbm),
+            on_cpu=args.device == "cpu")
         if out is None:  # not rank 0 of a torchrun grid
             return
         bc, rounds, samp, layout, dt = out
         foot = layout["footprint"]
+        if args.overlap != "none":
+            print(f"collective schedule: overlap={layout['overlap']}")
         print(f"per-device footprint ({engine}): adjacency "
               f"{foot['adjacency_bytes'] / 2**30:.4g} GiB + state "
               f"{foot['state_bytes'] / 2**30:.4g} GiB = {foot['total_bytes'] / 2**30:.4g} GiB")

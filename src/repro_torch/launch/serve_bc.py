@@ -8,7 +8,7 @@
     PYTHONPATH=src torchrun --standalone --nproc-per-node 1 -m repro_torch.launch.serve_bc \
         --rmat-scale 16 --edge-factor 16 --mesh 1x1 --engine fused --batch-size 128
     PYTHONPATH=src python -m repro_torch.launch.serve_bc --rmat-scale 7 --mesh 2x2 \
-        --sample-frac 1.0 --device cpu --ckpt-dir bc_serve
+        --sample-frac 1.0 --device cpu --ckpt-dir bc_serve --overlap expand
 
 Front end of the sampled-BC stack (``repro_torch/serving/``), the port of
 the JAX package's ``launch/serve_bc.py``: a foreground query loop answers
@@ -47,6 +47,7 @@ import time
 
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
 from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centrality
+from ..core.operators import OVERLAP_POLICIES
 from ..device import resolve_device
 from ..distributed.fault_tolerance import BCCheckpoint
 from ..distributed.groups import GridGroups, device_for_rank
@@ -65,6 +66,7 @@ def run_serving(
     ckpt_path: str,
     batch_size: int = 8,
     engine: str = "sparse",
+    overlap: str = "none",
     tile: tuple[int, int] | None = None,
     sampling: str = "fixed",
     sample_frac: float | None = None,
@@ -88,6 +90,9 @@ def run_serving(
       engine:         one of ``ENGINE_KINDS`` on one device; on a grid the
                       arc-list engines map to the distributed ``sparse``
                       and the rest must be ``DIST_ENGINE_KINDS``.
+      overlap:        the grid's collective schedule (``"none"``,
+                      ``"expand"``, ``"expand+fold"`` or ``"auto"``); one
+                      device has none and refuses anything but ``"none"``.
       tile:           BCSR tile (bm, bk) of ``fused_sparse`` / ``fused_hybrid``.
       sampling / sample_frac / sample_k / sample_seed: the sampled
                       schedule; ``"off"`` is refused (a budgeted slice is a
@@ -114,6 +119,8 @@ def run_serving(
         if engine not in ENGINE_KINDS:
             raise ValueError(f"engine {engine!r} needs a grid; on one device pick one of "
                              f"{ENGINE_KINDS}")
+        if overlap != "none":
+            raise ValueError("overlap is a distributed schedule; serve on a grid (groups=)")
         resolve_device(device)  # fail here, before any thread starts
         fr = 1
     else:
@@ -138,7 +145,8 @@ def run_serving(
         if groups is not None:
             return distributed_betweenness_centrality(
                 graph, groups, batch_size=batch_size, heuristics="h0", engine_kind=engine,
-                tile=tile, checkpoint=checkpoint, stop_rule=stop_rule, full_result=True,
+                overlap=overlap, tile=tile, checkpoint=checkpoint, stop_rule=stop_rule,
+                full_result=True,
                 device=device, **samp)
         return betweenness_centrality(
             graph, batch_size=batch_size, heuristics="h0", engine_kind=engine,
@@ -244,6 +252,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--engine", default="sparse",
                     choices=sorted(set(ENGINE_KINDS) | set(DIST_ENGINE_KINDS)))
+    ap.add_argument("--overlap", default="none", choices=list(OVERLAP_POLICIES) + ["auto"],
+                    help="the grid's collective schedule (ring pipelining; needs --mesh)")
     ap.add_argument("--tile", default=None, help="BCSR tile BM or BMxBK (fused_sparse/hybrid)")
     ap.add_argument("--sampling", default="fixed", choices=["fixed", "adaptive"])
     ap.add_argument("--sample-frac", type=float, default=None)
@@ -287,6 +297,8 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit("--mesh takes RxC or FRxRxC (positive integers)")
     elif args.engine not in ENGINE_KINDS:
         raise SystemExit(f"{args.engine} is a distributed engine; pass --mesh RxC")
+    if args.overlap != "none" and mesh_shape is None:
+        raise SystemExit("--overlap is a distributed schedule; pass --mesh RxC")
     tile = None
     if args.tile:
         dims = tuple(int(d) for d in args.tile.split("x"))
@@ -296,7 +308,8 @@ def main(argv: list[str] | None = None) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     kwargs = dict(
         ckpt_path=os.path.join(ckpt_dir, f"{name}.npz"), batch_size=args.batch_size,
-        engine=args.engine, tile=tile, sampling=args.sampling, sample_frac=args.sample_frac,
+        engine=args.engine, overlap=args.overlap, tile=tile, sampling=args.sampling,
+        sample_frac=args.sample_frac,
         sample_k=args.sample_k, sample_seed=args.sample_seed,
         refresh_blocks=args.refresh_blocks, generations=args.generations,
         queries=args.queries, top_k=args.top, device=args.device,

@@ -1,9 +1,15 @@
 """Byte model of the 2-D engines: what each engine stores and streams per
-device, the per-cell dense/BCSR choice and the memory guard's footprint.
-No hardware constants: the card's capacity reaches the guard as an input.
-:func:`sampled_run_seconds` prices a sampled run from a measured block wall."""
+device, the per-cell dense/BCSR choice and the memory guard's footprint;
+the level-time model of ``overlap="auto"`` over a :class:`HardwareSpec`
+(H100 data-sheet rates).  The card's capacity reaches the guard as an
+input.  :func:`sampled_run_seconds` prices a sampled run from a measured
+block wall."""
 from .model import (
+    H100,
     TILE_OVERHEAD_BYTES,
+    HardwareSpec,
+    auto_overlap_policy,
+    overlap_step_time,
     adjacency_stream_bytes,
     cell_kernel_choice,
     device_hbm_footprint,
@@ -13,6 +19,10 @@ from .model import (
 )
 
 __all__ = [
+    "HardwareSpec",
+    "H100",
+    "overlap_step_time",
+    "auto_overlap_policy",
     "TILE_OVERHEAD_BYTES",
     "sparse_tile_bytes",
     "cell_kernel_choice",

@@ -10,15 +10,24 @@ chip smoke test's bounds read, keyed by the port's engine names (and
   fused_sparse   the cell's stored BCSR tiles (K5/K6)
   fused_hybrid   per cell, the representation its choice picked
 
-The JAX package's TPU rates and constants have no counterpart here;
-the card's memory capacity reaches the guard as an input
+and the level-time model behind ``overlap="auto"``
+(:func:`overlap_step_time`, :func:`auto_overlap_policy`), priced with a
+:class:`HardwareSpec`.  Its one instance, :data:`H100`, holds H100 SXM
+data-sheet rates; none of the JAX package's TPU constants is used here.
+The card's memory capacity reaches the guard as an input
 (:func:`repro_torch.core.distributed.check_device_memory`).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 __all__ = [
+    "HardwareSpec",
+    "H100",
+    "overlap_step_time",
+    "auto_overlap_policy",
     "TILE_OVERHEAD_BYTES",
     "sparse_tile_bytes",
     "cell_kernel_choice",
@@ -27,6 +36,69 @@ __all__ = [
     "device_hbm_footprint",
     "sampled_run_seconds",
 ]
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """The rates one traversal level is priced with."""
+
+    name: str
+    peak_flops: float  #: the engines' arithmetic rate, FLOP/s per card
+    hbm_bandwidth: float  #: device memory, bytes/s per card
+    link_bandwidth: float  #: bytes/s one direction between two cards
+    hop_latency_s: float  #: α, the fixed cost of one ring hop
+
+
+#: H100 SXM data sheet: f32 FFMA (the exact engines use no tensor cores),
+#: HBM3 3.35 TB/s, NVLink 4 at 450 GB/s a direction.  The per-hop α is an
+#: assumption (an NCCL point-to-point launch and its sync), not a
+#: measurement: the autotuner (ROADMAP item 9) is to measure it.
+H100 = HardwareSpec(
+    name="h100-sxm",
+    peak_flops=67e12,
+    hbm_bandwidth=3.35e12,
+    link_bandwidth=450e9,
+    hop_latency_s=10e-6,
+)
+
+
+def overlap_step_time(compute_s: float, collective_s: float, k: int) -> float:
+    """Pipelined level time of a k-step ring schedule.  The barrier
+    schedule pays compute + collective in sequence; a ring cuts both into
+    k slices and overlaps slice i's transfer with slice i−1's compute, so
+    only one slice of the minor term is exposed:
+
+        max(T_comp, T_comm) + min(T_comp, T_comm) / k
+    """
+    if k <= 1:
+        return compute_s + collective_s
+    lo, hi = sorted((compute_s, collective_s))
+    return hi + lo / k
+
+
+def auto_overlap_policy(
+    compute_s: float,
+    expand_s: float,
+    fold_s: float,
+    R: int,
+    C: int,
+    hw: HardwareSpec = H100,
+) -> tuple[str, dict]:
+    """The schedule :func:`overlap_step_time` prices fastest for one level:
+    barrier (compute and both collectives in sequence), ``expand`` (the
+    expand pipelined into R hops, the fold a barrier), ``expand+fold``
+    (both as rings), each hop paying α on top of the pipelined transfer.
+    Returns the pick and the per-policy estimates (logged by the caller,
+    so the choice is auditable).  (The JAX package's ``measured=`` takes
+    the autotuner's walls instead: ROADMAP item 9.)"""
+    alpha = hw.hop_latency_s
+    estimates = {
+        "none": compute_s + expand_s + fold_s,
+        "expand": overlap_step_time(compute_s, expand_s, R) + fold_s + (R - 1) * alpha,
+        "expand+fold": overlap_step_time(compute_s, expand_s + fold_s, R)
+        + (R - 1 + C - 1) * alpha,
+    }
+    return min(estimates, key=estimates.get), estimates
+
 
 #: payload tensors per exchanged direction: the arc-list engine ships one
 #: pre-masked tensor; the fused engines (dense block, BCSR, and the

@@ -105,14 +105,19 @@ def test_default_tile_dim_equals_jax():
 
 
 def test_ring_and_weighted_tiles_raise_with_their_item():
-    """The ring-sliced layout is item 7, weighted or not; weighted tiles
-    themselves are ported (tests/test_torch_weighted.py)."""
-    _, got = _pair("gnp320", 2, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        got.blocked_sparse(8, 8, ring=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        got.blocked_hybrid(8, 8, dense_cells=np.ones((2, 4), bool), ring=True,
-                           weights=np.ones(GRAPHS["gnp320"](pg).src.size, np.float32))
+    """The ring-sliced layout is ported (bit-equal to the JAX package's:
+    tests/test_torch_ring_host.py); a weighted ring layout raises
+    ``ValueError`` as the JAX package's does (weighted rounds run the
+    barrier schedule); weighted tiles themselves are ported
+    (tests/test_torch_weighted.py)."""
+    want, got = _pair("gnp320", 2, 4)
+    ring = got.blocked_sparse(8, 8, ring=True)
+    assert ring.tiles is None and ring.ring_tiles.shape[:3] == (2, 4, 2)
+    np.testing.assert_array_equal(ring.ring_tiles, want.blocked_sparse(8, 8, ring=True).ring_tiles)
+    w = np.ones(GRAPHS["gnp320"](pg).src.size, np.float32)
+    for part in (got, want):
+        with pytest.raises(ValueError, match="barrier-schedule only"):
+            part.blocked_hybrid(8, 8, dense_cells=np.ones((2, 4), bool), ring=True, weights=w)
 
 
 @pytest.mark.parametrize("tile", TILES + [(None, None)], ids=lambda t: f"{t[0]}x{t[1]}")

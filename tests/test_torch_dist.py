@@ -265,15 +265,42 @@ def test_distributed_one_degree_matches_host(ranks):
 
 @pytest.mark.parametrize("kwargs", [
     dict(overlap="expand"), dict(straggler="steal"), dict(chaos="seed=1"), dict(integrity="audit"),
-    # weighted runs are ported; their ring schedule (item 7) and their
-    # integrity audit on a grid (item 8) are not
-    dict(autotune="on"), dict(delta=1.0, integrity="audit"), dict(weighted=True, overlap="expand"),
+    # straggler and chaos (item 8) and autotune (item 9) still raise; the
+    # ring schedules and the grid's integrity modes are ported, for
+    # weighted runs too (barrier collectives, a bucket-bounded audit)
+    dict(autotune="on"), dict(delta=1.0, integrity="audit", weighted=True),
+    dict(weighted=True, overlap="expand"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_knobs_raise(kwargs):
-    from repro_torch.core.distributed import distributed_betweenness_centrality
+    """The knobs still to port raise before any process group is touched;
+    the ported ones run on a one-rank gloo grid and match the oracle
+    (tests/test_torch_ring.py holds them on the 2x4, 4x2 and 2x2x2 grids)."""
+    import os
+    import tempfile
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        distributed_betweenness_centrality(GRAPHS["gnp20"](pg), None, device="cpu", **kwargs)
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import distributed_betweenness_centrality
+    from repro_torch.distributed import GridGroups
+
+    graph = GRAPHS["gnp20"](pg)
+    if kwargs.get("weighted"):
+        graph = pg.weighted_copy(graph, weights="dyadic", seed=1)
+    if next(iter(kwargs)) in ("straggler", "chaos", "autotune"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            distributed_betweenness_centrality(graph, None, device="cpu", **kwargs)
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "s"), 1),
+                                rank=0, world_size=1)
+        try:
+            res = distributed_betweenness_centrality(graph, GridGroups(1, 1, 1), device="cpu",
+                                                     full_result=True, **kwargs)
+        finally:
+            dist.destroy_process_group()
+    np.testing.assert_allclose(res.bc, brandes_reference(graph), rtol=1e-5, atol=1e-5)
+    assert res.layout_stats["overlap"] == kwargs.get("overlap", "none")
+    assert res.recovery_stats["quarantined_blocks"] == 0
 
 
 @pytest.mark.parametrize("fr", [2, 3])

@@ -162,30 +162,35 @@ def test_weighted_grid_round_refuses_the_checksum_lane(ranks):
 
 
 @pytest.mark.parametrize("weights,kwargs,error,match", [
-    ("dyadic", dict(weighted=True, integrity="checksum"), NotImplementedError, "item 8"),
-    ("dyadic", dict(weighted=True, overlap="expand"), NotImplementedError, "item 7"),
+    ("dyadic", dict(weighted=True, integrity="checksum"), ValueError, "level-synchronous"),
+    ("dyadic", dict(weighted=True, overlap="expand"), None, None),
     ("none", dict(weighted=True), ValueError, "edge weights"),
     ("dyadic", dict(delta=0.5), ValueError, "weighted=True"),
     ("dyadic", dict(weighted=True, heuristics="h3"), ValueError, "unit edge lengths"),
     ("dyadic", dict(weighted=True, num_levels=8), ValueError, "data-dependent"),
 ], ids=["checksum", "ring", "no-weights", "delta-unweighted", "h3", "num_levels"])
 def test_weighted_grid_gates(weights, kwargs, error, match):
-    """The unported knobs raise before any process group is touched; the
-    weighted checks on a one-rank gloo group, before any collective."""
+    """The weighted checks on a one-rank gloo group, before any
+    collective: the checksum lane is refused with the JAX package's
+    ``ValueError`` (weighted rounds take ``integrity="audit"``); a ring
+    policy runs, on the barrier collectives, and matches the Dijkstra
+    oracle."""
     graph = pg.rmat_graph(4, 2, seed=0, weights=weights)
-    if error is NotImplementedError:
-        with pytest.raises(error, match=match):
-            distributed_betweenness_centrality(graph, None, device="cpu", **kwargs)
-        return
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "s"), 1),
                                 rank=0, world_size=1)
         try:
-            with pytest.raises(error, match=match):
-                distributed_betweenness_centrality(graph, GridGroups(1, 1, 1), device="cpu",
-                                                   **kwargs)
+            if error is None:
+                bc, _ = distributed_betweenness_centrality(graph, GridGroups(1, 1, 1),
+                                                           device="cpu", **kwargs)
+            else:
+                with pytest.raises(error, match=match):
+                    distributed_betweenness_centrality(graph, GridGroups(1, 1, 1), device="cpu",
+                                                       **kwargs)
         finally:
             dist.destroy_process_group()
+    if error is None:
+        np.testing.assert_allclose(bc, brandes_reference(graph), **TOL)
 
 
 @pytest.mark.parametrize("delta", [0.1, 0.25, 0.657, 2.5, 100.0])

@@ -114,6 +114,8 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     assert ops.LAUNCHES == {"frontier_spmm": 1, "dependency_spmm": 1,
                             "frontier_spmm_partial": 1, "dependency_spmm_partial": 1,
                             "frontier_spmm_sparse": 1, "dependency_spmm_sparse": 1,
+                            "frontier_spmm_partial_acc": 0, "dependency_spmm_partial_acc": 0,
+                            "frontier_spmm_sparse_acc": 0, "dependency_spmm_sparse_acc": 0,
                             "segment_bag": 1}
 
 
@@ -608,6 +610,79 @@ def test_2d_path_on_a_1x1_nccl_grid_matches_dense(nccl_1x1, engine, kw):
     assert ops.LAUNCHES["frontier_spmm"] == ops.LAUNCHES["dependency_spmm"] == 0
     assert res.round_levels == want.round_levels
     np.testing.assert_allclose(res.bc, want.bc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("overlap", ["expand", "expand+fold"])
+@pytest.mark.parametrize("engine,kw", [
+    ("sparse", {}), ("fused", {}), ("fused_bf16", {}), ("fused_sparse", {}),
+    ("fused_hybrid", dict(hybrid_threshold=0.0)), ("fused_hybrid", dict(hybrid_threshold=1e9)),
+], ids=["sparse", "fused", "fused_bf16", "fused_sparse", "fused_hybrid-dense",
+        "fused_hybrid-bcsr"])
+def test_2d_ring_path_on_a_1x1_nccl_grid_matches_dense(nccl_1x1, engine, kw, overlap):
+    """Under a ring the fused engines launch only the acc modes of K3/K4
+    (dense cells) or K5/K6 (tiled cells), and no K1/K2."""
+    g = pg.rmat_graph(8, 8, seed=1)
+    want = pbc.betweenness_centrality(g, batch_size=32, heuristics="h3", engine_kind="dense")
+    ops.reset_launches()
+    res = distributed_betweenness_centrality(
+        g, nccl_1x1, batch_size=32, heuristics="h3", engine_kind=engine, overlap=overlap,
+        full_result=True, **kw
+    )
+    dense = engine in ("fused", "fused_bf16") or kw.get("hybrid_threshold") == 0.0
+    tiled = engine == "fused_sparse" or kw.get("hybrid_threshold") == 1e9
+    for kname in ("frontier_spmm_partial", "dependency_spmm_partial"):
+        assert ops.LAUNCHES[kname] == 0 and (ops.LAUNCHES[kname + "_acc"] > 0) == dense
+    for kname in ("frontier_spmm_sparse", "dependency_spmm_sparse"):
+        assert ops.LAUNCHES[kname] == 0 and (ops.LAUNCHES[kname + "_acc"] > 0) == tiled
+    assert ops.LAUNCHES["frontier_spmm"] == ops.LAUNCHES["dependency_spmm"] == 0
+    assert res.round_levels == want.round_levels
+    np.testing.assert_allclose(res.bc, want.bc, rtol=1e-5, atol=1e-5)
+
+
+def test_ring_slab_and_slot_chain_equals_the_barrier_partial(cuda):
+    """Cell (0, 0) of a 4x2 grid: K3/K4 chained in acc mode over the R
+    column slabs, and K5/K6 over the R tile slots (each with its own
+    nonzero index), with the operand's chunks in ring order, equal the
+    barrier partial of the whole cell: K3/K5 exact, K4/K6 rtol 1e-5 /
+    atol 1e-6."""
+    from repro_torch.graphs.partition import partition_2d
+
+    g = pg.rmat_graph(9, 8, seed=1)
+    part = partition_2d(g, 4, 2)
+    R, chunk, m = part.R, part.chunk, part.C * part.chunk
+    s = 40
+    _, sigma, depth, delta, omega = _state(R * chunk, s, 3, 2, torch.float32, cuda)
+    block = part.cell_dense_block(0, 0, torch.float32, cuda)
+    slabs = part.cell_dense_slabs(0, 0, torch.float32, cuda)
+    tiles, rows, cols = part.cell_blocked_sparse(0, 0, 16, 16, device=cuda)
+    full_index = nonzero_index(tiles, rows, cols, m)
+    slots = [slot + (nonzero_index(*slot, m),)
+             for slot in part.cell_ring_blocked_sparse(0, 0, 16, 16, device=cuda)]
+    ops.reset_launches()
+    want_f = ops.frontier_spmm_partial(block, sigma, depth, 2)
+    want_b = ops.dependency_spmm_partial(block, sigma, depth, delta, omega, 1)
+    want_fs = ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=m, index=full_index)
+    want_bs = ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=m,
+                                         index=full_index)
+    acc = {k: torch.zeros((m, s), device=cuda) for k in ("f", "b", "fs", "bs")}
+    for t in range(R):
+        r = (0 - t) % R  # the chunk rank (0, 0) holds at ring step t
+        part_r = slice(r * chunk, (r + 1) * chunk)
+        sg, dp, dl, om = (x[part_r].contiguous() for x in (sigma, depth, delta, omega))
+        acc["f"] = ops.frontier_spmm_partial(slabs[r], sg, dp, 2, acc["f"])
+        acc["b"] = ops.dependency_spmm_partial(slabs[r], sg, dp, dl, om, 1, acc["b"])
+        st, sr, sc, six = slots[r]
+        acc["fs"] = ops.frontier_spmm_sparse(st, sr, sc, sg, dp, 2, m=m, acc=acc["fs"],
+                                             index=six)
+        acc["bs"] = ops.dependency_spmm_sparse(st, sr, sc, sg, dp, dl, om, 1, m=m,
+                                               acc=acc["bs"], index=six)
+    torch.cuda.synchronize()
+    assert torch.equal(acc["f"], want_f) and torch.equal(acc["fs"], want_fs)
+    torch.testing.assert_close(acc["b"], want_b, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(acc["bs"], want_bs, rtol=1e-5, atol=1e-6)
+    for kname in ("frontier_spmm_partial", "dependency_spmm_partial", "frontier_spmm_sparse",
+                  "dependency_spmm_sparse"):
+        assert ops.LAUNCHES[kname] == 1 and ops.LAUNCHES[kname + "_acc"] == R
 
 
 def _bucket_hooks_on_the_card(monkeypatch) -> list:
