@@ -7,9 +7,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 12, 6, 7: phase 9
+Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 12, 13, 6, 7: phase 9
 first, while nothing else holds device memory, because its tables take
-65 GiB; phases 8, 10, 11 and 12 share phase 5's NCCL process group, and
+65 GiB; phases 8, 10, 11, 12 and 13 share phase 5's NCCL process group, and
 phase 7's kernel table carries phase 8's, 10's and 12's launches, K7's
 times, which phase 9 takes on its tables, and the acc-mode chains that
 phase 12 (b) times; a kernel's launches count its plain and its acc
@@ -164,13 +164,30 @@ mode):
      weighted 1×1 run (phase 11 (a)'s graph and Δ, one round): no block
      quarantined; (d) phase 8 (b)'s strips on fused_sparse under
      "expand+fold", equal to the barrier run, the wall printed beside the
-     barrier's (recorded, no claim).
+     barrier's (recorded, no claim);
+ 13. the multi-ledger straggler loop and the grid's recovery knobs (each
+     run's launch counts zeroed just before it): (a) phase 4's graph and
+     roots through ``BCDriver`` with two lanes a block on one card
+     (``make_round_fn`` runs them one after the other, K1/K2) under
+     straggler "none", "steal" and "redeal", each equal to phase 4's fused
+     BC (rtol 1e-5 / atol 1e-5); (b) skewed_depth_graph(128, 128) (n =
+     32 768), the roots of its first 9 components (9 rounds, deep and
+     shallow alternating on the dense engine), the same two-lane fused
+     driver under "redeal" (at least one redeal) and "steal" (the tail
+     duplicate discarded), each equal to the dense engine; (c) (b) under
+     "steal" with one dispatch stalled past a watchdog deadline and no
+     retry budget: one re-mesh, one dead replica, BC unchanged; (d) on
+     the 1×1 NCCL grid "steal" refused (fr = 1), then fused under the
+     "auto" watchdog with max_retries=1 and the numeric guard, equal to
+     phase 5's fused BC, the logged deadline and expected wall printed.
+     Every line carries the card's name and power limit.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import subprocess
@@ -1267,6 +1284,209 @@ def ring_phase(dev, graph, groups, dense_ref, part_blk, blk_states, strips, stri
     return entries
 
 
+# phase 13: the multi-ledger straggler loop and the grid's recovery knobs
+SKEW_PAIRS, SKEW_BLOCK = 128, 128  # (b): skewed_depth_graph, n = 32 768
+# (b)'s roots: the first 9 components, one round each at batch 128.  An odd
+# count: with 8 rounds on 2 lanes neither queue runs dry before the other,
+# so "steal" would never run a tail duplicate
+SKEW_COMPONENTS = 9
+K3_K4 = ("frontier_spmm_partial", "dependency_spmm_partial")
+
+
+class LogLines(logging.Handler):
+    """The messages a logger emits while this handler is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+
+class StalledOnce:
+    """A round function that sleeps ``seconds`` before its ``at``-th call
+    (counted from 0, retries included): one wedged dispatch."""
+
+    def __init__(self, fn, at: int, seconds: float):
+        self.fn, self.at, self.seconds, self.calls = fn, at, seconds, 0
+
+    def __call__(self, sources, derived):
+        if self.calls == self.at:
+            time.sleep(self.seconds)
+        self.calls += 1
+        return self.fn(sources, derived)
+
+
+def straggler_phase(dev, graph, groups, fused_ref, fused_2d_bc: np.ndarray, smi: str) -> None:
+    """Phase 13: (a) phase 4's graph and roots through ``BCDriver`` with two
+    lanes a block on one card (``make_round_fn`` runs the lanes one after
+    the other; K1/K2) under "none", "steal" and "redeal", each equal to
+    phase 4's fused BC; (b) skewed_depth_graph(128, 128) (n = 32 768,
+    128-vertex paths beside 128-cliques), the roots of its first 9
+    components (9 rounds, deep and shallow alternating on the dense
+    engine), on the same two-lane fused driver under "redeal" (>= 1 redeal)
+    and "steal" (the tail duplicate discarded), each equal to the dense
+    engine; (c) (b) under "steal" with one dispatch stalled past a
+    watchdog deadline of twice (b)'s slowest block + 1 s and no retry: one
+    re-mesh, one dead replica, BC unchanged; (d) on the 1×1 NCCL grid,
+    "steal" refused (fr = 1), then fused with dispatch_deadline_s="auto",
+    max_retries=1 and numeric_guard=True, equal to phase 5's fused BC, the
+    logged auto deadline and expected wall printed.  Each run's launch
+    counts are zeroed just before it and read just after."""
+    from repro_torch.core.bc import apply_sampling_rescale, make_operator, make_round_fn
+    from repro_torch.core.distributed import distributed_betweenness_centrality
+    from repro_torch.core.driver import BCDriver
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.graphs import skewed_depth_graph
+    from repro_torch.kernels import ops
+    from repro_torch.serving.sampling import eligible_roots, plan_sampling
+
+    t13 = time.perf_counter()
+    print(f"[13] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
+
+    def drive(tag, fn, schedule, n, prep, **kw):
+        """One BCDriver run, two lanes a block, timed and launch-counted."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = BCDriver(fn, schedule, n=n, device=dev, prep=prep, rounds_per_dispatch=2,
+                       **kw).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(ops.LAUNCHES)
+        k1 = kernel_launches(launches, "frontier_spmm")
+        k2 = kernel_launches(launches, "dependency_spmm")
+        check(k1 > 0 and k2 > 0, f"[13] {tag}: the run did not launch K1 and K2")
+        check(sum(kernel_launches(launches, k) for k in K3_K4) == 0,
+              f"[13] {tag}: launched K3/K4")
+        st = res.straggler_stats
+        policy = ("" if st is None else
+                  f", stolen {st['rounds_stolen']}, re-dealt {st['rounds_redealt']} "
+                  f"({st['redeal_events']} events), duplicates {st['duplicates_discarded']}/"
+                  f"{st['duplicates_dispatched']} discarded, idle_s_est {st['idle_s_est']:.3f}s, "
+                  f"rounds per lane {st['per_replica_rounds']}")
+        print(f"[13] {tag}: wall {wall:.3f}s (round loop {res.wall_s:.3f}s), {res.rounds_run} "
+              f"rounds, levels in commit order {res.round_levels}, block_times "
+              f"{[round(b, 4) for b in res.block_times]} s{policy}, K1 {k1} / K2 {k2} launches "
+              f"({smi})")
+        return res
+
+    def held(tag, got, want):
+        ok, err = close(torch.from_numpy(got), torch.from_numpy(want), 1e-5, 1e-5)
+        print(f"[13] {tag}: max abs err {err:.3g}")
+        check(ok, f"[13] {tag}: BC disagrees")
+
+    # (a) phase 4's graph and roots, two lanes a block
+    plan = plan_sampling(eligible_roots(graph), "fixed", None, MAIN_SAMPLE_K, 0)
+    schedule, prep, residual, omega_np = build_schedule(graph, batch_size=MAIN_BATCH,
+                                                        heuristics="h0", roots=plan.roots)
+    check(len(schedule.rounds) == MAIN_SAMPLE_K // MAIN_BATCH, "[13] (a) expected 4 rounds")
+    omega = torch.from_numpy(omega_np).to(device=dev, dtype=torch.float32)
+    fn = make_round_fn(make_operator(residual, "fused", dev), omega)
+    for policy in ("none", "steal", "redeal"):
+        res = apply_sampling_rescale(
+            drive(f"(a) rmat16 {policy}", fn, schedule, graph.n, prep, straggler=policy,
+                  profile=policy == "none"), plan)
+        check(res.rounds_run == len(schedule.rounds), f"[13] (a) {policy}: rounds run")
+        held(f"(a) {policy} vs phase 4's fused", res.bc, fused_ref.bc)
+    del fn
+    torch.cuda.empty_cache()
+
+    # (b) deep and shallow rounds side by side
+    g = skewed_depth_graph(SKEW_PAIRS, SKEW_BLOCK)
+    roots = np.arange(SKEW_COMPONENTS * SKEW_BLOCK)
+    schedule, prep, residual, omega_np = build_schedule(g, batch_size=MAIN_BATCH,
+                                                        heuristics="h0", roots=roots)
+    check(len(schedule.rounds) == SKEW_COMPONENTS, f"[13] (b) expected {SKEW_COMPONENTS} rounds")
+    omega = torch.from_numpy(omega_np).to(device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dense = BCDriver(make_round_fn(make_operator(residual, "dense", dev), omega), schedule,
+                     n=g.n, device=dev, prep=prep).run()
+    torch.cuda.synchronize()
+    lv = dense.round_levels
+    print(f"[13] (b) skewed_depth_graph({SKEW_PAIRS}, {SKEW_BLOCK}): n={g.n} m={g.num_edges}, "
+          f"roots of the first {SKEW_COMPONENTS} components; dense engine, one lane: wall "
+          f"{time.perf_counter() - t:.3f}s, levels per round {lv} ({smi})")
+    check(all(lv[i] > 4 * lv[i + 1] if i % 2 == 0 else 4 * lv[i] < lv[i + 1]
+              for i in range(len(lv) - 1)), "[13] (b) rounds do not alternate deep / shallow")
+    torch.cuda.empty_cache()
+    fn = make_round_fn(make_operator(residual, "fused", dev), omega)
+    walls = []
+    for policy in ("redeal", "steal"):
+        res = drive(f"(b) skewed {policy}", fn, schedule, g.n, prep, straggler=policy)
+        st = res.straggler_stats
+        check(res.rounds_run == SKEW_COMPONENTS, f"[13] (b) {policy}: rounds run")
+        if policy == "redeal":
+            check(st["redeal_events"] >= 1, "[13] (b) redeal: no redeal event")
+        else:
+            check(st["duplicates_discarded"] == st["duplicates_dispatched"] >= 1,
+                  "[13] (b) steal: the tail duplicate was not discarded")
+        held(f"(b) {policy} vs the dense engine", res.bc, dense.bc)
+        walls += res.block_times
+
+    # (c) one dispatch wedged past the watchdog's deadline, no retry budget
+    deadline = 2.0 * max(walls) + 1.0
+    res = drive("(c) skewed steal, dispatch 1 stalled", StalledOnce(fn, 1, deadline + 0.5),
+                schedule, g.n, prep, straggler="steal", dispatch_deadline_s=deadline,
+                max_retries=0)
+    rec = res.recovery_stats
+    integ = rec["integrity"]
+    print(f"[13] (c) deadline {deadline:.3f}s (twice (b)'s slowest block {max(walls):.3f}s + 1 s), "
+          f"stall {deadline + 0.5:.3f}s: watchdog trips {integ['watchdog_trips']}, escalations "
+          f"{integ['watchdog_escalations']}, re-mesh events {rec['remesh_events']}, dead "
+          f"replicas {rec['dead_replicas']} ({smi})")
+    check(rec["remesh_events"] == 1 and len(rec["dead_replicas"]) == 1,
+          "[13] (c) expected one re-mesh and one dead replica")
+    check(res.rounds_run == SKEW_COMPONENTS, "[13] (c) rounds run")
+    held("(c) after the re-mesh vs the dense engine", res.bc, dense.bc)
+    del fn, dense
+    torch.cuda.empty_cache()
+
+    # (d) the 1×1 NCCL grid: no replicas to deal between; the auto watchdog
+    kw = dict(batch_size=MAIN_BATCH, heuristics="h0", engine_kind="fused", sampling="fixed",
+              sample_k=MAIN_SAMPLE_K, sample_seed=0, full_result=True)
+    try:
+        distributed_betweenness_centrality(graph, groups, straggler="steal", **kw)
+        fail("[13] (d) the 1x1 grid accepted a straggler policy")
+    except ValueError as err:
+        print(f"[13] (d) 1x1 grid, straggler='steal' refused: {err}")
+    log = logging.getLogger("repro_torch.core.distributed")
+    lines, level = LogLines(), log.level
+    log.addHandler(lines)
+    log.setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = distributed_betweenness_centrality(graph, groups, dispatch_deadline_s="auto",
+                                                 max_retries=1, numeric_guard=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        log.removeHandler(lines)
+        log.setLevel(level)
+    launches = dict(ops.LAUNCHES)
+    check(all(kernel_launches(launches, k) > 0 for k in K3_K4)
+          and launches["frontier_spmm"] + launches["dependency_spmm"] == 0,
+          "[13] (d) expected K3/K4 launches and none of K1/K2")
+    for line in lines.lines:
+        if line.startswith(("dispatch watchdog", "sampling[")):
+            print(f"[13] (d) logged: {line}")
+    check(any(line.startswith("dispatch watchdog: auto deadline") for line in lines.lines),
+          "[13] (d) no auto deadline was logged")
+    rec = res.recovery_stats
+    print(f"[13] (d) 1x1 fused, auto watchdog, max_retries=1, numeric_guard: wall {wall:.3f}s "
+          f"(round loop {res.wall_s:.3f}s), K3 {kernel_launches(launches, K3_K4[0])} / K4 "
+          f"{kernel_launches(launches, K3_K4[1])} launches, retries {rec['retries']}, quarantined "
+          f"{rec['quarantined_blocks']}, watchdog trips {rec['integrity']['watchdog_trips']} "
+          f"({smi})")
+    check(rec["retries"] == 0 and rec["quarantined_blocks"] == 0, "[13] (d) a healthy run retried")
+    held("(d) vs phase 5's fused run", res.bc, fused_2d_bc)
+    print(f"[13] straggler phase ok in {time.perf_counter() - t13:.1f}s")
+
+
 # phase 11: weighted BC (bucketed delta-stepping) at full width
 ROAD_SHAPE = (128, 128)  # (c): n = 26 258, about 420 buckets a round
 DENSE_ROAD_SHAPE = (24, 24)  # (d): n = 926, where [n, n, s] fits the card
@@ -1795,6 +2015,8 @@ def main() -> None:
                       f"{graph.num_edges * res.roots_accumulated / wall / 1e9:.4f}; "
                       f"vs single-device dense: max abs err {err:.3g}")
                 check(ok, f"2-D {engine} BC disagrees with the single-device dense engine")
+                if engine == "fused":
+                    fused_2d_bc = res.bc  # phase 13 (d)'s reference
                 check(res.round_levels == results["dense"].round_levels,
                       f"2-D {engine}: levels per round differ from the single-device run")
                 k12 = launches_2d[engine]["frontier_spmm"] + launches_2d[engine]["dependency_spmm"]
@@ -1914,6 +2136,9 @@ def main() -> None:
             # ---------- 12. the ring schedules and the grid's checked steps
             ring_entries = ring_phase(dev, graph, groups, results["dense"], part, blk_states,
                                       strips, strips_barrier, walls_8[strip_tag], smi)
+
+            # ------ 13. the straggler loop and the grid's recovery knobs
+            straggler_phase(dev, graph, groups, results["fused"], fused_2d_bc, smi)
         finally:
             dist.destroy_process_group()
 

@@ -147,16 +147,20 @@ def check_weighted(graph: Graph, weighted: bool, delta: float | None, heuristics
 
 def make_round_fn(op: TraversalOperator, omega: torch.Tensor, num_levels: int | None = None,
                   integrity: str = "off"):
-    """The driver's one-lane round function: ``(sources [1, s], derived
-    [1, k, 3]) -> traversal_round(op, ...)`` with a leading lane dim (and
-    the integrity record ``[1, 2]`` when ``integrity != "off"``; under
-    "checksum" every level runs the operator's checked step)."""
+    """The driver's round function on one device: ``(sources [fr, s],
+    derived [fr, k, 3]) -> traversal_round(op, ...)`` of every lane, one
+    lane after another, stacked along a leading lane dim (and the
+    integrity record ``[fr, 2]`` when ``integrity != "off"``; under
+    "checksum" every level runs the operator's checked step).  The
+    single-device entry point deals one lane a block; a multi-lane block
+    is how the multi-ledger straggler loop runs on one card."""
 
     def round_fn(sources, derived):
-        bc, ns, roots, levels, *integ = traversal_round(
-            op, sources[0], derived[0], omega, num_levels=num_levels, integrity=integrity
-        )
-        return (bc[None], ns[None], roots[None], [levels]) + tuple(x[None] for x in integ)
+        lanes = [traversal_round(op, sources[r], derived[r], omega, num_levels=num_levels,
+                                 integrity=integrity) for r in range(sources.shape[0])]
+        bc, ns, roots, levels, *integ = zip(*lanes)
+        return (torch.stack(bc), torch.stack(ns), torch.stack(roots), list(levels)) + tuple(
+            torch.stack(x) for x in integ)
 
     return round_fn
 

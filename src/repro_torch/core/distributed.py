@@ -48,11 +48,15 @@ decisions are made agreed rather than assumed: a checkpoint is loaded by
 every rank, written by rank 0 alone and fenced by a barrier
 (:class:`_GridCheckpoint`), and a stop rule's verdict is rank 0's,
 broadcast (:class:`_GridStopRule`) — ranks that disagreed would issue
-different collectives and hang.
+different collectives and hang.  For the same reason every duration the
+driver decides on (a straggler policy's block walls, the watchdog's
+elapsed time) is the max over the ranks (:func:`_max_over_ranks`).
 
 Sub-clustering (paper §3.3): ``fr`` replicas of the R×C grid each take
 one round of every dispatch block; BC is additive, so the driver sums the
-replica lanes.
+replica lanes.  With ``fr > 1`` a ``straggler`` policy moves rounds
+between the replicas' queues (the driver's multi-ledger loop), priced
+before any round has run by :func:`prior_round_seconds`.
 
 Weighted BC (``weighted=True``, bucketed delta-stepping) runs the same
 driver with a weighted 2-D operator, always on the barrier layouts and
@@ -87,11 +91,19 @@ from ..roofline.model import (
     cell_kernel_choice,
     device_hbm_footprint,
     exchange_operands,
+    sampled_run_seconds,
     sparse_tile_bytes,
 )
 from ..serving.sampling import AdaptiveStopRule, eligible_roots, plan_sampling
 from .bc import apply_sampling_rescale, check_weighted
-from .driver import BCDriver, normalize_integrity, traversal_round
+from .driver import (
+    DEFAULT_MAX_RETRIES,
+    DEFAULT_RETRY_BACKOFF_S,
+    BCDriver,
+    normalize_integrity,
+    normalize_straggler,
+    traversal_round,
+)
 from .operators import (
     SYNC_AXES,
     DistributedFusedHybridOperator,
@@ -118,10 +130,21 @@ __all__ = [
     "distributed_betweenness_centrality",
     "one_degree_reduce_distributed",
     "weighted_prior_levels",
+    "prior_round_seconds",
     "PRIOR_LEVELS",
+    "WATCHDOG_SAFETY",
+    "WATCHDOG_MIN_DEADLINE_S",
 ]
 
 logger = logging.getLogger(__name__)
+
+#: ``dispatch_deadline_s="auto"`` resolves to
+#: ``max(WATCHDOG_MIN_DEADLINE_S, WATCHDOG_SAFETY × prior_round_seconds)``:
+#: generous on purpose, since the prior models steady-state levels while
+#: the first dispatch also builds the kernels and NCCL's communicators,
+#: and a false trip evicts a healthy replica (the JAX package's constants)
+WATCHDOG_SAFETY = 50.0
+WATCHDOG_MIN_DEADLINE_S = 60.0
 
 #: block-local compute engines of the distributed path: arc-list
 #: gather/scatter-add, the partial kernels K3/K4 on a dense f32 / bf16
@@ -140,7 +163,9 @@ REFERENCE_DIST_ENGINE = {
 _TILED = ("fused_sparse", "fused_hybrid")
 
 #: the nominal traversal depth that stands in for a round's level count
-#: before any round has run (the JAX package's straggler and sampling prior)
+#: before any round has run (the JAX package's straggler and sampling
+#: prior: it seeds every replica's EWMA alike, so only its order of
+#: magnitude matters)
 PRIOR_LEVELS = 16
 
 
@@ -388,6 +413,38 @@ def resolve_overlap(
                 policy, engine_kind, hw.name,
                 {k: f"{v * 1e6:.2f}us" for k, v in estimates.items()})
     return policy
+
+
+def prior_round_seconds(
+    partition: TwoDPartition,
+    engine_kind: str,
+    batch_size: int,
+    overlap: str,
+    *,
+    bm: int | None = None,
+    bk: int | None = None,
+    tile_counts: dict | None = None,
+    dense_cells: np.ndarray | None = None,
+    hw: HardwareSpec = H100,
+    prior_levels: int | None = None,
+) -> float:
+    """Per-round wall estimate on ``hw`` before any round has run — the
+    straggler EWMA's prior, the ``"auto"`` watchdog deadline's base and
+    the sampled run's expected wall: one level priced under the resolved
+    collective schedule ``overlap`` (:func:`level_time_estimates` through
+    :func:`~repro_torch.roofline.model.auto_overlap_policy`'s estimate
+    table) times :data:`PRIOR_LEVELS` nominal levels, or ``prior_levels``
+    (a weighted run's expected bucket count, :func:`weighted_prior_levels`).
+    The JAX package's model; its ``measured_level_s`` waits for the
+    autotuner (ROADMAP item 9)."""
+    levels = PRIOR_LEVELS if prior_levels is None else int(prior_levels)
+    compute_s, expand_s, fold_s = level_time_estimates(
+        partition, engine_kind, batch_size, bm=bm, bk=bk, tile_counts=tile_counts,
+        dense_cells=dense_cells, hw=hw,
+    )
+    _, estimates = auto_overlap_policy(compute_s, expand_s, fold_s, partition.R, partition.C,
+                                       hw=hw)
+    return estimates[normalize_overlap(overlap)] * levels
 
 
 def distributed_graph_arrays(
@@ -671,6 +728,18 @@ class _GridCheckpoint:
         _host_barrier(self._dev)
 
 
+def _max_over_ranks(dev: torch.device):
+    """``seconds -> the max over every rank of the default group``: the
+    driver's ``agree_seconds`` on a grid."""
+
+    def agree(seconds: float) -> float:
+        t = torch.tensor([float(seconds)], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    return agree
+
+
 class _GridStopRule:
     """A stop rule whose verdict is rank 0's, broadcast to every rank: the
     driver loops of all ranks must halt at the same block."""
@@ -704,9 +773,16 @@ def distributed_betweenness_centrality(
     ledger=None,
     checkpoint=None,
     straggler: str = "none",
+    straggler_factor: float = 2.0,
     autotune: str = "off",
     chaos=None,
+    max_retries: int = DEFAULT_MAX_RETRIES,
+    retry_backoff_s: float = DEFAULT_RETRY_BACKOFF_S,
+    numeric_guard: bool | None = None,
     integrity: str = "off",
+    dispatch_deadline_s=None,
+    clock=None,
+    sleeper=None,
     sampling: str = "off",
     sample_frac: float | None = None,
     sample_k: int | None = None,
@@ -743,7 +819,23 @@ def distributed_betweenness_centrality(
     layouts, priced by the memory guard as such) or ``"auto"``
     (:func:`resolve_overlap`, logged).  ``integrity`` ("audit" or
     "checksum", :data:`~repro_torch.core.driver.INTEGRITY_MODES`) audits
-    every block on the driver's quarantine ladder.
+    every block on the driver's quarantine ladder; under ``"steal"`` a
+    duplicated tail round's two replicas also vote.
+
+    ``straggler`` (:data:`~repro_torch.core.driver.STRAGGLER_POLICIES`)
+    runs the driver's multi-ledger loop over the ``fr`` replicas
+    (``ValueError`` on a grid with ``fr == 1``): one ledger per replica,
+    EWMAs seeded from :func:`prior_round_seconds`, rounds re-dealt
+    (``"redeal"``, when a replica's EWMA passes ``straggler_factor ×`` the
+    fastest's) or stolen (``"steal"``), and a lost replica re-meshed
+    around (``mesh_shape=(fr, R, C)``).  ``max_retries`` /
+    ``retry_backoff_s`` / ``numeric_guard`` are the driver's self-healing
+    knobs; ``dispatch_deadline_s`` arms its watchdog — seconds, or
+    ``"auto"`` for ``max(WATCHDOG_MIN_DEADLINE_S, WATCHDOG_SAFETY ×
+    prior)``, logged; ``clock`` / ``sleeper`` are its time sources
+    (default real time).  Every rank decides on the same numbers: block
+    walls and the watchdog's elapsed time are maxed over the ranks.
+    Under sampling the expected wall (rounds × the prior) is logged.
 
     ``weighted`` / ``delta`` run the bucketed weighted traversal, with the
     single-device entry point's checks (``graph.w`` needed, heuristics in
@@ -755,16 +847,15 @@ def distributed_betweenness_centrality(
     is level-synchronous) and audits its rounds against a bucket bound,
     ⌈n·w_max/Δ⌉ + 2, instead of n + 1 levels.
 
-    The remaining knobs keep the JAX signature and raise
-    ``NotImplementedError`` until their ROADMAP item ports them:
-    ``straggler`` and ``chaos`` (item 8), ``autotune`` (item 9).
+    Two knobs keep the JAX signature and raise ``NotImplementedError``
+    until their ROADMAP item ports them: ``chaos`` (item 8 (c)) and
+    ``autotune`` (item 9).
 
     Returns ``(bc f64 [n], schedule)``, or the
     :class:`~repro_torch.core.driver.BCResult` with ``full_result``.
     """
     for name, value, default, item in (
-        ("straggler", straggler, "none", "8"),
-        ("chaos", chaos, None, "8"),
+        ("chaos", chaos, None, "8 (c)"),
         ("autotune", autotune, "off", "9"),
     ):
         if value != default:
@@ -776,6 +867,12 @@ def distributed_betweenness_centrality(
     if overlap != "auto":
         overlap = normalize_overlap(overlap)
     integrity = normalize_integrity(integrity)
+    straggler = normalize_straggler(straggler)
+    if straggler != "none" and groups.fr == 1:
+        raise ValueError(
+            "straggler scheduling re-deals rounds between sub-cluster replicas; "
+            "run a grid with fr > 1 replicas (--mesh FRxRxC)"
+        )
     dev = device_for_rank(device)
     backend = dist.get_backend()
     want = "gloo" if dev.type == "cpu" else "nccl"
@@ -846,6 +943,23 @@ def distributed_betweenness_centrality(
         # the audit's "levels" are bucket indices: at most ⌈(n-1)·w_max/Δ⌉
         w_max = float(residual.w.max()) if residual.w.size else 1.0
         level_bound = int(np.ceil(graph.n * w_max / delta)) + 2
+    prior_round_s = None
+    if straggler != "none" or dispatch_deadline_s == "auto" or plan.mode != "off":
+        prior_round_s = prior_round_seconds(
+            part, engine_kind, batch_size, layout_overlap, bm=bm, bk=bk,
+            tile_counts=tile_counts, dense_cells=dense_cells,
+            prior_levels=None if delta is None else weighted_prior_levels(residual.w, delta),
+        )
+    if plan.mode != "off":
+        logger.info(
+            "sampling[%s]: %d of %d eligible roots in %d rounds (seed %d); expected wall "
+            "≈ %.3gs at the %.3gs/round prior", plan.mode, plan.k, plan.num_eligible,
+            len(schedule.rounds), plan.seed,
+            sampled_run_seconds(len(schedule.rounds), groups.fr, prior_round_s), prior_round_s,
+        )
+    if dispatch_deadline_s == "auto":
+        dispatch_deadline_s = max(WATCHDOG_MIN_DEADLINE_S, WATCHDOG_SAFETY * prior_round_s)
+        logger.info("dispatch watchdog: auto deadline %.1fs", dispatch_deadline_s)
     driver = BCDriver(
         lambda sources, derived: round_fn(graph_args, omega, sources, derived),
         schedule,
@@ -856,8 +970,23 @@ def distributed_betweenness_centrality(
         checkpoint=None if checkpoint is None else _GridCheckpoint(checkpoint, dev),
         stop_rule=None if stop_rule is None else _GridStopRule(stop_rule, dev),
         rounds_per_dispatch=groups.fr,
+        straggler=straggler,
+        straggler_factor=straggler_factor,
+        prior_round_s=prior_round_s,
+        round_costs=schedule.round_depths,
+        max_retries=max_retries,
+        retry_backoff_s=retry_backoff_s,
+        numeric_guard=numeric_guard,
         integrity=integrity,
+        dispatch_deadline_s=dispatch_deadline_s,
+        clock=clock,
+        sleeper=sleeper,
+        agree_seconds=_max_over_ranks(dev),
         level_bound=level_bound,
+        # the elasticity planner's taxonomy: replicas are 'pod' groups,
+        # the grid is data × model
+        mesh_shape=(groups.fr, groups.R, groups.C),
+        mesh_axes=("pod", "data", "model"),
     )
     result = apply_sampling_rescale(driver.run(), plan)
     result.layout_stats = _layout_stats(foot, tile_counts, dense_cells, index_stats)

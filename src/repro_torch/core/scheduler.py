@@ -37,6 +37,8 @@ __all__ = [
     "bfs_depths",
     "estimate_eccentricities",
     "validate_batch_size",
+    "split_rounds",
+    "redeal_rounds",
 ]
 
 #: The heuristics selector (paper Fig. 12 naming): "h0" none | "h1"
@@ -330,3 +332,66 @@ def build_schedule(
         round_depths=round_depths,
     )
     return schedule, prep, residual, omega
+
+
+def split_rounds(
+    num_rounds: int, fr: int, committed=(), round_costs=None
+) -> list[list[int]]:
+    """Static per-replica deal of a schedule's round ids (the JAX
+    package's, list for list).
+
+    Replica ``r`` receives rounds ``r, r+fr, r+2fr, …``: the lane
+    assignment of the static block loop (block ``i`` = rounds
+    ``[i·fr, (i+1)·fr)``), so ``straggler="none"`` and the multi-ledger
+    policies start from the same deal.  Rounds in ``committed`` (a resumed
+    checkpoint's) are left out.
+
+    ``round_costs`` (one expected cost per round, e.g.
+    ``Schedule.round_depths`` of an eccentricity-ordered schedule) deals
+    by cost instead: the pool sorted costliest first, consecutive
+    ``fr``-tuples one per lane — the shape of :func:`redeal_rounds`,
+    seeded from the prior instead of the EWMA — so a dispatch block
+    co-schedules rounds of similar cost.
+    """
+    if fr < 1:
+        raise ValueError(f"need at least one replica, got fr={fr}")
+    done = set(committed)
+    if round_costs is None:
+        return [[rid for rid in range(r, num_rounds, fr) if rid not in done] for r in range(fr)]
+    costs = [float(c) for c in round_costs]
+    if len(costs) != num_rounds:
+        raise ValueError(f"{num_rounds} rounds but {len(costs)} round costs")
+    pool = sorted((rid for rid in range(num_rounds) if rid not in done),
+                  key=lambda rid: (-costs[rid], rid))
+    queues: list[list[int]] = [[] for _ in range(fr)]
+    for i, rid in enumerate(pool):
+        queues[i % fr].append(rid)
+    return queues
+
+
+def redeal_rounds(
+    queues: list[list[int]], lane_cost: list[float]
+) -> tuple[list[list[int]], int]:
+    """Re-deal pending rounds across replica queues (straggler recovery;
+    the JAX package's, list for list).
+
+    Under replica lockstep a dispatch block costs the deepest of its
+    rounds, so the re-deal packs rounds of similar cost into one block:
+    every pending round is priced at its current owner's per-round cost
+    (the driver's EWMA), the pool is sorted costliest first (round id
+    breaks ties) and consecutive ``fr``-tuples are dealt one per lane —
+    the straggler's backlog drains into the fastest lanes' queue heads.
+    Returns ``(new_queues, moved)``, ``moved`` counting the rounds that
+    changed lanes; a pure function, so a re-deal is reproducible across a
+    kill-and-resume (and on every rank of a grid).
+    """
+    fr = len(queues)
+    if fr != len(lane_cost):
+        raise ValueError(f"{fr} queues but {len(lane_cost)} lane costs")
+    owner = {rid: r for r, q in enumerate(queues) for rid in q}
+    pool = sorted(owner, key=lambda rid: (-lane_cost[owner[rid]], rid))
+    new_queues: list[list[int]] = [[] for _ in range(fr)]
+    for i, rid in enumerate(pool):
+        new_queues[i % fr].append(rid)
+    moved = sum(1 for r, q in enumerate(new_queues) for rid in q if owner[rid] != r)
+    return new_queues, moved

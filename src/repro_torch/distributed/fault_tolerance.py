@@ -1,20 +1,32 @@
-"""Exactly-once accounting of BC rounds, and the round loop's errors.
+"""Exactly-once accounting of BC rounds, elasticity planning, and the
+round loop's errors.
 
 BC rounds are idempotent and additive, so recovery is re-issue, never
 partial-state repair.  :class:`RoundLedger` records committed rounds so a
 duplicated execution never double-counts; :class:`BCCheckpoint`
 (re-exported from :mod:`repro_torch.checkpoint.checkpointer`) pairs the
 committed set with the partial BC sums on disk, tied to one schedule by
-:func:`schedule_fingerprint`.  The exceptions are the driver's recovery
-vocabulary: :class:`TransientRoundError` is retried in place,
-:class:`ReplicaLostError` never is, :class:`IntegrityError` ends a block
-that keeps failing its audit.
+:func:`schedule_fingerprint`.  :func:`plan_elastic_remesh` maps a device
+loss to a smaller grid (whole replicas first), and
+:class:`StragglerPolicy` is the standalone median detector of backup
+tasks; the round loop's own straggler policies are
+:data:`repro_torch.core.driver.STRAGGLER_POLICIES`.  The exceptions are
+the driver's recovery vocabulary: :class:`TransientRoundError` is retried
+in place, :class:`ReplicaLostError` never is (the multi-ledger loop
+re-meshes around it), :class:`IntegrityError` ends a block that keeps
+failing its audit.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+import statistics
 import zlib
 
 __all__ = [
+    "MeshPlan",
+    "plan_elastic_remesh",
+    "StragglerPolicy",
     "RoundLedger",
     "BCCheckpoint",
     "schedule_fingerprint",
@@ -62,6 +74,87 @@ def is_transient_error(exc: BaseException) -> bool:
     if isinstance(exc, ReplicaLostError):
         return False
     return type(exc).__name__ in TRANSIENT_ERROR_NAMES
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    reload_from_checkpoint: bool
+    reshard_params: bool
+    note: str
+
+
+def plan_elastic_remesh(
+    current_shape: tuple[int, ...],
+    axes: tuple[str, ...],
+    devices_lost: int,
+) -> MeshPlan:
+    """Shrink policy: drop whole replica ('pod') groups first, then halve
+    the 'data' axis; never touch 'model' (weight layout).  The JAX
+    package's planner, decision for decision."""
+    shape = list(current_shape)
+    n = 1
+    for s in shape:
+        n *= s
+    remaining = n - devices_lost
+    if remaining <= 0:
+        raise ValueError("no devices left")
+    if "pod" in axes:
+        pod_ax = axes.index("pod")
+        per_pod = n // shape[pod_ax]
+        pods_left = remaining // per_pod
+        if pods_left >= 1:
+            if pods_left != shape[pod_ax]:
+                shape[pod_ax] = pods_left
+                return MeshPlan(
+                    shape=tuple(shape),
+                    axes=axes,
+                    reload_from_checkpoint=False,  # replicas hold full state
+                    reshard_params=False,
+                    note=f"dropped to {pods_left} pods; surviving replicas "
+                    f"re-deal the remaining source rounds",
+                )
+            return MeshPlan(tuple(shape), axes, False, False, "no change")
+    data_ax = axes.index("data")
+    while True:
+        prod = 1
+        for s in shape:
+            prod *= s
+        if prod <= remaining:
+            break
+        if shape[data_ax] % 2 != 0 or shape[data_ax] == 1:
+            raise ValueError(f"cannot shrink mesh {current_shape} to {remaining}")
+        shape[data_ax] //= 2
+    return MeshPlan(
+        shape=tuple(shape),
+        axes=axes,
+        reload_from_checkpoint=True,
+        reshard_params=True,
+        note="data axis halved; params resharded from checkpoint, "
+        "global batch rescaled",
+    )
+
+
+class StragglerPolicy:
+    """Median-based speculative re-execution (MapReduce backup tasks): a
+    detector for external orchestration; the BC round loop uses its own
+    multi-ledger scheduler (``BCDriver(straggler="steal"|"redeal")``)."""
+
+    def __init__(self, factor: float = 2.0, min_samples: int = 5, window: int = 512):
+        self.factor = factor
+        self.min_samples = min_samples
+        # bounded history: a long-lived service observes millions of
+        # rounds, and the median needs only the recent regime
+        self.times: collections.deque[float] = collections.deque(maxlen=window)
+
+    def observe(self, seconds: float) -> None:
+        self.times.append(seconds)
+
+    def should_speculate(self, elapsed: float) -> bool:
+        if len(self.times) < self.min_samples:
+            return False
+        return elapsed > self.factor * statistics.median(self.times)
 
 
 class RoundLedger:

@@ -21,6 +21,9 @@ device or on a 2-D grid of devices.
     # weighted BC (bucketed delta-stepping) on generator weights:
     PYTHONPATH=src python -m repro_torch.launch.bc --road 4x5 --weights dyadic --weighted \
         --device cpu
+    # straggler scheduling over FR replicas, self-checking rounds, the watchdog:
+    PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x2x2 --straggler steal \
+        --integrity audit --dispatch-deadline auto --numeric-guard --device cpu
 
 The graphs are the JAX launcher's, with the same seeds (R-MAT, grid and
 road-like; seed 1), so both launchers score the same graph.  ``--engine``
@@ -49,6 +52,15 @@ ring too) or ``auto`` (picked from the roofline level times, logged as
 bucketed weighted traversal on them (heuristics h0/h1/h1t) and
 ``--delta`` sets its bucket width (default: ``auto_delta``).
 
+``--straggler steal|redeal`` runs the multi-ledger round loop over the FR
+replicas of an FRxRxC ``--mesh`` (FR > 1; ``--straggler-factor`` is the
+EWMA ratio that flags a straggler under ``redeal``).  ``--integrity
+audit|checksum`` audits every block, ``--dispatch-deadline SECONDS|auto``
+arms the dispatch watchdog, ``--max-retries`` / ``--retry-backoff`` size
+the retry budget and ``--numeric-guard`` forces the non-finite guard on
+(all on ``--mesh``, as in the JAX launcher); a "recovery: ..." line
+reports any retry, quarantine or re-mesh.
+
 ``--mesh`` runs :func:`~repro_torch.core.distributed.distributed_betweenness_centrality`
 with one process per grid device.  On cards, run the launcher under
 ``torchrun`` (NCCL, the device from ``LOCAL_RANK``).  With ``--device
@@ -69,6 +81,7 @@ import torch.distributed as dist
 
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
 from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centrality
+from ..core.driver import INTEGRITY_MODES, STRAGGLER_POLICIES
 from ..core.operators import OVERLAP_POLICIES
 from ..core.scheduler import HEURISTICS_MODES
 from ..distributed.fault_tolerance import BCCheckpoint
@@ -124,6 +137,56 @@ def build_parser() -> argparse.ArgumentParser:
         "(e.g. 80 for an H100); the footprint is always printed",
     )
     ap.add_argument(
+        "--straggler",
+        default="none",
+        choices=list(STRAGGLER_POLICIES),
+        help="sub-cluster straggler policy (needs an FRxRxC --mesh, FR > 1): 'steal' pulls "
+        "rounds into replicas whose queue ran dry; 'redeal' re-packs all pending rounds "
+        "when one replica's EWMA per-round wall exceeds --straggler-factor x the fastest's",
+    )
+    ap.add_argument(
+        "--straggler-factor",
+        type=float,
+        default=2.0,
+        help="EWMA per-round-wall ratio over the fastest replica that triggers a re-deal "
+        "(straggler=redeal only; steal is queue-driven and ignores it)",
+    )
+    ap.add_argument(
+        "--integrity",
+        default="off",
+        choices=list(INTEGRITY_MODES),
+        help="self-checking rounds (needs --mesh): 'audit' checks each block against its "
+        "claimed sum and output bounds; 'checksum' adds the ABFT lane to every level "
+        "product.  Failed blocks are quarantined and re-dispatched",
+    )
+    ap.add_argument(
+        "--dispatch-deadline",
+        default=None,
+        help="dispatch watchdog deadline in seconds, or 'auto' for max(60, 50 x the "
+        "roofline round prior) (needs --mesh).  A block past it is re-dispatched, then "
+        "escalated to a replica loss the straggler loop re-meshes around",
+    )
+    ap.add_argument(
+        "--max-retries",
+        type=int,
+        default=None,
+        help="retry budget per dispatch block (transient errors, watchdog trips, "
+        "quarantined blocks; default 2)",
+    )
+    ap.add_argument(
+        "--retry-backoff",
+        type=float,
+        default=None,
+        help="base seconds of the exponential backoff between transient retries "
+        "(default 0.05)",
+    )
+    ap.add_argument(
+        "--numeric-guard",
+        action="store_true",
+        help="force the per-block non-finite bc/ns guard on (automatic under a straggler "
+        "policy and whenever a fallback round function exists)",
+    )
+    ap.add_argument(
         "--sampling",
         default="off",
         choices=list(SAMPLING_MODES),
@@ -173,15 +236,37 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _mesh_rank(groups: GridGroups, graph, kwargs: dict):
-    """One rank of a ``--mesh`` run: (bc, rounds, sampling stats, seconds)
-    on rank 0, None elsewhere.  Module-level, so spawned gloo processes
+    """One rank of a ``--mesh`` run: its :class:`BCResult` and seconds on
+    rank 0, None elsewhere.  Module-level, so spawned gloo processes
     import only this package."""
     t0 = time.perf_counter()
     res = distributed_betweenness_centrality(graph, groups, full_result=True, **kwargs)
     dt = time.perf_counter() - t0  # the result is on the host: the run has synchronised
     if groups.rank != 0:
         return None
-    return res.bc, res.rounds_run, res.sampling_stats, res.layout_stats, dt
+    return res, dt
+
+
+def _print_recovery(rec: dict) -> None:
+    """The JAX launcher's recovery and integrity lines: the first when any
+    retry, quarantine, fallback or re-mesh happened or the run resumed,
+    the second whenever an integrity mode was on."""
+    integ = rec["integrity"]
+    events = any(v for k, v in rec.items() if k not in ("resumed_generation", "integrity"))
+    integ_events = any(v for k, v in integ.items()
+                       if k not in ("mode", "max_checksum_residual"))
+    if events or integ_events or rec["resumed_generation"]:
+        print(f"recovery: {rec['retries']} retries ({rec['transient_errors']} transient), "
+              f"{rec['quarantined_blocks']} quarantined, {rec['fallback_recomputes']} fallback "
+              f"recomputes, {rec['remesh_events']} re-mesh events (dead replicas "
+              f"{rec['dead_replicas']}), resumed generation {rec['resumed_generation']}")
+    if integ["mode"] != "off":
+        print(f"integrity[{integ['mode']}]: {integ['checksum_failures']} checksum + "
+              f"{integ['audit_failures']} audit failures, {integ['vote_mismatches']}/"
+              f"{integ['votes']} duplicate-vote mismatches, {integ['quarantined_rounds']} "
+              f"quarantined rounds, watchdog {integ['watchdog_trips']} trips / "
+              f"{integ['watchdog_escalations']} escalations, max checksum residual "
+              f"{integ['max_checksum_residual']:.2e}")
 
 
 def run_grid(fn, graph, mesh_shape: tuple[int, ...], kwargs: dict, *, on_cpu: bool):
@@ -243,6 +328,26 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit("--mesh takes RxC or FRxRxC (positive integers)")
     if args.overlap != "none" and mesh_shape is None:
         raise SystemExit("--overlap is a distributed schedule; pass --mesh RxC")
+    if args.straggler != "none" and mesh_shape is not None and (
+            len(mesh_shape) != 3 or mesh_shape[0] == 1):
+        raise SystemExit("--straggler re-deals rounds between sub-cluster replicas; pass a "
+                         "replicated --mesh FRxRxC (FR > 1)")
+    if args.integrity != "off" and mesh_shape is None:
+        raise SystemExit("--integrity audits the distributed round loop; pass --mesh RxC")
+    deadline = None
+    if args.dispatch_deadline is not None:
+        if mesh_shape is None:
+            raise SystemExit("--dispatch-deadline arms the distributed dispatch watchdog; "
+                             "pass --mesh RxC")
+        if args.dispatch_deadline == "auto":
+            deadline = "auto"
+        else:
+            try:
+                deadline = float(args.dispatch_deadline)
+            except ValueError:
+                raise SystemExit("--dispatch-deadline takes seconds or 'auto'") from None
+            if deadline <= 0:
+                raise SystemExit("--dispatch-deadline takes positive seconds or 'auto'")
     if args.engine in ("fused_sparse", "fused_hybrid") and mesh_shape is None:
         raise SystemExit(f"{args.engine} is a distributed engine; pass --mesh RxC")
     tile = None
@@ -282,14 +387,16 @@ def main(argv: list[str] | None = None) -> None:
             print(f"resuming: {len(committed)} rounds already committed"
                   + ("" if not gen else f" (from fallback generation {gen})"))
     kwargs = dict(batch_size=args.batch_size, heuristics=args.heuristics,
-                  device=args.device, checkpoint=checkpoint, **sampling_kw)
+                  device=args.device, checkpoint=checkpoint, straggler=args.straggler,
+                  **sampling_kw)
     if args.weighted:
         kwargs.update(weighted=True, delta=args.delta)
     if is_rank0:
         print(
             f"{name}: n={graph.n} m={graph.num_edges} heuristics={args.heuristics} "
             f"engine={args.engine} sampling={args.sampling} device={args.device or 'cuda'}"
-            + (f" mesh={args.mesh} overlap={args.overlap}" if mesh_shape else "")
+            + (f" mesh={args.mesh} overlap={args.overlap} straggler={args.straggler}"
+               if mesh_shape else "")
             + (f" weighted(delta={args.delta or 'auto'})" if args.weighted else "")
         )
     t0 = time.time()
@@ -297,13 +404,29 @@ def main(argv: list[str] | None = None) -> None:
         # the arc-list engines map to the distributed arc-list engine
         engine = "sparse" if args.engine in ("dense", "sparse") else args.engine
         hbm = args.hbm_gb * 2**30 if args.hbm_gb > 0 else None
+        robust_kw: dict = dict(straggler_factor=args.straggler_factor, integrity=args.integrity,
+                               dispatch_deadline_s=deadline)
+        if args.max_retries is not None:
+            robust_kw["max_retries"] = args.max_retries
+        if args.retry_backoff is not None:
+            robust_kw["retry_backoff_s"] = args.retry_backoff
+        if args.numeric_guard:
+            robust_kw["numeric_guard"] = True
         out = run_grid(_mesh_rank, graph, mesh_shape, dict(
             kwargs, engine_kind=engine, overlap=args.overlap, tile=tile,
-            hybrid_threshold=args.hybrid_threshold, hbm_limit_bytes=hbm),
+            hybrid_threshold=args.hybrid_threshold, hbm_limit_bytes=hbm, **robust_kw),
             on_cpu=args.device == "cpu")
         if out is None:  # not rank 0 of a torchrun grid
             return
-        bc, rounds, samp, layout, dt = out
+        res, dt = out
+        bc, rounds, samp, layout = res.bc, res.rounds_run, res.sampling_stats, res.layout_stats
+        _print_recovery(res.recovery_stats)
+        if res.straggler_stats is not None:
+            st = res.straggler_stats
+            print(f"straggler[{st['policy']}]: {st['rounds_stolen']} stolen, "
+                  f"{st['rounds_redealt']} re-dealt ({st['redeal_events']} events), "
+                  f"{st['duplicates_discarded']}/{st['duplicates_dispatched']} duplicates "
+                  f"discarded, rounds per replica {st['per_replica_rounds']}")
         foot = layout["footprint"]
         if args.overlap != "none":
             print(f"collective schedule: overlap={layout['overlap']}")

@@ -255,8 +255,10 @@ def sampled_run_seconds(num_rounds: int, fr: int, round_s: float) -> float:
 
     A k-root sample schedules ``ceil(k / batch)`` rounds dealt ``fr`` per
     dispatch block, so its cost is the block count times one block's
-    wall ``round_s`` — in the port a measured one (``launch/serve_bc.py``
-    prices the refresh slices still to run from the slices it has run).
+    wall ``round_s``: a measured one where there is one
+    (``launch/serve_bc.py`` prices the refresh slices still to run from
+    the slices it has run), else the grid's modelled prior
+    (``core/distributed.py:prior_round_seconds``).
     """
     if num_rounds <= 0:
         return 0.0

@@ -150,16 +150,17 @@ def test_unported_or_invalid_options_raise(kwargs, error):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"straggler": "steal"}, {"straggler": "redeal"}, {"integrity": "bogus"},
-     {"dispatch_deadline_s": 0.0}],
+    [{"straggler": "steal", "ledger": RoundLedger()}, {"straggler": "work-steal"},
+     {"integrity": "bogus"}, {"dispatch_deadline_s": 0.0}],
 )
 def test_driver_options_of_later_slices_raise(kwargs):
-    """The multi-ledger straggler loop is item 8; the integrity modes and
-    the watchdog are ported and validate their arguments."""
+    """The multi-ledger straggler loop, the integrity modes and the
+    watchdog are ported and validate their arguments: a straggler policy
+    keeps one ledger per replica, so it refuses an external one, and an
+    unknown policy is refused."""
     g = pg.cycle_graph(6)
     schedule = build_schedule(g, batch_size=4)[0]
-    error, match = (NotImplementedError, "item 8") if "straggler" in kwargs else (ValueError, None)
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError):
         pdriver.BCDriver(lambda s, d: None, schedule, n=g.n, device="cpu", **kwargs)
 
 

@@ -183,3 +183,55 @@ def test_cli_weighted_matches_the_dijkstra_oracle(argv, build, tmp_path, capsys)
 def test_cli_weighted_flags_exit_with_the_jax_launchers_message(argv, message):
     with pytest.raises(SystemExit, match=re.escape(message)):
         cli.main(["--road", "4x5", "--device", "cpu", *argv])
+
+
+def test_cli_recovery_flags_parse_with_the_jax_launchers_choices():
+    from repro.core.driver import INTEGRITY_MODES, STRAGGLER_POLICIES
+
+    ap = cli.build_parser()
+    actions = {a.dest: a for a in ap._actions}
+    assert actions["straggler"].choices == list(STRAGGLER_POLICIES)
+    assert actions["integrity"].choices == list(INTEGRITY_MODES)
+    default = ap.parse_args(["--grid", "3x3"])
+    assert (default.straggler, default.straggler_factor, default.integrity,
+            default.dispatch_deadline, default.max_retries, default.retry_backoff,
+            default.numeric_guard) == ("none", 2.0, "off", None, None, None, False)
+    args = ap.parse_args(["--grid", "3x3", "--straggler", "redeal", "--straggler-factor", "3",
+                          "--integrity", "checksum", "--dispatch-deadline", "auto",
+                          "--max-retries", "1", "--retry-backoff", "0.01", "--numeric-guard"])
+    assert (args.straggler, args.straggler_factor, args.integrity, args.dispatch_deadline,
+            args.max_retries, args.retry_backoff, args.numeric_guard) == (
+        "redeal", 3.0, "checksum", "auto", 1, 0.01, True)
+
+
+def test_cli_mesh_straggler_steal_runs(tmp_path, capsys):
+    """``--mesh 2x2x2 --straggler steal --device cpu`` spawns the eight
+    gloo ranks of two replicas; the recovery knobs ride along."""
+    out = tmp_path / "bc.npy"
+    cli.main(["--grid", "5x5", "--mesh", "2x2x2", "--straggler", "steal", "--integrity", "audit",
+              "--dispatch-deadline", "auto", "--max-retries", "1", "--retry-backoff", "0.01",
+              "--numeric-guard", "--batch-size", "4", "--device", "cpu", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert "mesh=2x2x2 overlap=none straggler=steal" in text
+    assert "straggler[steal]:" in text and "1/1 duplicates discarded" in text
+    assert "integrity[audit]: 0 checksum + 0 audit failures" in text
+    np.testing.assert_allclose(np.load(out), brandes_reference(pg.grid_graph(5, 5)), **TOL)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--mesh", "2x2", "--straggler", "steal"], "replicated --mesh FRxRxC"),
+    (["--mesh", "1x2x2", "--straggler", "redeal"], "replicated --mesh FRxRxC"),
+    (["--integrity", "audit"], "--integrity audits the distributed round loop"),
+    (["--dispatch-deadline", "5"], "--dispatch-deadline arms the distributed"),
+    (["--mesh", "2x2", "--dispatch-deadline", "soon"], "takes seconds or 'auto'"),
+    (["--mesh", "2x2", "--dispatch-deadline", "0"], "takes positive seconds"),
+], ids=["straggler-2d", "straggler-fr1", "integrity-no-mesh", "deadline-no-mesh",
+        "deadline-word", "deadline-zero"])
+def test_cli_rejects_recovery_flags_it_cannot_honour(argv, message):
+    with pytest.raises(SystemExit, match=re.escape(message)):
+        cli.main(["--grid", "3x3", "--device", "cpu", *argv])
+
+
+def test_cli_single_device_straggler_fails_as_the_entry_point_does():
+    with pytest.raises(ValueError, match="no replicas"):
+        cli.main(["--grid", "3x3", "--straggler", "steal", "--device", "cpu"])

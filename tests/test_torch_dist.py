@@ -265,8 +265,9 @@ def test_distributed_one_degree_matches_host(ranks):
 
 @pytest.mark.parametrize("kwargs", [
     dict(overlap="expand"), dict(straggler="steal"), dict(chaos="seed=1"), dict(integrity="audit"),
-    # straggler and chaos (item 8) and autotune (item 9) still raise; the
-    # ring schedules and the grid's integrity modes are ported, for
+    # chaos (item 8 (c)) and autotune (item 9) still raise; a straggler
+    # policy is ported but needs replicas, so the one-rank grid refuses it;
+    # the ring schedules and the grid's integrity modes are ported, for
     # weighted runs too (barrier collectives, a bucket-bounded audit)
     dict(autotune="on"), dict(delta=1.0, integrity="audit", weighted=True),
     dict(weighted=True, overlap="expand"),
@@ -274,7 +275,9 @@ def test_distributed_one_degree_matches_host(ranks):
 def test_unported_knobs_raise(kwargs):
     """The knobs still to port raise before any process group is touched;
     the ported ones run on a one-rank gloo grid and match the oracle
-    (tests/test_torch_ring.py holds them on the 2x4, 4x2 and 2x2x2 grids)."""
+    (tests/test_torch_ring.py holds them on the 2x4, 4x2 and 2x2x2 grids),
+    but a straggler policy, which needs fr > 1 replicas, is refused there
+    (tests/test_torch_straggler_grid.py runs it on the 2x2x2 grid)."""
     import os
     import tempfile
 
@@ -286,7 +289,7 @@ def test_unported_knobs_raise(kwargs):
     graph = GRAPHS["gnp20"](pg)
     if kwargs.get("weighted"):
         graph = pg.weighted_copy(graph, weights="dyadic", seed=1)
-    if next(iter(kwargs)) in ("straggler", "chaos", "autotune"):
+    if next(iter(kwargs)) in ("chaos", "autotune"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             distributed_betweenness_centrality(graph, None, device="cpu", **kwargs)
         return
@@ -294,6 +297,11 @@ def test_unported_knobs_raise(kwargs):
         dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "s"), 1),
                                 rank=0, world_size=1)
         try:
+            if "straggler" in kwargs:
+                with pytest.raises(ValueError, match="replicas"):
+                    distributed_betweenness_centrality(graph, GridGroups(1, 1, 1), device="cpu",
+                                                       **kwargs)
+                return
             res = distributed_betweenness_centrality(graph, GridGroups(1, 1, 1), device="cpu",
                                                      full_result=True, **kwargs)
         finally:

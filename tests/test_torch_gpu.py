@@ -34,12 +34,14 @@ import repro_torch.graphs as pg
 from repro_torch.core import bc as pbc
 from repro_torch.core import brandes_reference
 from repro_torch.core.distributed import distributed_betweenness_centrality
+from repro_torch.core.driver import BCDriver
 from repro_torch.core.operators import (
     DistributedWeightedDenseOperator,
     DistributedWeightedOperator,
     WeightedDenseOperator,
     WeightedSparseOperator,
 )
+from repro_torch.core.scheduler import build_schedule
 from repro_torch.distributed import GridGroups
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
@@ -612,6 +614,23 @@ def test_2d_path_on_a_1x1_nccl_grid_matches_dense(nccl_1x1, engine, kw):
     np.testing.assert_allclose(res.bc, want.bc, rtol=1e-5, atol=1e-5)
 
 
+def test_straggler_policy_and_auto_watchdog_on_a_1x1_nccl_grid(nccl_1x1):
+    """One replica holds no straggler policy (refused before any collective);
+    the "auto" watchdog, a retry budget and the numeric guard leave the BC
+    of the fused run as it was, with K3/K4 launched."""
+    g = pg.rmat_graph(8, 8, seed=1)
+    kw = dict(batch_size=32, heuristics="h3", engine_kind="fused", full_result=True)
+    with pytest.raises(ValueError, match="replicas"):
+        distributed_betweenness_centrality(g, nccl_1x1, straggler="steal", **kw)
+    want = distributed_betweenness_centrality(g, nccl_1x1, **kw)
+    ops.reset_launches()
+    res = distributed_betweenness_centrality(g, nccl_1x1, dispatch_deadline_s="auto",
+                                             max_retries=1, numeric_guard=True, **kw)
+    assert ops.LAUNCHES["frontier_spmm_partial"] > 0 and ops.LAUNCHES["dependency_spmm_partial"] > 0
+    np.testing.assert_array_equal(res.bc, want.bc)
+    assert res.recovery_stats["integrity"]["watchdog_trips"] == 0
+
+
 @pytest.mark.parametrize("overlap", ["expand", "expand+fold"])
 @pytest.mark.parametrize("engine,kw", [
     ("sparse", {}), ("fused", {}), ("fused_bf16", {}), ("fused_sparse", {}),
@@ -840,3 +859,42 @@ def test_reduced_dlrm_on_the_card_matches_the_cpu(cuda):
         assert ops.LAUNCHES["segment_bag"] == 1
     torch.testing.assert_close(feats.cpu(), want_feats, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(logit.cpu(), want_logit, rtol=1e-5, atol=1e-5)
+
+
+def _two_lane_fused(graph, batch, device):
+    schedule, prep, residual, omega_np = build_schedule(graph, batch_size=batch)
+    op = pbc.make_operator(residual, "fused", device)
+    fn = pbc.make_round_fn(op, torch.from_numpy(omega_np).to(device=device, dtype=torch.float32))
+    return fn, schedule, prep
+
+
+@pytest.mark.parametrize("policy", ["steal", "redeal"])
+def test_two_lane_fused_driver_under_a_straggler_policy_equals_the_static_loop(cuda, policy):
+    """Two lanes of K1/K2 rounds on one card, dealt by the multi-ledger loop
+    (deep path rounds beside shallow clique rounds, an odd count so that the
+    steal tail runs a duplicate): the BC of the static loop and the oracle."""
+    g = pg.disjoint_union(pg.skewed_depth_graph(4, 64), pg.path_graph(64))  # 9 rounds
+    fn, schedule, prep = _two_lane_fused(g, 64, cuda)
+    static = BCDriver(fn, schedule, n=g.n, device=cuda, prep=prep, rounds_per_dispatch=2).run()
+    ops.reset_launches()
+    res = BCDriver(fn, schedule, n=g.n, device=cuda, prep=prep, rounds_per_dispatch=2,
+                   straggler=policy).run()
+    assert ops.LAUNCHES["frontier_spmm"] > 0 and ops.LAUNCHES["dependency_spmm"] > 0
+    np.testing.assert_allclose(res.bc, static.bc, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(res.bc, brandes_reference(g), rtol=1e-5, atol=1e-5)
+    stats = res.straggler_stats
+    assert res.rounds_run == 9 and sum(stats["per_replica_rounds"]) == 9
+    if policy == "steal":
+        assert stats["duplicates_discarded"] == stats["duplicates_dispatched"] >= 1
+    else:
+        assert stats["redeal_events"] >= 1
+
+
+def test_profile_fills_block_times_on_the_card(cuda):
+    g = pg.rmat_graph(8, 8, seed=1)
+    fn, schedule, prep = _two_lane_fused(g, 32, cuda)
+    res = BCDriver(fn, schedule, n=g.n, device=cuda, prep=prep, rounds_per_dispatch=2,
+                   profile=True).run()
+    assert len(res.block_times) == -(-len(schedule.rounds) // 2)
+    assert min(res.block_times) > 0 and res.recovery_stats["quarantined_blocks"] == 0
+    np.testing.assert_allclose(res.bc, brandes_reference(g), rtol=1e-5, atol=1e-5)
