@@ -7,13 +7,13 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 12, 13, 6, 7: phase 9
+Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 12, 13, 14, 6, 7: phase 9
 first, while nothing else holds device memory, because its tables take
-65 GiB; phases 8, 10, 11, 12 and 13 share phase 5's NCCL process group, and
-phase 7's kernel table carries phase 8's, 10's and 12's launches, K7's
-times, which phase 9 takes on its tables, and the acc-mode chains that
-phase 12 (b) times; a kernel's launches count its plain and its acc
-mode):
+65 GiB; phases 8, 10, 11, 12, 13 and 14 share phase 5's NCCL process
+group, and phase 7's kernel table carries phase 8's, 10's, 12's and 14's
+launches, K7's times, which phase 9 takes on its tables, and the
+acc-mode chains that phase 12 (b) times; a kernel's launches count its
+plain and its acc mode):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
@@ -180,7 +180,34 @@ mode):
      the 1×1 NCCL grid "steal" refused (fr = 1), then fused under the
      "auto" watchdog with max_retries=1 and the numeric guard, equal to
      phase 5's fused BC, the logged deadline and expected wall printed.
-     Every line carries the card's name and power limit.
+     Every line carries the card's name and power limit;
+ 14. measured-cost autotuning and the chaos harness on phase 4's graph and
+     roots (each run's launch counts zeroed just before it): (a) on the
+     1×1 NCCL grid, fused_hybrid under overlap="auto" with
+     autotune="measure" on a fresh cache file (every tile, the dense
+     calibration and three policies measured, the sparse calibration a
+     hit; the report, the walls by configuration, the planner's wall, the
+     resolved policy, tile and hybrid cells), then autotune="cache" on the
+     file (no measurement, the same picks, bit-equal BC), then fused with
+     autotune="cache" and the "auto" watchdog: the measured round prior
+     (16 × the measured s/level) beside the round wall and the roofline
+     prior; (b) chaos on the 1×1 grid, fused: transient@1x2 + poison@3
+     (two retries, one block quarantined and recomputed through the
+     fallback), flip@2 under integrity "audit" and "checksum" (detected,
+     re-dispatched), a stall past the deadline with max_retries=1 (one
+     watchdog re-dispatch), kill refused (fr = 1: ReplicaLostError), a
+     BCCheckpoint crash@1 / torn@0 / resume falling back one generation,
+     cache@1 garbling (a)'s file, read back empty with a warning; (c) two
+     lanes a block on one card (phase 13's make_round_fn, K1/K2), 640
+     roots in 5 rounds under "steal" with audit: kill@1:r1 re-meshed and
+     flip@2:d1 (the tail duplicate, its claim forged) caught by the vote
+     alone.  Every BC within rtol 1e-5 / atol 1e-5 of phase 5's fused BC
+     (of (c)'s clean run in (c), which is held against a one-lane run of
+     the same schedule); every run prints its recovery_stats.  Phase 7's
+     rows count phase 14's launches by configuration: the planner's
+     timings candidate by candidate, the runs by their tile and integrity
+     mode; launches at a configuration with no row (acc mode on the 1×1
+     grid, tile 64) are printed apart.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1487,6 +1514,333 @@ def straggler_phase(dev, graph, groups, fused_ref, fused_2d_bc: np.ndarray, smi:
     print(f"[13] straggler phase ok in {time.perf_counter() - t13:.1f}s")
 
 
+# phase 14: measured-cost autotuning and the chaos harness
+# (c): five rounds of 128 roots on two lanes, so the last block runs a
+# tail duplicate (four rounds fill both lanes to the end)
+CHAOS_SAMPLE_K = 640
+K1_K6 = ("frontier_spmm", "dependency_spmm", "frontier_spmm_partial", "dependency_spmm_partial",
+         "frontier_spmm_sparse", "dependency_spmm_sparse")
+
+
+def autotune_chaos_phase(dev, graph, groups, fused_2d_bc: np.ndarray, smi: str) -> dict:
+    """Phase 14 on phase 4's graph and roots (batch 128, h0, 512 fixed
+    roots): (a) on the 1×1 NCCL grid, fused_hybrid under overlap="auto"
+    with autotune="measure" on a fresh cache file (the plan's report, its
+    per-tile / calibration / per-policy walls, the planner's wall, the
+    resolved policy, tile and hybrid cells), then autotune="cache" on the
+    file (no measurement, the same picks, bit-equal BC), then fused with
+    autotune="cache" and the "auto" watchdog (the measured round prior
+    beside the round wall and the roofline prior); (b) chaos on the 1×1
+    grid, fused: transient + poison under the numeric guard, flip under
+    audit and checksum, a stall past the deadline with one retry, a kill
+    refused (fr = 1), crash / torn save / generational resume on a
+    BCCheckpoint, a garbled cost cache read back empty; (c) two lanes a
+    block on one card (phase 13's make_round_fn driver, K1/K2) under
+    "steal" with audit: a replica kill re-meshed, a deep flip of the tail
+    duplicate caught by the vote alone.  Every BC is held against its
+    reference (phase 5's fused BC, or (c)'s clean run, itself held against
+    a one-lane run of the same schedule) at rtol 1e-5 / atol 1e-5; each
+    run's launch counts are zeroed just before it and read just after.
+    Returns ``(rows, other)``: the launches of K1–K6 by the phase 7 row
+    whose configuration they ran at (``{row: {kernel: launches}}``, a row
+    named by what follows ``kernel[`` in its name; the planner's timings
+    are told apart candidate by candidate through a counting wrapper
+    around its bench), and the launches at configurations phase 7 has no
+    row for (``acc`` mode on the 1×1 grid, BCSR tile 64)."""
+    from repro_torch.autotune import CostCache, measure
+    from repro_torch.core.bc import make_operator, make_round_fn
+    from repro_torch.core.distributed import (
+        PRIOR_LEVELS,
+        distributed_betweenness_centrality,
+        prior_round_seconds,
+    )
+    from repro_torch.core.driver import BCDriver
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.distributed import BCCheckpoint
+    from repro_torch.distributed.chaos import ChaosCrash, ChaosRoundFn
+    from repro_torch.distributed.fault_tolerance import ReplicaLostError
+    from repro_torch.graphs import partition_2d
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BlockBudgetStop
+    from repro_torch.serving.sampling import eligible_roots, plan_sampling
+
+    t14 = time.perf_counter()
+    print(f"[14] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
+    total: dict[str, int] = {}
+    rows: dict[str, dict[str, int]] = {}
+    other: dict[str, int] = {}
+    timings: list = []  # (Candidate, launches) of the planner's timings in the current run
+    kw = dict(batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed", sample_k=MAIN_SAMPLE_K,
+              sample_seed=0, full_result=True)
+
+    def row_of(kname, tile, integrity):
+        """Phase 7's row (its name after ``kname[``) at the configuration of
+        a plain launch of ``kname`` on phase 4's graph: K1/K2 on the f32
+        adjacency, K3/K4 on the 1×1 f32 block (the checksum-lane row under
+        integrity="checksum"), K5/K6 at a square tile phase 8 times; None
+        where phase 7 has no such row."""
+        if kname in ("frontier_spmm", "dependency_spmm"):
+            return "f32 A]"
+        if kname in ("frontier_spmm_partial", "dependency_spmm_partial"):
+            return "f32 A, checksum lane" if integrity == "checksum" else "f32 A, 1x1 block"
+        if (kname in ("frontier_spmm_sparse", "dependency_spmm_sparse") and tile is not None
+                and tile[0] == tile[1] and tile[0] in (128, SPARSE_TILE)):
+            return f"rmat16 1x1 tile {tile[0]}:"
+        return None
+
+    def credit(launches, tile, integrity):
+        for k, v in launches.items():
+            if not v:
+                continue
+            total[k] = total.get(k, 0) + v
+            row = None if k.endswith("_acc") else row_of(k, tile, integrity)
+            into = other if row is None else rows.setdefault(row, {})
+            into[k] = into.get(k, 0) + v
+
+    def counted(fn, integrity="off"):
+        """``fn()`` with the launch counts zeroed just before and read just
+        after, credited to phase 7's rows: the planner's timings by their
+        candidate's tile, the rest by the run's tile and ``integrity``.
+        Returns ``(result, launches, wall)``."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        timings.clear()
+        out = None
+        t = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            return out, dict(ops.LAUNCHES), time.perf_counter() - t
+        finally:
+            rest = dict(ops.LAUNCHES)
+            for cand, launches in timings:
+                credit(launches, cand.tile, "off")
+                for k, v in launches.items():
+                    rest[k] -= v
+            credit(rest, (getattr(out, "layout_stats", None) or {}).get("tile"), integrity)
+
+    real_bench = measure.default_bench
+
+    def counting_bench(*args, **kwargs):
+        """The planner's bench, each timing's launches kept with its
+        candidate (they still count in the run's total)."""
+        bench = real_bench(*args, **kwargs)
+
+        def timed(cand):
+            before = dict(ops.LAUNCHES)
+            rec = bench(cand)
+            timings.append((cand, {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()}))
+            return rec
+
+        return timed
+
+    measure.default_bench = counting_bench  # restored at the phase's end
+
+    def held(tag, got, want):
+        ok, err = close(torch.from_numpy(got), torch.from_numpy(want), 1e-5, 1e-5)
+        print(f"[14] {tag}: max abs err {err:.3g}")
+        check(ok, f"[14] {tag}: BC disagrees")
+
+    def run(tag, full=True, **extra):
+        """One run on the 1×1 grid; a full one is held against phase 5's."""
+        res, launches, wall = counted(
+            lambda: distributed_betweenness_centrality(graph, groups, **kw, **extra),
+            extra.get("integrity", "off"))
+        check(res.bc.shape == (graph.n,) and bool(np.isfinite(res.bc).all()),
+              f"[14] {tag}: BC must be finite of shape ({graph.n},)")
+        print(f"[14] {tag}: wall {wall:.3f}s (round loop {res.wall_s:.3f}s), {res.rounds_run} "
+              f"rounds, levels {res.round_levels}, overlap {res.layout_stats['overlap']}, "
+              f"launches {dict((k, v) for k, v in launches.items() if v)} ({smi})")
+        print(f"[14] {tag}: recovery_stats {res.recovery_stats}")
+        if full:
+            held(f"{tag} vs phase 5's fused", res.bc, fused_2d_bc)
+        return res, launches
+
+    def refused(tag, exc, **extra):
+        try:
+            counted(lambda: distributed_betweenness_centrality(graph, groups, **kw, **extra),
+                    extra.get("integrity", "off"))
+        except exc as err:
+            print(f"[14] {tag}: {type(err).__name__}: {err} ({smi})")
+            return
+        fail(f"[14] {tag}: expected {exc.__name__}")
+
+    def logged(logger_name, level, fn):
+        log = logging.getLogger(logger_name)
+        lines, old = LogLines(), log.level
+        log.addHandler(lines)
+        log.setLevel(level)
+        try:
+            return fn(), lines.lines
+        finally:
+            log.removeHandler(lines)
+            log.setLevel(old)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        path = os.path.join(tmp, "tune.json")
+        # (a) autotune on the 1x1 grid
+        tiles = partition_2d(graph, 1, 1).tile_candidates()
+        tuned = dict(engine_kind="fused_hybrid", overlap="auto", autotune_cache=path)
+        res_m, l_m = run("(a) fused_hybrid auto, autotune=measure (fresh cache)",
+                         autotune="measure", **tuned)
+        rep, lay = res_m.layout_stats["autotune"], res_m.layout_stats
+        recs = CostCache(path).entries[rep["graph_key"]]
+        level_s = {ckey: rec.level_s for ckey, rec in recs.items()}
+        tile = tuple(rep["tile"])
+        cell_costs = (recs[f"fused|none|b{MAIN_BATCH}|t-"].level_s,
+                      recs[f"fused_sparse|none|b{MAIN_BATCH}|t{tile[0]}x{tile[1]}"].level_s)
+        print(f"[14] (a) plan: {rep}")
+        print(f"[14] (a) measured s/level by config: {level_s}; tile candidates {tiles}; "
+              f"cell_costs (dense, sparse) {cell_costs}; planner wall {lay['autotune_s']:.3f}s; "
+              f"resolved overlap {lay['overlap']}, tile {lay['tile']}, dense cells "
+              f"{lay['dense_cells']} ({smi})")
+        check(rep["measured"] == len(tiles) + 1 + 3 and rep["hits"] == 1,
+              "[14] (a) expected every tile, the dense calibration and three policies measured "
+              "and the sparse calibration a hit")
+        check(rep["tile_source"] == "measured" and rep["cell_costs_measured"],
+              "[14] (a) the tile and the hybrid calibration must be measured")
+        check(all(kernel_launches(l_m, k) > 0 for k in K1_K6[2:])
+              and l_m["frontier_spmm"] + l_m["dependency_spmm"] == 0,
+              "[14] (a) expected K3-K6 launches (the plan's candidates) and none of K1/K2")
+        res_c, _ = run("(a) fused_hybrid auto, autotune=cache (the same file)",
+                       autotune="cache", **tuned)
+        rep_c = res_c.layout_stats["autotune"]
+        check(rep_c["measured"] == 0 and rep_c["misses"] == 0
+              and rep_c["hits"] == rep["hits"] + rep["measured"],
+              "[14] (a) the cache run measured or missed")
+        check(all(res_c.layout_stats[k] == lay[k] for k in ("overlap", "tile", "dense_cells"))
+              and rep_c["overlap_level_s"] == rep["overlap_level_s"],
+              "[14] (a) the cache run picked differently")
+        check(bool(np.array_equal(res_c.bc, res_m.bc)), "[14] (a) the cache run's BC differs")
+        print(f"[14] (a) cache run: {rep_c['hits']} hits, 0 measured, same picks, BC bit-equal")
+        (res_f, _), lines = logged("repro_torch.core.distributed", logging.INFO, lambda: run(
+            "(a) fused, autotune=cache, dispatch_deadline_s='auto'", engine_kind="fused",
+            autotune="cache", autotune_cache=path, dispatch_deadline_s="auto"))
+        rep_f = res_f.layout_stats["autotune"]
+        check(rep_f["measured"] == 0 and rep_f["hits"] == 1, "[14] (a) fused: expected one hit")
+        for line in lines:
+            if line.startswith(("dispatch watchdog", "sampling[")):
+                print(f"[14] (a) logged: {line}")
+        round_s = res_f.wall_s / res_f.rounds_run
+        measured_prior = rep_f["overlap_level_s"]["none"] * PRIOR_LEVELS
+        roofline_prior = prior_round_seconds(partition_2d(graph, 1, 1), "fused", MAIN_BATCH, "none")
+        print(f"[14] (a) round prior: measured {measured_prior:.4f}s ({PRIOR_LEVELS} x "
+              f"{rep_f['overlap_level_s']['none']:.6f} s/level) = {measured_prior / round_s:.2f}x "
+              f"the measured round wall {round_s:.4f}s (levels {res_f.round_levels}); the "
+              f"roofline prior {roofline_prior:.4f}s = {roofline_prior / round_s:.2f}x ({smi})")
+
+        # (b) chaos on the 1x1 grid, fused
+        fused = dict(engine_kind="fused", retry_backoff_s=0.01)
+        res, _ = run("(b) transient@1x2 + poison@3:nan", chaos="seed=7;transient@1x2;poison@3:nan",
+                     **fused)
+        rec = res.recovery_stats
+        check(rec["transient_errors"] == 2 and rec["quarantined_blocks"] == 1
+              and rec["fallback_recomputes"] == 1 and res.rounds_run == 4,
+              "[14] (b) transient + poison: expected 2 transient retries, one block quarantined "
+              "and recomputed through the fallback")
+        for mode in ("audit", "checksum"):
+            res, _ = run(f"(b) flip@2 under integrity={mode}", chaos="seed=7;flip@2",
+                         integrity=mode, **fused)
+            integ = res.recovery_stats["integrity"]
+            check(integ["checksum_failures"] + integ["audit_failures"] >= 1
+                  and res.recovery_stats["quarantined_blocks"] >= 1,
+                  f"[14] (b) flip under {mode} was not detected")
+        deadline = 2.0 * round_s + 1.0
+        stall_ms = int((deadline + 0.5) * 1e3)
+        res, _ = run(f"(b) stall@3:{stall_ms} (deadline {deadline:.3f}s, max_retries=1)",
+                     chaos=f"seed=7;stall@3:{stall_ms}", dispatch_deadline_s=deadline,
+                     max_retries=1, **fused)
+        integ = res.recovery_stats["integrity"]
+        check(integ["watchdog_trips"] == 1 and integ["watchdog_redispatches"] == 1
+              and integ["watchdog_escalations"] == 0, "[14] (b) expected one watchdog re-dispatch")
+        refused("(b) kill@1:r0 on the 1x1 grid (fr = 1: no replica to re-mesh to)",
+                ReplicaLostError, chaos="seed=7;kill@1:r0", **fused)
+        ck = BCCheckpoint(os.path.join(tmp, "bc.npz"))
+        res, _ = run("(b) checkpoint: the first block (BlockBudgetStop(1))", full=False,
+                     checkpoint=ck, stop_rule=BlockBudgetStop(1), **fused)
+        check(res.rounds_run == 1, "[14] (b) expected one round committed")
+        refused("(b) crash@1 on the checkpointed run", ChaosCrash, checkpoint=ck,
+                chaos="seed=7;crash@1", **fused)
+        res, _ = run("(b) torn@0: one more block, its save torn", full=False, checkpoint=ck,
+                     stop_rule=BlockBudgetStop(1), chaos="seed=3;torn@0", **fused)
+        ch = res.recovery_stats["chaos"]
+        check(res.rounds_run == 1 and res.recovery_stats["resumed_generation"] == 0
+              and ch["checkpoint_saves"] == 1 and ch["files_corrupted"] == [ck.path],
+              "[14] (b) expected a resumed run whose one save was torn")
+        res, _ = run("(b) resume past the torn snapshot", checkpoint=ck, **fused)
+        check(res.recovery_stats["resumed_generation"] == 1 and res.rounds_run == 3,
+              "[14] (b) the resume did not fall back one generation")
+        res, _ = run("(b) fused auto, autotune=measure, cache@1 on (a)'s file",
+                     engine_kind="fused", overlap="auto", autotune="measure", autotune_cache=path,
+                     chaos="seed=2;cache@1")
+        ch = res.recovery_stats["chaos"]
+        check(res.layout_stats["autotune"]["measured"] == 2 and ch["cache_puts"] == 2
+              and ch["files_corrupted"] == [path], "[14] (b) expected the second put garbled")
+        (res, _), warned = logged("repro_torch.autotune.cache", logging.WARNING, lambda: run(
+            "(b) fused, autotune=cache on the garbled file", engine_kind="fused",
+            autotune="cache", autotune_cache=path))
+        rep_g = res.layout_stats["autotune"]
+        print(f"[14] (b) warned: {warned}; plan {rep_g}")
+        check(any("unreadable" in w for w in warned) and rep_g["hits"] == 0,
+              "[14] (b) the garbled cache was not read back empty with a warning")
+
+    # (c) two lanes a block on one card: replica loss and the duplicate vote
+    plan = plan_sampling(eligible_roots(graph), "fixed", None, CHAOS_SAMPLE_K, 0)
+    schedule, prep, residual, omega_np = build_schedule(graph, batch_size=MAIN_BATCH,
+                                                        heuristics="h0", roots=plan.roots)
+    check(len(schedule.rounds) == 5, "[14] (c) expected 5 rounds")
+    omega = torch.from_numpy(omega_np).to(device=dev, dtype=torch.float32)
+    fn = make_round_fn(make_operator(residual, "fused", dev), omega, integrity="audit")
+
+    def drive(tag, round_fn):
+        res, launches, wall = counted(lambda: BCDriver(
+            round_fn, schedule, n=graph.n, device=dev, prep=prep, rounds_per_dispatch=2,
+            straggler="steal", integrity="audit").run())
+        check(launches["frontier_spmm"] > 0 and launches["dependency_spmm"] > 0
+              and sum(kernel_launches(launches, k) for k in K1_K6[2:]) == 0,
+              f"[14] {tag}: expected K1/K2 launches only")
+        st = res.straggler_stats
+        print(f"[14] {tag}: wall {wall:.3f}s, {res.rounds_run} rounds, duplicates "
+              f"{st['duplicates_discarded']}/{st['duplicates_dispatched']} discarded, rounds per "
+              f"lane {st['per_replica_rounds']}, K1 {launches['frontier_spmm']} / K2 "
+              f"{launches['dependency_spmm']} launches ({smi})")
+        print(f"[14] {tag}: recovery_stats {res.recovery_stats}")
+        check(res.rounds_run == 5, f"[14] {tag}: rounds run")
+        return res
+
+    one_lane, launches, wall = counted(lambda: BCDriver(
+        fn, schedule, n=graph.n, device=dev, prep=prep, rounds_per_dispatch=1,
+        integrity="audit").run())
+    print(f"[14] (c) one lane, no straggler policy (the reference): wall {wall:.3f}s, "
+          f"{one_lane.rounds_run} rounds, K1 {launches['frontier_spmm']} / K2 "
+          f"{launches['dependency_spmm']} launches ({smi})")
+    check(one_lane.rounds_run == 5, "[14] (c) one lane: rounds run")
+    clean = drive("(c) two lanes, steal + audit, no fault", fn)
+    held("(c) the clean two-lane run vs the one-lane run", clean.bc, one_lane.bc)
+    res = drive("(c) kill@1:r1", ChaosRoundFn(fn, "seed=7;kill@1:r1"))
+    check(res.recovery_stats["remesh_events"] == 1 and res.recovery_stats["dead_replicas"] == [1],
+          "[14] (c) expected one re-mesh around replica 1")
+    held("(c) kill@1:r1 vs the clean run", res.bc, clean.bc)
+    res = drive("(c) flip@2:d1 (the tail duplicate, claim forged)",
+                ChaosRoundFn(fn, "seed=7;flip@2:d1"))
+    integ = res.recovery_stats["integrity"]
+    print(f"[14] (c) votes {integ['votes']}, mismatches {integ['vote_mismatches']}, verdicts "
+          f"{integ['vote_verdicts']}")
+    check(integ["vote_mismatches"] >= 1 and integ["audit_failures"] == 0
+          and integ["checksum_failures"] == 0 and integ["vote_verdicts"],
+          "[14] (c) the deep flip must be caught by the duplicate vote alone")
+    held("(c) flip@2:d1 vs the clean run", res.bc, clean.bc)
+    del fn
+    torch.cuda.empty_cache()
+    measure.default_bench = real_bench
+    check(all(kernel_launches(total, k) > 0 for k in K1_K6),
+          "[14] the phase did not launch every one of K1-K6")
+    print(f"[14] launches over the phase: {dict((k, kernel_launches(total, k)) for k in K1_K6)}; "
+          f"by phase 7's row {rows}; at configurations with no row of their own {other}")
+    print(f"[14] autotune and chaos phase ok in {time.perf_counter() - t14:.1f}s ({smi})")
+    return rows, other
+
+
 # phase 11: weighted BC (bucketed delta-stepping) at full width
 ROAD_SHAPE = (128, 128)  # (c): n = 26 258, about 420 buckets a round
 DENSE_ROAD_SHAPE = (24, 24)  # (d): n = 926, where [n, n, s] fits the card
@@ -2139,6 +2493,9 @@ def main() -> None:
 
             # ------ 13. the straggler loop and the grid's recovery knobs
             straggler_phase(dev, graph, groups, results["fused"], fused_2d_bc, smi)
+
+            # ------- 14. measured-cost autotuning and the chaos harness
+            launches_14 = autotune_chaos_phase(dev, graph, groups, fused_2d_bc, smi)
         finally:
             dist.destroy_process_group()
 
@@ -2452,6 +2809,14 @@ def main() -> None:
         del tiles, rows, cols, csr, index
         torch.cuda.empty_cache()
     entries.extend(ring_entries)  # timed in phase 12 (b), on the 2x4 cell's slabs and slots
+    rows_14, other_14 = launches_14  # phase 14's launches, each to its configuration's row
+    for row, counts in rows_14.items():
+        for kname, n in counts.items():
+            hit = [e for e in entries if e["name"].startswith(f"{kname}[{row}")]
+            check(len(hit) == 1, f"[7] phase 14's {kname} launches at [{row}: {len(hit)} rows")
+            hit[0]["launches"] += n
+            print(f"[7] {hit[0]['name']}: + {n} launches in phase 14")
+    print(f"[7] phase 14's launches at configurations with no row of their own: {other_14}")
     entries.extend(k7_entries)  # timed in phase 9, on its tables
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
     print(f"[7] total {time.perf_counter() - t_all:.1f}s")

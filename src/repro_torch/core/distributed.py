@@ -52,6 +52,15 @@ different collectives and hang.  For the same reason every duration the
 driver decides on (a straggler policy's block walls, the watchdog's
 elapsed time) is the max over the ranks (:func:`_max_over_ranks`).
 
+The measured-cost autotuner (``autotune=``, :mod:`repro_torch.autotune`)
+plans on every rank alike: rank 0 alone reads and writes the cache file
+and sends its entries to the others (:func:`_grid_cost_cache`), and every
+measured wall is the all-ranks max.  A chaos plan (``chaos=``,
+:mod:`repro_torch.distributed.chaos`) wraps the block function on every
+rank — every rank makes the same dispatch calls, so its faults fire
+alike — and the files on rank 0, which writes them; rank 0's counters are
+sent to all.
+
 Sub-clustering (paper §3.3): ``fr`` replicas of the R×C grid each take
 one round of every dispatch block; BC is additive, so the driver sums the
 replica lanes.  With ``fr > 1`` a ``straggler`` policy moves rounds
@@ -73,11 +82,15 @@ in its program body).  None of K1–K6 runs on a weighted round.
 from __future__ import annotations
 
 import logging
+import os
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..autotune import CostCache, as_cache, normalize_autotune, plan_autotune, sample_batch
+from ..distributed.chaos import ChaosCheckpoint, ChaosCostCache, ChaosFS, ChaosRoundFn, FaultPlan
 from ..distributed.groups import GridGroups, all_gather, device_for_rank
 from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, partition_2d
@@ -194,24 +207,26 @@ def hybrid_cell_choice(
     *,
     threshold: float = 1.0,
     tile_counts: dict | None = None,
+    measured: tuple[float, float] | None = None,
 ) -> tuple[np.ndarray, dict]:
     """The ``fused_hybrid`` engine's per-cell dense-vs-BCSR choice:
     :func:`repro_torch.roofline.model.cell_kernel_choice` over the per-cell
     stored-tile counts of the partition's cached counting pass (pass
     ``tile_counts`` to reuse one dict).  The choice is logged, so runs are
     auditable, and ``threshold`` (``--hybrid-threshold``) overrides the
-    break-even.  (The JAX package's ``measured=`` calibration waits for
-    the autotuner, ROADMAP item 9.)  Returns ``(dense_cells bool [R, C],
-    tile_counts)``."""
+    break-even.  ``measured`` is the autotuner's (dense_level_s,
+    sparse_level_s) calibration: with it the break-even compares measured
+    seconds instead of the bytes model.  Returns ``(dense_cells bool
+    [R, C], tile_counts)``."""
     counts = tile_counts or partition.blocked_sparse_counts(bm, bk)
     dense_cells = cell_kernel_choice(
         counts["stored_full_cell"], R=partition.R, C=partition.C, chunk=partition.chunk,
-        bm=counts["bm"], bk=counts["bk"], threshold=threshold,
+        bm=counts["bm"], bk=counts["bk"], threshold=threshold, measured=measured,
     )
     logger.info(
-        "hybrid cell choice (threshold %.3g, tile %dx%d, roofline bytes): %d dense / "
-        "%d sparse cells %s",
-        threshold, counts["bm"], counts["bk"], int(dense_cells.sum()),
+        "hybrid cell choice (threshold %.3g, tile %dx%d, %s): %d dense / %d sparse cells %s",
+        threshold, counts["bm"], counts["bk"],
+        "measured costs" if measured is not None else "roofline bytes", int(dense_cells.sum()),
         int(dense_cells.size - dense_cells.sum()), dense_cells.astype(int).tolist(),
     )
     return dense_cells, counts
@@ -394,13 +409,15 @@ def resolve_overlap(
     tile_counts: dict | None = None,
     dense_cells: np.ndarray | None = None,
     hw: HardwareSpec = H100,
+    measured: dict | None = None,
 ) -> str:
     """``overlap="auto"`` resolved to the schedule
     :func:`~repro_torch.roofline.model.auto_overlap_policy` prices fastest
     from :func:`level_time_estimates` (the tile and the hybrid choice the
-    engine is built with); the pick and the estimates are logged.  An
-    explicit policy is only validated.  (The JAX package's ``measured=``
-    walls wait for the autotuner, ROADMAP item 9.)"""
+    engine is built with); the pick and the estimates are logged.
+    ``measured`` (policy -> the autotuner's measured per-level seconds)
+    takes precedence: when any policy has a measurement, the pick compares
+    the measured policies only.  An explicit policy is only validated."""
     if overlap != "auto":
         return normalize_overlap(overlap)
     compute_s, expand_s, fold_s = level_time_estimates(
@@ -408,9 +425,9 @@ def resolve_overlap(
         dense_cells=dense_cells, hw=hw,
     )
     policy, estimates = auto_overlap_policy(compute_s, expand_s, fold_s, partition.R,
-                                            partition.C, hw=hw)
-    logger.info("overlap='auto' -> %r for engine %s (roofline per-level estimates on %s: %s)",
-                policy, engine_kind, hw.name,
+                                            partition.C, hw=hw, measured=measured)
+    logger.info("overlap='auto' -> %r for engine %s (%s per-level estimates: %s)",
+                policy, engine_kind, "measured" if measured else f"roofline, {hw.name},",
                 {k: f"{v * 1e6:.2f}us" for k, v in estimates.items()})
     return policy
 
@@ -426,18 +443,22 @@ def prior_round_seconds(
     tile_counts: dict | None = None,
     dense_cells: np.ndarray | None = None,
     hw: HardwareSpec = H100,
+    measured_level_s: float | None = None,
     prior_levels: int | None = None,
 ) -> float:
-    """Per-round wall estimate on ``hw`` before any round has run — the
-    straggler EWMA's prior, the ``"auto"`` watchdog deadline's base and
-    the sampled run's expected wall: one level priced under the resolved
+    """Per-round wall estimate before any round has run — the straggler
+    EWMA's prior, the ``"auto"`` watchdog deadline's base and the sampled
+    run's expected wall: :data:`PRIOR_LEVELS` nominal levels (or
+    ``prior_levels``, a weighted run's expected bucket count,
+    :func:`weighted_prior_levels`) times one level's seconds.  A level is
+    the autotuner's ``measured_level_s`` of the resolved configuration
+    where there is one, else priced on ``hw`` under the resolved
     collective schedule ``overlap`` (:func:`level_time_estimates` through
     :func:`~repro_torch.roofline.model.auto_overlap_policy`'s estimate
-    table) times :data:`PRIOR_LEVELS` nominal levels, or ``prior_levels``
-    (a weighted run's expected bucket count, :func:`weighted_prior_levels`).
-    The JAX package's model; its ``measured_level_s`` waits for the
-    autotuner (ROADMAP item 9)."""
+    table).  The JAX package's model."""
     levels = PRIOR_LEVELS if prior_levels is None else int(prior_levels)
+    if measured_level_s is not None:
+        return float(measured_level_s) * levels
     compute_s, expand_s, fold_s = level_time_estimates(
         partition, engine_kind, batch_size, bm=bm, bk=bk, tile_counts=tile_counts,
         dense_cells=dense_cells, hw=hw,
@@ -740,6 +761,33 @@ def _max_over_ranks(dev: torch.device):
     return agree
 
 
+def _from_rank0(obj):
+    """Rank 0's ``obj`` on every rank of the default group (pickled)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _grid_cost_cache(autotune_cache, chaos_fs: ChaosFS | None) -> CostCache:
+    """The autotuner's cache on a grid.  Rank 0 alone reads and writes the
+    file (``autotune_cache``: a path, a :class:`CostCache` or None; under a
+    chaos plan a path becomes a :func:`ChaosCostCache`); every other rank
+    plans on an in-memory copy of rank 0's entries, sent before the plan
+    starts.  A rank that read the file while rank 0 rewrote it could see a
+    torn file, miss where rank 0 hits, time a candidate rank 0 does not,
+    and hang the grid."""
+    if dist.get_rank() == 0:
+        if chaos_fs is not None and isinstance(autotune_cache, (str, os.PathLike)):
+            cache = ChaosCostCache(autotune_cache, chaos_fs)
+        else:
+            cache = as_cache(autotune_cache)
+        _from_rank0(cache.entries)
+        return cache
+    cache = CostCache(None)
+    cache.entries = _from_rank0(None)
+    return cache
+
+
 class _GridStopRule:
     """A stop rule whose verdict is rank 0's, broadcast to every rank: the
     driver loops of all ranks must halt at the same block."""
@@ -775,6 +823,7 @@ def distributed_betweenness_centrality(
     straggler: str = "none",
     straggler_factor: float = 2.0,
     autotune: str = "off",
+    autotune_cache=None,
     chaos=None,
     max_retries: int = DEFAULT_MAX_RETRIES,
     retry_backoff_s: float = DEFAULT_RETRY_BACKOFF_S,
@@ -847,22 +896,38 @@ def distributed_betweenness_centrality(
     is level-synchronous) and audits its rounds against a bucket bound,
     ⌈n·w_max/Δ⌉ + 2, instead of n + 1 levels.
 
-    Two knobs keep the JAX signature and raise ``NotImplementedError``
-    until their ROADMAP item ports them: ``chaos`` (item 8 (c)) and
-    ``autotune`` (item 9).
+    ``autotune`` (:data:`~repro_torch.autotune.AUTOTUNE_MODES`) puts
+    measurements in place of the roofline's guesses behind the tile pick,
+    the hybrid cell choice, ``overlap="auto"`` and the straggler prior
+    (``"cache"``: read the cache only; ``"measure"``: time a candidate on a
+    miss and record it, :func:`~repro_torch.autotune.plan_autotune`), and
+    packs rounds by eccentricity (``root_order="eccentricity"``), whose
+    per-round depths seed the replica deal.  ``autotune_cache`` is the
+    persistent cache: a path, a :class:`~repro_torch.autotune.CostCache`
+    or None (in memory).  Rank 0 alone reads and writes it; the other
+    ranks plan on its entries, and every measured wall is the max over
+    the ranks, so every rank makes the same plan.  The plan's report is
+    logged (``autotune[<mode>]: ...``) and kept in
+    ``BCResult.layout_stats["autotune"]`` (its wall in
+    ``"autotune_s"``).  Weighted runs refuse it (``ValueError``: it times
+    the level-synchronous kernels).
+
+    ``chaos`` (a ``--chaos`` spec or a
+    :class:`~repro_torch.distributed.chaos.FaultPlan`) wraps the block
+    function in :class:`~repro_torch.distributed.chaos.ChaosRoundFn` and,
+    on rank 0, which writes the files, the checkpoint and a cache path in
+    their file-seam wrappers; the unwrapped block function is the
+    driver's ``fallback_round_fn``.  The injection counters (rank 0's)
+    land in ``recovery_stats["chaos"]`` on every rank.
 
     Returns ``(bc f64 [n], schedule)``, or the
     :class:`~repro_torch.core.driver.BCResult` with ``full_result``.
     """
-    for name, value, default, item in (
-        ("chaos", chaos, None, "8 (c)"),
-        ("autotune", autotune, "off", "9"),
-    ):
-        if value != default:
-            raise NotImplementedError(
-                f"distributed_betweenness_centrality({name}=...) is not ported yet "
-                f"(ROADMAP Queue 1 item {item})"
-            )
+    autotune = normalize_autotune(autotune)
+    if weighted and autotune != "off":
+        raise ValueError("autotune measures the level-synchronous kernels; run weighted with "
+                         "autotune='off'")
+    chaos_plan = FaultPlan.parse(chaos)
     _check_engine(engine_kind)
     if overlap != "auto":
         overlap = normalize_overlap(overlap)
@@ -893,10 +958,29 @@ def distributed_betweenness_centrality(
     if plan.mode == "adaptive" and stop_rule is None:
         stop_rule = AdaptiveStopRule()
     delta = check_weighted(graph, weighted, delta, heuristics, num_levels)
+    chaos_fs = ChaosFS(chaos_plan) if chaos_plan else None
+    if chaos_fs is not None and checkpoint is not None and dist.get_rank() == 0:
+        checkpoint = ChaosCheckpoint(checkpoint, chaos_fs)  # the file's writer
     schedule, prep, residual, omega_np = build_schedule(
-        graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots
+        graph, batch_size=batch_size, heuristics=heuristics, roots=plan.roots,
+        root_order="eccentricity" if autotune != "off" else "id",
     )
     part = partition_2d(residual, groups.R, groups.C)
+    agree = _max_over_ranks(dev)
+    tune, tune_s = None, None
+    if autotune != "off" and schedule.rounds:
+        t0 = time.perf_counter()
+        sources0, derived0 = sample_batch(schedule, groups.fr)
+        tune = plan_autotune(
+            part, groups, engine_kind=engine_kind, overlap=overlap, batch_size=batch_size,
+            tile=tile, mode=autotune, cache=_grid_cost_cache(autotune_cache, chaos_fs),
+            graph=residual, fr=groups.fr, device=dev, sources=sources0, derived=derived0,
+            hybrid_threshold=hybrid_threshold, agree_seconds=agree,
+        )
+        tune_s = time.perf_counter() - t0
+        if tile is None and tune.tile is not None:
+            tile = tune.tile
+        logger.info("autotune[%s]: %s", autotune, tune.report())
     bm, bk = tile if tile is not None else (None, None)
     # one host arc→tile counting pass (cached on the partition) serves the
     # hybrid choice, the memory guard and the layout build, in that order
@@ -904,7 +988,8 @@ def distributed_betweenness_centrality(
     dense_cells = None
     if engine_kind == "fused_hybrid":
         dense_cells, _ = hybrid_cell_choice(
-            part, threshold=hybrid_threshold, tile_counts=tile_counts
+            part, threshold=hybrid_threshold, tile_counts=tile_counts,
+            measured=None if tune is None else tune.cell_costs,
         )
     if delta is not None:
         # weighted collectives run the barrier schedule; a ring policy only
@@ -914,7 +999,8 @@ def distributed_betweenness_centrality(
             overlap = "none"
     else:
         overlap = resolve_overlap(overlap, part, engine_kind, batch_size, bm=bm, bk=bk,
-                                  tile_counts=tile_counts, dense_cells=dense_cells)
+                                  tile_counts=tile_counts, dense_cells=dense_cells,
+                                  measured=None if tune is None else tune.overlap_level_s)
     layout_overlap = "none" if delta is not None else overlap
     foot = check_device_memory(
         part, engine_kind, batch_size, hbm_limit_bytes, bm=bm, bk=bk, overlap=layout_overlap,
@@ -948,6 +1034,7 @@ def distributed_betweenness_centrality(
         prior_round_s = prior_round_seconds(
             part, engine_kind, batch_size, layout_overlap, bm=bm, bk=bk,
             tile_counts=tile_counts, dense_cells=dense_cells,
+            measured_level_s=None if tune is None else tune.level_s_for(layout_overlap),
             prior_levels=None if delta is None else weighted_prior_levels(residual.w, delta),
         )
     if plan.mode != "off":
@@ -960,8 +1047,16 @@ def distributed_betweenness_centrality(
     if dispatch_deadline_s == "auto":
         dispatch_deadline_s = max(WATCHDOG_MIN_DEADLINE_S, WATCHDOG_SAFETY * prior_round_s)
         logger.info("dispatch watchdog: auto deadline %.1fs", dispatch_deadline_s)
+
+    def block_fn(sources, derived):
+        return round_fn(graph_args, omega, sources, derived)
+
+    dispatch_fn, fallback_fn = block_fn, None
+    if chaos_plan:
+        dispatch_fn = ChaosRoundFn(block_fn, chaos_plan, sleeper=sleeper)
+        fallback_fn = block_fn  # the unwrapped, known-good path
     driver = BCDriver(
-        lambda sources, derived: round_fn(graph_args, omega, sources, derived),
+        dispatch_fn,
         schedule,
         n=graph.n,
         device=dev,
@@ -977,11 +1072,12 @@ def distributed_betweenness_centrality(
         max_retries=max_retries,
         retry_backoff_s=retry_backoff_s,
         numeric_guard=numeric_guard,
+        fallback_round_fn=fallback_fn,
         integrity=integrity,
         dispatch_deadline_s=dispatch_deadline_s,
         clock=clock,
         sleeper=sleeper,
-        agree_seconds=_max_over_ranks(dev),
+        agree_seconds=agree,
         level_bound=level_bound,
         # the elasticity planner's taxonomy: replicas are 'pod' groups,
         # the grid is data × model
@@ -991,6 +1087,17 @@ def distributed_betweenness_centrality(
     result = apply_sampling_rescale(driver.run(), plan)
     result.layout_stats = _layout_stats(foot, tile_counts, dense_cells, index_stats)
     result.layout_stats["overlap"] = overlap
+    if tune is not None:
+        result.layout_stats.update(autotune=tune.report(), autotune_s=tune_s)
+    if chaos_plan:
+        # rank 0 wrote (and corrupted) the files; the dispatch counts agree
+        result.recovery_stats["chaos"] = _from_rank0({
+            "plan": repr(chaos_plan),
+            "dispatch_calls": dispatch_fn.calls,
+            "checkpoint_saves": chaos_fs.checkpoint_saves,
+            "cache_puts": chaos_fs.cache_puts,
+            "files_corrupted": list(chaos_fs.files_corrupted),
+        })
     return result if full_result else (result.bc, schedule)
 
 

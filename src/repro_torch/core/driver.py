@@ -25,8 +25,9 @@ a per-replica EWMA of the per-round wall, rounds moved between queues
 when a replica straggles, speculative tail duplicates settled by a
 duplicate vote, commits at drain time under a masked accumulate, and an
 elastic re-mesh around a lost replica.  The fault-injection harness
-(chaos, ROADMAP Queue 1 item 8 (c)) and the autotuned prior (item 9) are
-not ported.
+(:mod:`repro_torch.distributed.chaos`) drives every rung of that ladder
+through a wrapped ``round_fn``; the grid entry point seeds the EWMA prior
+from the autotuner's measured level walls where it has them.
 """
 from __future__ import annotations
 

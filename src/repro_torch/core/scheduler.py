@@ -88,23 +88,48 @@ def validate_batch_size(
     return batch_size
 
 
-def bfs_depths(graph: Graph, root: int) -> np.ndarray:
-    """Exact BFS depth of every vertex from ``root`` (-1 = unreached)."""
-    depth = np.full(graph.n, -1, np.int64)
+def _adjacency_csr(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
+    """``(indptr [n + 1], neighbours)``: the arcs grouped by source."""
+    order = np.argsort(graph.src, kind="stable")
+    indptr = np.zeros(graph.n + 1, np.int64)
+    np.cumsum(np.bincount(graph.src, minlength=graph.n), out=indptr[1:])
+    return indptr, np.asarray(graph.dst)[order]
+
+
+def _bfs_levels(csr: tuple[np.ndarray, np.ndarray], n: int, root: int):
+    """BFS from ``root`` over ``csr``: ``(depth [n], visited)`` with depth
+    -1 where unreached and ``visited`` the reached vertices.  Each level
+    reads only its frontier's arcs, so a search costs its component's
+    size, not the graph's: a graph of many small components (an R-MAT
+    graph's isolated vertices) is searched component by component in
+    linear time."""
+    indptr, nbr = csr
+    depth = np.full(n, -1, np.int64)
     depth[root] = 0
-    frontier = np.zeros(graph.n, bool)
-    frontier[root] = True
+    frontier = np.array([root], np.int64)
+    levels = [frontier]
     d = 0
-    while frontier.any():
-        nxt = np.zeros(graph.n, bool)
-        nxt[graph.dst[frontier[graph.src]]] = True
-        nxt &= depth < 0
-        if not nxt.any():
+    while True:
+        starts = indptr[frontier]
+        counts = indptr[frontier + 1] - starts
+        total = int(counts.sum())
+        if total == 0:
+            break
+        offsets = np.repeat(starts - np.cumsum(counts) + counts, counts)
+        cand = nbr[offsets + np.arange(total)]
+        cand = np.unique(cand[depth[cand] < 0])
+        if cand.size == 0:
             break
         d += 1
-        depth[nxt] = d
-        frontier = nxt
-    return depth
+        depth[cand] = d
+        frontier = cand
+        levels.append(frontier)
+    return depth, np.concatenate(levels)
+
+
+def bfs_depths(graph: Graph, root: int) -> np.ndarray:
+    """Exact BFS depth of every vertex from ``root`` (-1 = unreached)."""
+    return _bfs_levels(_adjacency_csr(graph), graph.n, root)[0]
 
 
 def estimate_eccentricities(
@@ -116,17 +141,18 @@ def estimate_eccentricities(
     if graph.n == 0:
         return np.zeros(0, np.int64)
     rng = np.random.default_rng(seed)
+    csr = _adjacency_csr(graph)
     ecc = np.zeros(graph.n, np.int64)
     far = np.iinfo(np.int64).max
     mind = np.full(graph.n, far, np.int64)  # min distance to any landmark
     root = int(rng.integers(graph.n))
     taken = 0
     while True:
-        depth = bfs_depths(graph, root)
-        reached = depth >= 0
-        np.maximum(ecc, depth, where=reached, out=ecc)
-        ecc[root] = max(ecc[root], int(depth[reached].max()))
-        np.minimum(mind, depth, where=reached, out=mind)
+        depth, seen = _bfs_levels(csr, graph.n, root)
+        dists = depth[seen]
+        ecc[seen] = np.maximum(ecc[seen], dists)
+        ecc[root] = max(ecc[root], int(dists.max()))
+        mind[seen] = np.minimum(mind[seen], dists)
         taken += 1
         root = int(np.argmax(mind))
         if mind[root] == far:

@@ -360,6 +360,15 @@ class TwoDPartition:
         return slabs
 
     # ------------------------------------------------ blocked-sparse layout
+    def tile_candidates(self, limit: int = 3) -> list[tuple[int, int]]:
+        """Square BCSR (bm, bk) tiles for the autotuner to time: divisors
+        of ``chunk`` ≤ 128, multiples of 8 where any exist, largest first,
+        at most ``limit`` (the JAX package's menu).  The first is always
+        :func:`default_tile_dim`'s pick, the tile an untuned run builds."""
+        divisors = [d for d in range(1, min(self.chunk, 128) + 1) if self.chunk % d == 0]
+        lane = [d for d in divisors if d % 8 == 0] or divisors
+        return [(d, d) for d in sorted(lane, reverse=True)[: max(1, limit)]]
+
     def _tile_dims(self, bm: int | None, bk: int | None) -> tuple[int, int]:
         bm = default_tile_dim(self.chunk) if bm is None else bm
         bk = default_tile_dim(self.chunk) if bk is None else bk

@@ -24,6 +24,13 @@ device or on a 2-D grid of devices.
     # straggler scheduling over FR replicas, self-checking rounds, the watchdog:
     PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x2x2 --straggler steal \
         --integrity audit --dispatch-deadline auto --numeric-guard --device cpu
+    # measured-cost autotuning (a rerun with the same cache file measures nothing):
+    PYTHONPATH=src python -m repro_torch.launch.bc --rmat-scale 8 --mesh 2x2 \
+        --engine fused_hybrid --overlap auto --autotune measure --autotune-cache tune.json \
+        --device cpu
+    # deterministic fault injection, recovered and reported:
+    PYTHONPATH=src python -m repro_torch.launch.bc --grid 5x5 --mesh 2x2x2 --straggler steal \
+        --chaos "seed=7;transient@1x2;poison@3:nan;kill@5:r1" --device cpu
 
 The graphs are the JAX launcher's, with the same seeds (R-MAT, grid and
 road-like; seed 1), so both launchers score the same graph.  ``--engine``
@@ -61,6 +68,17 @@ the retry budget and ``--numeric-guard`` forces the non-finite guard on
 (all on ``--mesh``, as in the JAX launcher); a "recovery: ..." line
 reports any retry, quarantine or re-mesh.
 
+``--autotune cache|measure`` puts measurements in place of the roofline's
+guesses behind the tile, hybrid-cell, ``--overlap auto`` and straggler
+prior choices (``cache`` reads the measured-cost cache only, ``measure``
+times a candidate on a miss and records it), kept across runs in
+``--autotune-cache PATH``; it also packs rounds by root eccentricity.
+``--chaos SPEC`` injects a deterministic fault plan at the round and
+file-write seams (``kind@at[xcount][:arg]`` entries: ``transient``,
+``poison``, ``kill:rI``, ``crash``, ``torn``, ``cache``, ``flip``,
+``stall``; repro_torch/distributed/chaos.py); the recovery line is then
+always printed.  Both need ``--mesh``.
+
 ``--mesh`` runs :func:`~repro_torch.core.distributed.distributed_betweenness_centrality`
 with one process per grid device.  On cards, run the launcher under
 ``torchrun`` (NCCL, the device from ``LOCAL_RANK``).  With ``--device
@@ -79,6 +97,7 @@ import time
 import numpy as np
 import torch.distributed as dist
 
+from ..autotune import AUTOTUNE_MODES
 from ..core.bc import ENGINE_KINDS, betweenness_centrality
 from ..core.distributed import DIST_ENGINE_KINDS, distributed_betweenness_centrality
 from ..core.driver import INTEGRITY_MODES, STRAGGLER_POLICIES
@@ -150,6 +169,32 @@ def build_parser() -> argparse.ArgumentParser:
         default=2.0,
         help="EWMA per-round-wall ratio over the fastest replica that triggers a re-deal "
         "(straggler=redeal only; steal is queue-driven and ignores it)",
+    )
+    ap.add_argument(
+        "--autotune",
+        default="off",
+        choices=list(AUTOTUNE_MODES),
+        help="measured-cost autotuning (needs --mesh): 'cache' consults the measured-cost "
+        "cache and falls back to the roofline on a miss; 'measure' micro-benches candidate "
+        "configs on a miss and records them (measure-once: the next run with the same graph "
+        "stats + mesh hits the cache).  Also switches the scheduler to eccentricity-packed "
+        "rounds",
+    )
+    ap.add_argument(
+        "--autotune-cache",
+        default=None,
+        help="path of the persistent measured-cost cache JSON (default: in-memory for this "
+        "run only)",
+    )
+    ap.add_argument(
+        "--chaos",
+        default=None,
+        help="deterministic fault-injection plan (needs --mesh): 'kind@at[xcount][:arg]' "
+        "entries separated by ';', plus 'seed=N' — kinds transient | poison[:nan|:inf] | "
+        "kill:rI | crash | torn | cache | flip[:rI|:dI|:neg] (finite silent corruption; pair "
+        "with --integrity) | stall[:MS] (delay a dispatch; pair with --dispatch-deadline), "
+        "e.g. 'seed=7;transient@1x2;poison@3:nan;kill@4:r1;flip@5'.  Reproduces any failure "
+        "from the CLI; recovery is reported (see repro_torch/distributed/chaos.py)",
     )
     ap.add_argument(
         "--integrity",
@@ -248,14 +293,14 @@ def _mesh_rank(groups: GridGroups, graph, kwargs: dict):
 
 
 def _print_recovery(rec: dict) -> None:
-    """The JAX launcher's recovery and integrity lines: the first when any
-    retry, quarantine, fallback or re-mesh happened or the run resumed,
-    the second whenever an integrity mode was on."""
+    """The JAX launcher's recovery and integrity lines: the first when a
+    chaos plan ran, or any retry, quarantine, fallback or re-mesh happened
+    or the run resumed, the second whenever an integrity mode was on."""
     integ = rec["integrity"]
     events = any(v for k, v in rec.items() if k not in ("resumed_generation", "integrity"))
     integ_events = any(v for k, v in integ.items()
                        if k not in ("mode", "max_checksum_residual"))
-    if events or integ_events or rec["resumed_generation"]:
+    if "chaos" in rec or events or integ_events or rec["resumed_generation"]:
         print(f"recovery: {rec['retries']} retries ({rec['transient_errors']} transient), "
               f"{rec['quarantined_blocks']} quarantined, {rec['fallback_recomputes']} fallback "
               f"recomputes, {rec['remesh_events']} re-mesh events (dead replicas "
@@ -332,6 +377,10 @@ def main(argv: list[str] | None = None) -> None:
             len(mesh_shape) != 3 or mesh_shape[0] == 1):
         raise SystemExit("--straggler re-deals rounds between sub-cluster replicas; pass a "
                          "replicated --mesh FRxRxC (FR > 1)")
+    if args.autotune != "off" and mesh_shape is None:
+        raise SystemExit("--autotune measures distributed round configs; pass --mesh RxC")
+    if args.chaos and mesh_shape is None:
+        raise SystemExit("--chaos injects faults at the distributed round seam; pass --mesh RxC")
     if args.integrity != "off" and mesh_shape is None:
         raise SystemExit("--integrity audits the distributed round loop; pass --mesh RxC")
     deadline = None
@@ -405,7 +454,8 @@ def main(argv: list[str] | None = None) -> None:
         engine = "sparse" if args.engine in ("dense", "sparse") else args.engine
         hbm = args.hbm_gb * 2**30 if args.hbm_gb > 0 else None
         robust_kw: dict = dict(straggler_factor=args.straggler_factor, integrity=args.integrity,
-                               dispatch_deadline_s=deadline)
+                               dispatch_deadline_s=deadline, autotune=args.autotune,
+                               autotune_cache=args.autotune_cache, chaos=args.chaos)
         if args.max_retries is not None:
             robust_kw["max_retries"] = args.max_retries
         if args.retry_backoff is not None:
@@ -428,6 +478,13 @@ def main(argv: list[str] | None = None) -> None:
                   f"{st['duplicates_discarded']}/{st['duplicates_dispatched']} duplicates "
                   f"discarded, rounds per replica {st['per_replica_rounds']}")
         foot = layout["footprint"]
+        if "autotune" in layout:
+            tune = layout["autotune"]
+            print(f"autotune[{tune['mode']}]: tile {tune['tile']} ({tune['tile_source']}), "
+                  f"overlap s/level {tune['overlap_level_s']}, hybrid calibration "
+                  f"{'measured' if tune['cell_costs_measured'] else 'roofline'}; "
+                  f"{tune['hits']} hits, {tune['misses']} misses, {tune['measured']} measured "
+                  f"in {layout['autotune_s']:.3f}s")
         if args.overlap != "none":
             print(f"collective schedule: overlap={layout['overlap']}")
         print(f"per-device footprint ({engine}): adjacency "

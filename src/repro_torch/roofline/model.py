@@ -51,7 +51,8 @@ class HardwareSpec:
 #: H100 SXM data sheet: f32 FFMA (the exact engines use no tensor cores),
 #: HBM3 3.35 TB/s, NVLink 4 at 450 GB/s a direction.  The per-hop α is an
 #: assumption (an NCCL point-to-point launch and its sync), not a
-#: measurement: the autotuner (ROADMAP item 9) is to measure it.
+#: measurement; where the autotuner has measured walls, the seams read
+#: those instead of this model.
 H100 = HardwareSpec(
     name="h100-sxm",
     peak_flops=67e12,
@@ -82,14 +83,20 @@ def auto_overlap_policy(
     R: int,
     C: int,
     hw: HardwareSpec = H100,
+    measured: dict | None = None,
 ) -> tuple[str, dict]:
     """The schedule :func:`overlap_step_time` prices fastest for one level:
     barrier (compute and both collectives in sequence), ``expand`` (the
     expand pipelined into R hops, the fold a barrier), ``expand+fold``
     (both as rings), each hop paying α on top of the pipelined transfer.
     Returns the pick and the per-policy estimates (logged by the caller,
-    so the choice is auditable).  (The JAX package's ``measured=`` takes
-    the autotuner's walls instead: ROADMAP item 9.)"""
+    so the choice is auditable).
+
+    ``measured`` maps a policy to the autotuner's measured per-level
+    seconds.  When any policy has one, the pick compares the measured
+    policies only (a measured wall and a modelled one are not on one
+    scale), and the estimates carry the measured values in place of the
+    modelled ones, so the log shows what was compared."""
     alpha = hw.hop_latency_s
     estimates = {
         "none": compute_s + expand_s + fold_s,
@@ -97,6 +104,11 @@ def auto_overlap_policy(
         "expand+fold": overlap_step_time(compute_s, expand_s + fold_s, R)
         + (R - 1 + C - 1) * alpha,
     }
+    known = {p: float(s) for p, s in (measured or {}).items()
+             if p in estimates and s is not None}
+    if known:
+        estimates.update(known)
+        return min(known, key=known.get), estimates
     return min(estimates, key=estimates.get), estimates
 
 
@@ -134,6 +146,7 @@ def cell_kernel_choice(
     bk: int,
     threshold: float = 1.0,
     elem: int = 4,
+    measured: tuple[float, float] | None = None,
 ) -> np.ndarray:
     """Per-cell dense-vs-BCSR pick (bool [R, C], True = dense).
 
@@ -146,12 +159,21 @@ def cell_kernel_choice(
     ``stored_tiles_cell`` is the per-cell stored tile count (nonzero tiles
     + fillers, ``TwoDPartition.blocked_sparse_counts()["stored_full_cell"]``).
     ``threshold`` 0 forces every cell dense, a huge value every cell
-    sparse, 1.0 is the break-even.  (A measured calibration pair, the JAX
-    package's ``measured=``, waits for the autotuner: ROADMAP item 9.)
+    sparse, 1.0 is the break-even.
+
+    ``measured`` is the autotuner's calibration pair ``(dense_level_s,
+    sparse_level_s)`` in place of the bytes: the all-dense level wall
+    prices every cell's dense cost, the all-BCSR wall over the fullest
+    cell's stored tiles prices one tile, and a cell goes dense where
+    ``stored · per_tile_s >= threshold · dense_level_s``.
     """
     stored = np.asarray(stored_tiles_cell, np.float64)
     if stored.shape != (R, C):
         raise ValueError(f"stored_tiles_cell shape {stored.shape} != {(R, C)}")
+    if measured is not None:
+        dense_level_s, sparse_level_s = (float(x) for x in measured)
+        per_tile_s = sparse_level_s / max(float(stored.max()), 1.0)
+        return stored * per_tile_s >= threshold * dense_level_s
     dense_bytes = float(C * chunk) * (R * chunk) * elem
     bcsr_bytes = stored * (sparse_tile_bytes(bm, bk, elem) + TILE_OVERHEAD_BYTES)
     return bcsr_bytes >= threshold * dense_bytes

@@ -232,6 +232,62 @@ def test_cli_rejects_recovery_flags_it_cannot_honour(argv, message):
         cli.main(["--grid", "3x3", "--device", "cpu", *argv])
 
 
+def test_cli_autotune_and_chaos_flags_parse_with_the_jax_launchers_choices():
+    from repro.autotune import AUTOTUNE_MODES
+
+    ap = cli.build_parser()
+    assert {a.dest: a for a in ap._actions}["autotune"].choices == list(AUTOTUNE_MODES)
+    default = ap.parse_args(["--grid", "3x3"])
+    assert (default.autotune, default.autotune_cache, default.chaos) == ("off", None, None)
+
+
+def test_cli_autotune_measure_then_cache(tmp_path, capsys):
+    """``--autotune measure --autotune-cache`` times the candidates on the
+    gloo grid and records them; a ``cache`` rerun on the file measures
+    nothing, picks alike and scores alike."""
+    cache = tmp_path / "tune.json"
+    argv = ["--rmat-scale", "6", "--edge-factor", "4", "--mesh", "2x2", "--engine",
+            "fused_hybrid", "--overlap", "auto", "--batch-size", "8", "--device", "cpu",
+            "--autotune-cache", str(cache)]
+    scores = {}
+    for mode in ("measure", "cache"):
+        out = tmp_path / f"{mode}.npy"
+        cli.main(argv + ["--autotune", mode, "--out", str(out)])
+        text = capsys.readouterr().out
+        line = next(ln for ln in text.splitlines() if ln.startswith(f"autotune[{mode}]:"))
+        # chunk 16: two tiles, the dense calibration and three policies
+        assert ("6 misses, 6 measured" if mode == "measure" else "0 misses, 0 measured") in line
+        assert "(measured)" in line and "hybrid calibration measured" in line
+        scores[mode] = np.load(out)
+    assert cache.exists()
+    np.testing.assert_array_equal(scores["cache"], scores["measure"])
+    np.testing.assert_allclose(scores["measure"],
+                               brandes_reference(pg.rmat_graph(6, 4, seed=1)), **TOL)
+
+
+def test_cli_chaos_on_a_gloo_mesh(tmp_path, capsys):
+    """``--chaos`` on the replicated gloo grid: two transient failures
+    retried, the poisoned block recomputed, a replica lost and re-meshed
+    around; the recovery line reports it and the scores are exact."""
+    out = tmp_path / "bc.npy"
+    cli.main(["--grid", "5x5", "--mesh", "2x2x2", "--straggler", "steal", "--chaos",
+              "seed=7;transient@1x2;poison@3:nan;kill@5:r1", "--retry-backoff", "0.001",
+              "--batch-size", "4", "--device", "cpu", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert ("recovery: 2 retries (2 transient), 1 quarantined, 1 fallback recomputes, "
+            "1 re-mesh events (dead replicas [1])") in text
+    np.testing.assert_allclose(np.load(out), brandes_reference(pg.grid_graph(5, 5)), **TOL)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--autotune", "measure"], "--autotune measures distributed round configs"),
+    (["--chaos", "crash@1"], "--chaos injects faults at the distributed round seam"),
+], ids=["autotune-no-mesh", "chaos-no-mesh"])
+def test_cli_autotune_and_chaos_need_a_mesh(argv, message):
+    with pytest.raises(SystemExit, match=re.escape(message)):
+        cli.main(["--grid", "3x3", "--device", "cpu", *argv])
+
+
 def test_cli_single_device_straggler_fails_as_the_entry_point_does():
     with pytest.raises(ValueError, match="no replicas"):
         cli.main(["--grid", "3x3", "--straggler", "steal", "--device", "cpu"])

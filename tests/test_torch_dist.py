@@ -263,21 +263,32 @@ def test_distributed_one_degree_matches_host(ranks):
     np.testing.assert_array_equal(omega, jax_one_degree_host(GRAPHS["road_spur"](jg)).omega)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(overlap="expand"), dict(straggler="steal"), dict(chaos="seed=1"), dict(integrity="audit"),
-    # chaos (item 8 (c)) and autotune (item 9) still raise; a straggler
-    # policy is ported but needs replicas, so the one-rank grid refuses it;
-    # the ring schedules and the grid's integrity modes are ported, for
-    # weighted runs too (barrier collectives, a bucket-bounded audit)
-    dict(autotune="on"), dict(delta=1.0, integrity="audit", weighted=True),
-    dict(weighted=True, overlap="expand"),
-], ids=lambda kw: next(iter(kw)))
+KNOB_CASES = {
+    # a straggler policy needs replicas, so the one-rank grid refuses it
+    # (tests/test_torch_straggler_grid.py runs it on the 2x2x2 grid); the
+    # ring schedules, the grid's integrity modes, chaos and autotune run
+    # (weighted runs too: barrier collectives, a bucket-bounded audit), and
+    # an unknown autotune mode is refused before the grid is touched
+    "overlap": dict(overlap="expand"),
+    "straggler": dict(straggler="steal"),
+    "chaos": dict(chaos="seed=1"),
+    "integrity": dict(integrity="audit"),
+    "autotune": dict(autotune="on"),
+    "delta": dict(delta=1.0, integrity="audit", weighted=True),
+    "weighted": dict(weighted=True, overlap="expand"),
+    "autotune-cache": dict(autotune="cache"),
+    "chaos-transient": dict(chaos="seed=1;transient@1", retry_backoff_s=1e-3),
+}
+
+
+@pytest.mark.parametrize("kwargs", list(KNOB_CASES.values()), ids=list(KNOB_CASES))
 def test_unported_knobs_raise(kwargs):
-    """The knobs still to port raise before any process group is touched;
-    the ported ones run on a one-rank gloo grid and match the oracle
-    (tests/test_torch_ring.py holds them on the 2x4, 4x2 and 2x2x2 grids),
-    but a straggler policy, which needs fr > 1 replicas, is refused there
-    (tests/test_torch_straggler_grid.py runs it on the 2x2x2 grid)."""
+    """Every knob of the JAX signature is ported now.  A bad autotune mode
+    raises ``ValueError`` before any process group is touched, as in the
+    JAX package; the other knobs run on a one-rank gloo grid and match the
+    oracle (tests/test_torch_ring.py, test_torch_autotune.py and
+    test_torch_chaos.py hold them on the 2x4, 4x2 and 2x2x2 grids), but a
+    straggler policy, which needs fr > 1 replicas, is refused there."""
     import os
     import tempfile
 
@@ -289,8 +300,8 @@ def test_unported_knobs_raise(kwargs):
     graph = GRAPHS["gnp20"](pg)
     if kwargs.get("weighted"):
         graph = pg.weighted_copy(graph, weights="dyadic", seed=1)
-    if next(iter(kwargs)) in ("chaos", "autotune"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if kwargs.get("autotune") == "on":
+        with pytest.raises(ValueError, match="autotune"):
             distributed_betweenness_centrality(graph, None, device="cpu", **kwargs)
         return
     with tempfile.TemporaryDirectory() as tmp:
@@ -308,7 +319,15 @@ def test_unported_knobs_raise(kwargs):
             dist.destroy_process_group()
     np.testing.assert_allclose(res.bc, brandes_reference(graph), rtol=1e-5, atol=1e-5)
     assert res.layout_stats["overlap"] == kwargs.get("overlap", "none")
-    assert res.recovery_stats["quarantined_blocks"] == 0
+    rec = res.recovery_stats
+    assert rec["quarantined_blocks"] == 0
+    if "autotune" in kwargs:  # an empty cache: nothing measured, nothing found
+        assert res.layout_stats["autotune"]["mode"] == "cache"
+        assert res.layout_stats["autotune"]["measured"] == 0
+        assert res.schedule.round_depths is not None  # rounds packed by eccentricity
+    # a plan without events injects nothing; a transient is retried once
+    assert ("chaos" in rec) == (kwargs.get("chaos", "seed=1") != "seed=1")
+    assert rec["transient_errors"] == int("transient" in kwargs.get("chaos", ""))
 
 
 @pytest.mark.parametrize("fr", [2, 3])

@@ -158,14 +158,16 @@ def test_auto_deadline_and_the_knobs_reach_the_driver(ranks, oracle):
 
 
 def test_a_grid_without_replicas_refuses_a_straggler_policy():
-    """fr = 1 (a 2×4 grid): the check comes before any collective."""
+    """fr = 1 (a 2×4 grid): the check comes before any collective, as does
+    the check of a chaos plan (a kill names its replica; a plan's kill on
+    an fr = 1 grid is refused at run time, tests/test_torch_chaos.py)."""
     groups = types.SimpleNamespace(fr=1, R=2, C=4)
     with pytest.raises(ValueError, match="replicas"):
         distributed_betweenness_centrality(pg.gnp_graph(16, 0.3, seed=0), groups,
                                            straggler="redeal", device="cpu")
-    with pytest.raises(NotImplementedError, match="8 \\(c\\)"):
+    with pytest.raises(ValueError, match="kill needs a replica"):
         distributed_betweenness_centrality(pg.gnp_graph(16, 0.3, seed=0), groups,
-                                           chaos="seed=1;kill@1:r1", device="cpu")
+                                           chaos="seed=1;kill@1", device="cpu")
 
 
 def test_grid_per_lane_snapshot_resumes_under_another_policy(ranks, oracle, snapshots):
