@@ -7,9 +7,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 10, 11, 12, 13, 14, 6, 7: phase 9
+Phases (run in the order 1, 2, 9, 3–5, 8, 10–15, 6, 7: phase 9
 first, while nothing else holds device memory, because its tables take
-65 GiB; phases 8, 10, 11, 12, 13 and 14 share phase 5's NCCL process
+65 GiB; phases 8 and 10–15 share phase 5's NCCL process
 group, and phase 7's kernel table carries phase 8's, 10's, 12's and 14's
 launches, K7's times, which phase 9 takes on its tables, and the
 acc-mode chains that phase 12 (b) times; a kernel's launches count its
@@ -207,7 +207,27 @@ plain and its acc mode):
      rows count phase 14's launches by configuration: the planner's
      timings candidate by candidate, the runs by their tile and integrity
      mode; launches at a configuration with no row (acc mode on the 1×1
-     grid, tile 64) are printed apart.
+     grid, tile 64) are printed apart;
+ 15. the paper's own configuration, bc-rmat:rmat_s23_ef16 (R-MAT scale
+     23, EF 16: n = 8 388 608, ~256 M arcs after the 1-degree pass; batch
+     16 + 8 derived columns, h3, max_levels 12), through the cell
+     (``launch/steps.py:build_cell``) on the 1×1 NCCL grid, sparse engine
+     (no kernel): the host seconds of R-MAT generation (seed 1), of the
+     h3 schedule, of the partition and of the device copy, each apart;
+     round 0 of the schedule at the static 12 levels (once plain, once
+     under the work counter: ``roofline_terms(hw=H100)``, memory_s / wall
+     as the share of the bytes bound) and with the liveness loop — wall,
+     levels, traversed-edge rate (arcs × (s + k) / wall), peak device
+     memory beside the footprint the meta prices; (i) the liveness round
+     against ``make_round_fn`` on the single-device sparse operator, (ii) a
+     round of ORACLE_ROOTS h0 roots (the residual's hub and round 0's
+     first source, no derived columns) against a float64 scipy oracle,
+     both at rtol 1e-5 / atol 1e-5, (iii) the static round against the
+     liveness round, bit for bit when the depth is <= 12 (the arc sums
+     are row sums in a fixed order; else the truncation printed as a
+     finding); the memory guard refusing
+     fused and fused_sparse with the priced GiB; rmat_s25_ef16's meta, no
+     graph made.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -429,12 +449,6 @@ def clocks_during(fn) -> str:
             f"{watts[len(watts) // 2]:.1f} W")
 
 
-def partial_bytes(A, sigma, depth, delta=None, omega=None, acc=None) -> int:
-    """Bytes a K3/K4 call must move: each input read once, t written once."""
-    ins = [A, sigma, depth] + [x for x in (delta, omega, acc) if x is not None]
-    return sum(x.nbytes for x in ins) + A.shape[0] * sigma.shape[1] * 4
-
-
 def tile_list(num_tr: int, num_tc: int, bm: int, bk: int, seed: int, dev, complete: bool,
               pad: int = 3):
     """A row-sorted random BCSR list: 0–3 distinct tiles per tile-row, an
@@ -454,17 +468,6 @@ def tile_list(num_tr: int, num_tc: int, bm: int, bk: int, seed: int, dev, comple
         rows.append(num_tr - 1), cols.append(0), data.append(np.zeros((bm, bk), np.float32))
     return tuple(torch.from_numpy(x).to(dev) for x in
                  (np.stack(data), np.array(rows, np.int32), np.array(cols, np.int32)))
-
-
-def sparse_bytes(index, sigma, depth, delta=None, omega=None) -> int:
-    """Bytes a K5/K6 call must move: the nonzeros (col, val) and one row
-    structure (ptr) of its index, and each state input, read once, t
-    written once.  The work list (seg, long_ptr) is the kernel's own
-    choice and is not counted."""
-    ins = [index.ptr, index.col, index.val, sigma, depth] + [
-        x for x in (delta, omega) if x is not None]
-    m = index.ptr.numel() - 1
-    return sum(x.nbytes for x in ins) + m * sigma.shape[1] * 4
 
 
 def count_nonzero_tiles(tiles) -> int:
@@ -583,6 +586,7 @@ def dlrm_phase(dev, trace_run) -> list[dict]:
     from repro_torch.data import ClickLogStream
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.steps import RETRIEVAL_TOP_K, build_dlrm_cell, pad_mult
+    from repro_torch.roofline import counter as work
 
     t9 = time.perf_counter()
     live = torch.cuda.memory_allocated()
@@ -729,9 +733,9 @@ def dlrm_phase(dev, trace_run) -> list[dict]:
     for tag, bags, err in (("click-log Zipf(1.2) ids", zipf, err_bulk),
                            ("uniform ids", uniform, None)):
         distinct = int(torch.unique(bags[bags >= 0]).numel())
-        nbytes = distinct * d * 4 + bags.nbytes + bags.shape[0] * d * 4
+        nbytes = work.segment_bag_bytes(flat, bags, distinct=distinct)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = 2.0 * bags.numel() * d / PEAK_F32_FLOP_PER_S * 1e3
+        t_ops = work.sparse_flops(bags.numel(), d) / PEAK_F32_FLOP_PER_S * 1e3
         if err is None:  # not a click-log batch: hold the kernel here too
             ok, err = close(ops.segment_bag(flat, bags), ref.segment_bag_ref(flat, bags), 1e-6, 0.0)
             check(ok, f"[7] K7 disagrees with its plain version on {tag}")
@@ -1011,23 +1015,22 @@ def kernel_launches(launches: dict, name: str) -> int:
 
 
 class LevelCollectives:
-    """Counts the frontier collectives and ring hops (``all_gather_into_tensor``,
-    ``reduce_scatter_tensor``, ``batch_isend_irecv``) per group, made inside
-    the distributed operators' level steps, and the level steps, while
-    entered."""
+    """Counts the collectives made inside the distributed operators' level
+    steps (the package's work counter, active while a step runs), per
+    group and kind, and the level steps, while entered."""
 
-    CALLS = {"all_gather_into_tensor": "gather", "reduce_scatter_tensor": "reduce_scatter",
-             "batch_isend_irecv": "hops"}
+    KINDS = {"all-gather": "gather", "reduce-scatter": "reduce_scatter",
+             "collective-permute": "hops", "all-reduce": "all_reduce"}
     STEPS = ("forward_level", "backward_level", "forward_level_checked",
              "backward_level_checked")
 
     def __init__(self, groups):
-        import torch.distributed as dist
-
         from repro_torch.core.operators import DistributedFusedOperator, DistributedOperator
+        from repro_torch.roofline import WorkCounter
 
-        self.dist, self.groups = dist, groups
+        self.groups = groups
         self.classes = (DistributedOperator, DistributedFusedOperator)
+        self.counter = WorkCounter()
         self.counts, self.levels, self.depth = {}, 0, 0
 
     def _group(self, group) -> str:
@@ -1037,9 +1040,7 @@ class LevelCollectives:
         return "default" if group is None else "other"
 
     def __enter__(self):
-        self.saved = [(self.dist, n, getattr(self.dist, n)) for n in self.CALLS]
-        for _, name, fn in self.saved:
-            setattr(self.dist, name, self._call(fn, self.CALLS[name]))
+        self.saved = []
         for cls in self.classes:
             for name in self.STEPS:
                 self.saved.append((cls, name, cls.__dict__.get(name)))
@@ -1052,23 +1053,21 @@ class LevelCollectives:
                 delattr(owner, name)
             else:
                 setattr(owner, name, fn)
-
-    def _call(self, fn, kind):
-        def counted(*args, **kwargs):
-            if self.depth:
-                group = args[0][0].group if kind == "hops" else kwargs.get("group")
-                key = f"{self._group(group)}/{kind}"
-                self.counts[key] = self.counts.get(key, 0) + 1
-            return fn(*args, **kwargs)
-        return counted
+        for rec in self.counter.records:
+            key = f"{self._group(rec['group'])}/{self.KINDS[rec['class']]}"
+            self.counts[key] = self.counts.get(key, 0) + 1
 
     def _step(self, fn):
         def counted(op, *args, **kwargs):
             self.depth += 1
             self.levels += self.depth == 1
+            if self.depth == 1:
+                self.counter.__enter__()
             try:
                 return fn(op, *args, **kwargs)
             finally:
+                if self.depth == 1:
+                    self.counter.__exit__()
                 self.depth -= 1
         return counted
 
@@ -1093,6 +1092,7 @@ def ring_phase(dev, graph, groups, dense_ref, part_blk, blk_states, strips, stri
     from repro_torch.graphs import rmat_graph
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.blocked_spmm import nonzero_index
+    from repro_torch.roofline import counter as work
 
     t12 = time.perf_counter()
     kw = dict(batch_size=MAIN_BATCH, heuristics="h0", sampling="fixed", sample_k=MAIN_SAMPLE_K,
@@ -1203,7 +1203,7 @@ def ring_phase(dev, graph, groups, dense_ref, part_blk, blk_states, strips, stri
             barrier = lambda: fn(block, *state, lvl)  # noqa: E731
             step = lambda op, st, acc: fn(*op, *st, lvl, acc)  # noqa: E731
             plain_step = lambda op, st, acc: plain_fn(*op, *st, lvl, acc)  # noqa: E731
-            nbytes = partial_bytes(block, *state)
+            nbytes = work.partial_bytes(block, *state)
             nnz = m * R * chunk
         else:
             operands = [slots[r] for r in order]
@@ -1244,7 +1244,7 @@ def ring_phase(dev, graph, groups, dense_ref, part_blk, blk_states, strips, stri
             lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, operand), reps=20)
             lib = f"torch.sparse.mm of the cell as CSR ({csr.values().numel()} nonzeros)"
         del operand
-        t_ops = 2.0 * nnz * s / PEAK_F32_FLOP_PER_S * 1e3
+        t_ops = work.sparse_flops(nnz, s) / PEAK_F32_FLOP_PER_S * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
         engine = "fused" if "partial" in kname else "fused_sparse"
@@ -1983,6 +1983,215 @@ def weighted_phase(graph, groups, dense_ref, smi: str, trace_run) -> None:
     print(f"[11] weighted BC ok in {time.perf_counter() - t11:.1f}s [{smi}]")
 
 
+# --------------------------------------------------------------------------
+# phase 15: the paper's own configuration, bc-rmat:rmat_s23_ef16
+ORACLE_ROOTS = 2  # (ii): h0 roots of the float64 oracle round
+
+
+def brandes_roots_oracle(src: np.ndarray, dst: np.ndarray, n: int, omega: np.ndarray,
+                         roots: list[int]) -> tuple[np.ndarray, int]:
+    """One round's BC contributions of ``roots`` (no derived columns) in
+    float64, level-synchronous Brandes on a scipy CSR of the arc list
+    (sorted by src), with the 1-degree weights ω as the round applies them:
+    δ(v) = Σ_{successors w} σ_v/σ_w·(1 + ω_w + δ(w)), each root's column
+    times 1 + ω_root, the roots themselves 0.  Independent of both
+    packages.  Returns (bc f64 [n], levels = max depth + 1)."""
+    import scipy.sparse as sp
+
+    check(bool(np.all(src[1:] >= src[:-1])), "[15] the oracle needs arcs sorted by source")
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    adj = sp.csr_matrix((np.ones(src.size), dst, indptr), shape=(n, n))
+    k = len(roots)
+    cols = np.arange(k)
+    sigma = np.zeros((n, k))
+    depth = np.full((n, k), -1, np.int64)
+    sigma[roots, cols] = 1.0
+    depth[roots, cols] = 0
+    front, lvl = sigma.copy(), 0
+    while True:
+        t = adj @ front
+        new = (t > 0) & (depth < 0)
+        if not new.any():
+            break
+        lvl += 1
+        depth[new] = lvl
+        sigma[new] = t[new]
+        front = np.where(new, sigma, 0.0)
+    delta = np.zeros((n, k))
+    safe = np.where(sigma > 0, sigma, 1.0)
+    for level in range(lvl - 1, 0, -1):
+        g = np.where(depth == level + 1, (1.0 + delta + omega[:, None]) / safe, 0.0)
+        t = adj @ g
+        on = depth == level
+        delta[on] = sigma[on] * t[on]
+    contrib = delta * (1.0 + omega[roots])[None, :]
+    contrib[roots, cols] = 0.0
+    return contrib.sum(axis=1), lvl + 1
+
+
+def rmat_cell_phase(dev, groups, smi: str) -> None:
+    """Phase 15: bc-rmat:rmat_s23_ef16 (the paper's strong-scaling R-MAT,
+    n = 2^23, EF 16, batch 16, h3, max_levels 12) through the cell on the
+    1×1 NCCL grid, sparse engine: the host set-up's steps timed apart; the
+    first h3 round at the static 12 levels (once plain, once under the
+    work counter: the roofline terms) and with the liveness loop (wall,
+    levels, traversed-edge rate, peak memory beside the priced footprint);
+    (i) the liveness round against the single-device sparse round
+    (``make_round_fn``), (ii) a round of ORACLE_ROOTS h0 roots against the
+    float64 oracle, (iii) the static against the liveness round, bit for
+    bit when the depth is ≤ 12; the guard
+    refusing fused and fused_sparse; s25's meta (no graph made)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bc import make_operator, make_round_fn
+    from repro_torch.core.distributed import check_device_memory
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline import H100, WorkCounter, roofline_terms
+
+    t15 = time.perf_counter()
+    bundle = get_arch("bc-rmat")
+    cfg, shape = bundle.arch, "rmat_s23_ef16"
+    spec = bundle.shapes[shape]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the round needs ~50 GiB
+    before = torch.cuda.memory_allocated()
+    print(f"[15] {before / GIB:.2f} GiB allocated by earlier phases, "
+          f"{torch.cuda.memory_reserved() / GIB:.2f} GiB reserved")
+    cell = build_cell(bundle, shape, groups, seed=1)
+    resident = torch.cuda.memory_allocated() - before
+    st, meta = cell.setup, cell.static_meta
+    n, arcs = st["n"], st["residual_arcs"]
+    print(f"[15] {cell.name} host set-up: rmat_graph({spec.scale}, {spec.edge_factor}, seed=1) "
+          f"{st['rmat_s']:.3f}s "
+          f"(n={n}, {st['arcs']} arcs), the h3 schedule {st['schedule_s']:.3f}s ({arcs} residual "
+          f"arcs, {st['rounds']} rounds), partition_2d 1x1 {st['partition_s']:.3f}s, arc arrays "
+          f"and ω to the card {st['device_s']:.3f}s ({resident / GIB:.2f} GiB resident)")
+    print(f"[15] static meta (1x1): {json.dumps(meta)}")
+    src, der = cell.round_inputs(0)
+    s_k = meta["sources_per_round"]
+    check(src.shape[1] + der.shape[1] == s_k, "[15] the round's width differs from the meta's")
+    # warm-up: an all-padding round stops after one level (the liveness loop)
+    t = time.perf_counter()
+    cell.fn(np.full_like(src, -1), np.full_like(der, -1), num_levels=None)
+    torch.cuda.synchronize()
+    print(f"[15] warm-up (an all-padding round, liveness loop) {time.perf_counter() - t:.3f}s")
+
+    def run(tag, sources, derived, num_levels, count=False, width=s_k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        wc = WorkCounter()
+        t = time.perf_counter()
+        if count:
+            with wc:
+                out = cell.fn(sources, derived, num_levels=num_levels)
+        else:
+            out = cell.fn(sources, derived, num_levels=num_levels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - live
+        bc = out[0][0, :n]
+        levels = int(out[3][0])
+        check(bc.shape == (n,) and bool(torch.isfinite(bc).all()),
+              f"[15] {tag}: BC must be finite of shape ({n},)")
+        check(sum(ops.LAUNCHES.values()) == 0, f"[15] {tag}: the sparse round launched a kernel")
+        print(f"[15] {tag}: wall {wall:.3f}s, levels {levels}, traversed-edge rate (residual "
+              f"arcs × {width} / wall) {arcs * width / wall / 1e9:.3f} G/s, peak device memory of "
+              f"the round {peak / GIB:.2f} GiB above {live / GIB:.2f} GiB live (priced footprint "
+              f"{meta['hbm_footprint_bytes']['sparse'] / GIB:.2f} GiB) ({smi})")
+        return out, wall, peak, levels, wc
+
+    static, wall_s, peak_s, levels_s, _ = run("round 0 static (12 levels)", src, der,
+                                              cfg.max_levels)
+    _, wall_c, _, _, wc = run("round 0 static (12 levels), counted", src, der, cfg.max_levels,
+                              count=True)
+    live, wall_l, peak_l, levels_l, _ = run("round 0 liveness", src, der, None)
+    terms = wc.terms()
+    rt = roofline_terms(terms, 1, meta["model_flops"], hw=H100)
+    print(f"[15] work counter (static round): {json.dumps(wc.by_name())}; collectives "
+          f"{json.dumps(terms['collectives'])}")
+    print(f"[15] roofline_terms(hw=H100): compute {rt.compute_s:.4f}s, memory {rt.memory_s:.4f}s, "
+          f"collective {rt.collective_s:.4f}s (+ α {rt.ring_latency_s:.4f}s over {rt.ring_steps} "
+          f"hops), bottleneck {rt.bottleneck}, {rt.flops / 1e9:.1f} GFLOP, {rt.bytes / 1e9:.1f} "
+          f"GB, useful fraction {rt.useful_fraction:.4f}; memory_s / wall = "
+          f"{rt.memory_s / wall_s:.4f} of the bytes bound; the counted run {wall_c:.3f}s against "
+          f"{wall_s:.3f}s")
+    print(f"[15] peak device memory: resident {resident / GIB:.2f} GiB + static round "
+          f"{peak_s / GIB:.2f} / liveness {peak_l / GIB:.2f} GiB, against the priced "
+          f"{meta['hbm_footprint_bytes']['sparse'] / GIB:.2f} GiB (the arc product's f64 "
+          f"[arcs, {-(-s_k // 4)}] messages of a column pass, {arcs * -(-s_k // 4) * 8 / GIB:.2f} "
+          f"GiB at s + k = {s_k}, are not priced)")
+
+    # (i) the liveness round against the single-device sparse round
+    omega_t = torch.from_numpy(cell.omega.astype(np.float32)).to(dev)
+    op = make_operator(cell.residual, "sparse", dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one = make_round_fn(op, omega_t)(torch.from_numpy(src).to(dev), torch.from_numpy(der).to(dev))
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t
+    ok, err = close(live[0][0, :n], one[0][0], 1e-5, 1e-5)
+    print(f"[15] (i) liveness round vs the single-device sparse round (make_round_fn, wall "
+          f"{wall_1:.3f}s, levels {one[3][0]}): max abs err {err:.3g}")
+    check(ok and one[3][0] == levels_l, "[15] (i) the cell's round disagrees with one device's")
+    del op, one
+    torch.cuda.empty_cache()
+
+    # (iii) static vs liveness: the arc sums are row sums in a fixed order,
+    # so one round run twice gives the same bits
+    depth = levels_l - 1
+    same = all(torch.equal(a, b) for a, b in zip(static, live))
+    if depth <= cfg.max_levels:
+        print(f"[15] (iii) depth {depth} <= max_levels {cfg.max_levels}: the static and liveness "
+              f"rounds are bit-equal: {same}")
+        check(same and levels_s == levels_l,
+              "[15] (iii) the static round differs from the liveness round")
+    else:
+        _, err_t = close(static[0], live[0], 0.0, 0.0)
+        print(f"[15] (iii) FINDING: depth {depth} > max_levels {cfg.max_levels}: the reference's "
+              f"static bound truncates this round (max abs diff {err_t:.3g} against the liveness "
+              f"round); max_levels is left as the config has it")
+    del static, live
+
+    # (ii) ORACLE_ROOTS h0 roots, no derived columns, against the float64 oracle
+    res = cell.residual
+    hub = int(np.argmax(res.degrees()))
+    roots = [hub] + [int(r) for r in src[0] if r >= 0 and r != hub][:ORACLE_ROOTS - 1]
+    sources = np.full_like(src, -1)
+    sources[0, :len(roots)] = roots
+    derived = np.full_like(der, -1)
+    out, _, _, levels_o, _ = run(f"(ii) round of roots {roots}", sources, derived, None,
+                                 width=len(roots))
+    t = time.perf_counter()
+    want, levels_w = brandes_roots_oracle(res.src, res.dst, n, cell.omega, roots)
+    ok, err = close(out[0][0, :n].cpu(), torch.from_numpy(want), 1e-5, 1e-5)
+    print(f"[15] (ii) vs the float64 oracle (scipy CSR, {time.perf_counter() - t:.1f}s, levels "
+          f"{levels_w}): max abs err {err:.3g}, max BC {want.max():.6g}")
+    check(ok and levels_o == levels_w, "[15] (ii) the cell's round disagrees with the oracle")
+    del out
+
+    # the guard: the dense and BCSR engines do not fit one card at s23
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    before = torch.cuda.memory_allocated()
+    for engine in ("fused", "fused_sparse"):
+        t = time.perf_counter()
+        try:
+            check_device_memory(cell.partition, engine, cfg.batch_size, total_mem)
+            fail(f"[15] the memory guard let {engine} through at scale 23")
+        except MemoryError as err:
+            check("GiB" in str(err) and torch.cuda.memory_allocated() == before,
+                  f"[15] the guard's refusal of {engine}")
+            print(f"[15] guard ({time.perf_counter() - t:.1f}s, budget {total_mem / GIB:.2f} "
+                  f"GiB) refused {engine}: {err}")
+    del cell
+    torch.cuda.empty_cache()
+    s25 = build_cell(bundle, "rmat_s25_ef16")
+    print(f"[15] {s25.name} meta (1x1, no graph made): {json.dumps(s25.static_meta)}")
+    print(f"[15] bc-rmat phase ok in {time.perf_counter() - t15:.1f}s ({smi})")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
@@ -2010,6 +2219,7 @@ def main() -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.blocked_spmm import nonzero_index
     from repro_torch.kernels.level_gemm import column_tile, fast_copies, operand_stride
+    from repro_torch.roofline import counter as work
 
     t_all = time.perf_counter()
     dev = resolve_device("cuda")  # also switches TF32 off for matmul and cuDNN
@@ -2496,6 +2706,9 @@ def main() -> None:
 
             # ------- 14. measured-cost autotuning and the chaos harness
             launches_14 = autotune_chaos_phase(dev, graph, groups, fused_2d_bc, smi)
+
+            # -------- 15. the paper's own configuration at R-MAT scale 23
+            rmat_cell_phase(dev, groups, smi)
         finally:
             dist.destroy_process_group()
 
@@ -2541,19 +2754,19 @@ def main() -> None:
         if kname == "frontier_spmm":
             ms = cuda_time_ms(lambda: ops.frontier_spmm(A, sigma, depth, 2))
             make_operand = lambda: sigma * (depth == 1)
-            nbytes = A.nbytes + 2 * (sigma.nbytes + depth.nbytes)
+            nbytes = work.frontier_bytes(A, sigma, depth)
         else:
             fn = (ops.dependency_spmm if kname == "dependency_spmm"
                   else ops.dependency_spmm_partial)
             ms = cuda_time_ms(lambda: fn(A, sigma, depth, delta, omega, 1))
             make_operand = lambda: dep_operand(sigma, depth, delta, omega)
-            nbytes = partial_bytes(A, sigma, depth, delta, omega)
+            nbytes = work.partial_bytes(A, sigma, depth, delta, omega)
         lib = "n/a (bf16 A)"
         if A.dtype == torch.float32:
             operand = make_operand()
             lib = f"{cuda_time_ms(lambda: torch.matmul(A, operand)):.3f} ms"
             del operand
-        t_ops = 2.0 * m * k * s / PEAK_F32_FLOP_PER_S * 1e3
+        t_ops = work.dense_flops(m, k, s) / PEAK_F32_FLOP_PER_S * 1e3
         bound = max(t_ops, nbytes / PEAK_BYTES_PER_S * 1e3)
         tag = "bf16" if A.dtype == torch.bfloat16 else "f32"
         print(f"[7] {kname} A={tag} {where} s={s}: kernel {ms:.3f} ms, torch.matmul {lib}, "
@@ -2584,20 +2797,19 @@ def main() -> None:
                 kern = lambda: ops.frontier_spmm(A, sigma, depth, 2)
                 plain = lambda: ref.frontier_spmm_ref(A, sigma, depth, 2)
                 operand = sigma * (depth == 1)
-                io_bytes = 2 * (sigma.nbytes + depth.nbytes)  # σ, d in; σ', d' out
+                nbytes = work.frontier_bytes(A, sigma, depth)
             else:
                 kern = lambda: ops.dependency_spmm(A, sigma, depth, delta, omega, 1)
                 plain = lambda: ref.dependency_spmm_ref(A, sigma, depth, delta, omega, 1)
                 operand = dep_operand(sigma, depth, delta, omega)
-                io_bytes = sigma.nbytes + depth.nbytes + 2 * delta.nbytes + omega.nbytes
+                nbytes = work.dependency_bytes(A, sigma, depth, delta, omega)
             ms = cuda_time_ms(kern)
             plain_ms = cuda_time_ms(plain)
             # one library call computing the same product: only for an f32
             # adjacency (a bf16 matmul would round σ)
             lib_ms = (cuda_time_ms(lambda: torch.matmul(A, operand))
                       if tag == "f32" else None)
-            flops = 2.0 * n_main * n_main * s
-            nbytes = A.nbytes + io_bytes
+            flops = work.dense_flops(n_main, n_main, s)
             t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
             entries.append({
@@ -2647,19 +2859,19 @@ def main() -> None:
                     kern = lambda: ops.frontier_spmm_partial(A, sigma, depth, 2)
                     plain = lambda: ref.frontier_partial_ref(A, sigma, depth, 2)
                     operand = sigma * (depth == 1)
-                    nbytes = partial_bytes(A, sigma, depth)
+                    nbytes = work.partial_bytes(A, sigma, depth)
                     err = err_main[(err_key, tag, s)][0]
                 else:
                     kern = lambda: ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1)
                     plain = lambda: ref.dependency_partial_ref(A, sigma, depth, delta, omega, 1)
                     operand = dep_operand(sigma, depth, delta, omega)
-                    nbytes = partial_bytes(A, sigma, depth, delta, omega)
+                    nbytes = work.partial_bytes(A, sigma, depth, delta, omega)
                     err = err_main[(err_key, tag, s)][1]
                 ms = cuda_time_ms(kern)
                 plain_ms = cuda_time_ms(plain)
                 lib_ms = (cuda_time_ms(lambda: torch.matmul(A, operand))
                           if tag == "f32" else None)
-                t_ops = 2.0 * m * k * s / PEAK_F32_FLOP_PER_S * 1e3
+                t_ops = work.dense_flops(m, k, s) / PEAK_F32_FLOP_PER_S * 1e3
                 t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
                 bound = max(t_ops, t_bytes)
                 entries.append({
@@ -2699,19 +2911,19 @@ def main() -> None:
             kern = lambda: ops.frontier_spmm_partial(A, sigma, depth, 2)
             plain = lambda: ref.frontier_partial_ref(A, sigma, depth, 2)
             operand = sigma * (depth == 1)
-            nbytes = partial_bytes(A, sigma, depth)
+            nbytes = work.partial_bytes(A, sigma, depth)
             ok, err = close(kern(), plain(), 0.0, 0.0)
         else:
             kern = lambda: ops.dependency_spmm_partial(A, sigma, depth, delta, omega, 1)
             plain = lambda: ref.dependency_partial_ref(A, sigma, depth, delta, omega, 1)
             operand = dep_operand(sigma, depth, delta, omega)
-            nbytes = partial_bytes(A, sigma, depth, delta, omega)
+            nbytes = work.partial_bytes(A, sigma, depth, delta, omega)
             ok, err = close(kern(), plain(), 1e-5, 1e-6)
         check(ok, f"{kname} parity at the lane width s={s}: err {err:.3g}")
         ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(plain)
         lib_ms = cuda_time_ms(lambda: torch.matmul(A, operand))
-        t_ops = 2.0 * n_main * n_main * s / PEAK_F32_FLOP_PER_S * 1e3
+        t_ops = work.dense_flops(n_main, n_main, s) / PEAK_F32_FLOP_PER_S * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
         entries.append({
@@ -2756,7 +2968,7 @@ def main() -> None:
                                                         index=index)
                 plain = lambda: ref.frontier_sparse_ref(tiles, rows, cols, sigma, depth, 2, m)
                 make_operand = lambda: sigma * (depth == 1)
-                nbytes = sparse_bytes(index, sigma, depth)
+                nbytes = work.sparse_bytes(index, sigma, depth)
                 err = err_main[("sparse", tag, s)][0]
             else:
                 kern = lambda: ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta,
@@ -2764,7 +2976,7 @@ def main() -> None:
                 plain = lambda: ref.dependency_sparse_ref(tiles, rows, cols, sigma, depth, delta,
                                                           omega, 1, m)
                 make_operand = lambda: dep_operand(sigma, depth, delta, omega)
-                nbytes = sparse_bytes(index, sigma, depth, delta, omega)
+                nbytes = work.sparse_bytes(index, sigma, depth, delta, omega)
                 err = err_main[("sparse", tag, s)][1]
             operand = make_operand()
             ms = cuda_time_ms(kern, reps=20)
@@ -2778,7 +2990,7 @@ def main() -> None:
             lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, operand), reps=20)
             lib_build_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, make_operand()), reps=20)
             nnz = index.col.numel()
-            t_ops = 2.0 * nnz * s / PEAK_F32_FLOP_PER_S * 1e3
+            t_ops = work.sparse_flops(nnz, s) / PEAK_F32_FLOP_PER_S * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
             t_tile = 2.0 * num_tiles * bm * bk * s / PEAK_F32_FLOP_PER_S * 1e3

@@ -1,15 +1,16 @@
 """Config dataclasses and shape specs of the architectures the port runs.
 
-A copy of the DLRM part of the JAX package's ``configs/base.py``
-(``DLRMArch``, ``DLRMShape``, ``DLRM_SHAPES``), field for field, so that
-one (arch × shape) pair names the same workload in both packages.  The
-other families (LM, GNN) are not ported yet.
+A copy of the DLRM and BC parts of the JAX package's ``configs/base.py``
+(``DLRMArch``, ``DLRMShape``, ``DLRM_SHAPES``; ``BCArch``, ``BCShape``,
+``BC_SHAPES``), field for field, so that one (arch × shape) pair names
+the same workload in both packages.  The other families (LM, GNN) are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["DLRMArch", "DLRMShape", "DLRM_SHAPES"]
+__all__ = ["DLRMArch", "DLRMShape", "DLRM_SHAPES", "BCArch", "BCShape", "BC_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,4 +43,33 @@ DLRM_SHAPES = (
     DLRMShape("serve_p99", "serve", 512),
     DLRMShape("serve_bulk", "serve", 262_144),
     DLRMShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BCArch:
+    """The paper's own workload: MGBC on an R-MAT graph."""
+
+    name: str
+    scale: int
+    edge_factor: int
+    batch_size: int = 16  # concurrent sources per round
+    heuristics: str = "h3"
+    max_levels: int = 24  # static level bound of the cell's round
+
+    @property
+    def family(self) -> str:
+        return "bc"
+
+
+@dataclasses.dataclass(frozen=True)
+class BCShape:
+    name: str
+    scale: int
+    edge_factor: int
+
+
+BC_SHAPES = (
+    BCShape("rmat_s23_ef16", 23, 16),
+    BCShape("rmat_s25_ef16", 25, 16),
 )

@@ -52,7 +52,7 @@ __all__ = [
 WEIGHTED_HEURISTICS = ("h0", "h1", "h1t")
 
 #: the single source of truth for the port's ``--engine`` choices:
-#: "dense" (torch.matmul), "sparse" (index_select + index_add_), "fused"
+#: "dense" (torch.matmul), "sparse" (index_select + sorted row sums), "fused"
 #: (CUDA level kernels, f32 adjacency), "fused_bf16" (same, bf16 adjacency)
 ENGINE_KINDS = ("dense", "sparse", "fused", "fused_bf16")
 

@@ -8,8 +8,8 @@ distributed/groups.py for the process groups):
       ``all_gather`` of the owned frontier chunks over the rank's column
       group  →  F[cols_j] on every rank of grid column j.
   local compute:
-      * ``engine_kind="sparse"`` — gather F[src_local] + ``index_add_``
-        into dst_local;
+      * ``engine_kind="sparse"`` — gather F[src_local] and sum it by
+        dst_local (float64 row sums over the arcs sorted by destination);
       * ``engine_kind="fused"`` / ``"fused_bf16"`` — the rank's dense
         adjacency block through the partial kernels K3/K4
         (kernels/csrc/partial_spmm.cu), f32 or bf16 block;

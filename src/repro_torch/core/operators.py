@@ -24,8 +24,8 @@ round loop, and operators everything below a level:
   root_omega            ω at the round's root vertices
 
 Implementations: :class:`DenseOperator` (``torch.matmul`` on a dense
-0/1 adjacency), :class:`SparseOperator` (``index_select`` +
-``index_add_`` over the padded arc list) and :class:`FusedDenseOperator`
+0/1 adjacency), :class:`SparseOperator` (``index_select`` and sorted
+row sums in float64 over the padded arc list) and :class:`FusedDenseOperator`
 (the hand-written level kernels K1/K2, kernels/ops.py) on one device;
 :class:`DistributedOperator` (the paper's 2-D decomposition, §3.2: expand
 → arc-list local compute → fold over ``torch.distributed`` groups) and
@@ -56,8 +56,9 @@ import math
 import torch
 import torch.distributed as dist
 
-from ..distributed.groups import GridGroups, all_gather, reduce_scatter, ring_hop
+from ..distributed.groups import GridGroups, all_gather, all_reduce, reduce_scatter, ring_hop
 from ..kernels import ops
+from ..roofline import counter
 
 __all__ = [
     "TraversalOperator",
@@ -104,6 +105,72 @@ def normalize_overlap(policy: str | None) -> str:
             f"unknown overlap policy {policy!r}; expected one of {OVERLAP_POLICIES}"
         )
     return policy
+
+
+#: the arc product's accumulator: f32 messages summed in float64, rounded
+#: once to the operand's dtype (:func:`_arc_product`)
+_ARC_ACC = torch.float64
+#: arcs a row's first-level partial sum spans at most (:func:`_arc_pieces`)
+_ARC_PIECE = 256
+#: bytes of widened messages one pass of :func:`_arc_product` may hold;
+#: a wider product sums its columns in four passes
+_ARC_PASS_BYTES = 1 << 30
+
+
+def _arc_pieces(lengths: torch.Tensor, size: int | None = None):
+    """Split each destination row's run of arcs (``lengths``, arcs sorted
+    by destination) into consecutive pieces of at most ``size`` arcs
+    (default :data:`_ARC_PIECE`): ``(pieces, counts)``, the arc count of
+    each piece and the piece count of each row (at least one, so a row of
+    no arcs has one empty piece); ``(None, lengths)`` where no row is
+    longer than a piece.  The arc product sums the pieces, then each
+    row's pieces, so that no thread sums a hub's ~10^5 arcs in one chain
+    (at R-MAT scale 23 on an H100 that chain took ~30 ms a pass)."""
+    size = _ARC_PIECE if size is None else size
+    if lengths.numel() == 0 or int(lengths.max()) <= size:
+        return None, lengths
+    counts = ((lengths + size - 1) // size).clamp_min(1)
+    row = torch.repeat_interleave(torch.arange(lengths.numel(), device=lengths.device), counts)
+    k = torch.arange(row.numel(), device=lengths.device) - (counts.cumsum(0) - counts)[row]
+    return (lengths[row] - k * size).clamp(0, size), counts
+
+
+def _arc_product(x: torch.Tensor, src: torch.Tensor, pieces: torch.Tensor | None,
+                 counts: torch.Tensor, rows: int) -> torch.Tensor:
+    """``A @ x`` over an arc list sorted by destination (``src`` of
+    :func:`_by_destination`, ``pieces`` / ``counts`` of
+    :func:`_arc_pieces` over its ``lengths``, whose last, sentinel row is
+    dropped): [rows, ...] in ``x``'s dtype, row v the sum of ``x[src]``
+    over the arcs into v.  One gather at ``x``'s width (a random read per
+    arc, whatever its width: the gather's cost), then the sums in
+    :data:`_ARC_ACC`, in a fixed order (each piece's arcs in arc order,
+    then each row's pieces, by :func:`_segment_sum`, no atomics), rounded
+    once: the same inputs give the same bits, and an f32 sum over a hub's
+    arcs, which drifts by about u·√degree (on an H100 at R-MAT scale 23,
+    degrees ~10^5, an atomic f32 ``index_add_`` left a round's BC 1.85e-5
+    off the float64 oracle, past the 1e-5 the BC is held to), leaves one
+    rounding.  Where the widened messages would pass
+    :data:`_ARC_PASS_BYTES`, the columns are widened and summed in four
+    passes, each holding half the gather's bytes.  The gather and the
+    sums report their FLOP and bytes to an active
+    :class:`~repro_torch.roofline.counter.WorkCounter` at ``x``'s width,
+    the work of the function whatever width accumulates it."""
+    x2 = x.reshape(x.shape[0], -1)
+    width = x2.shape[1]
+    msgs = x2.index_select(0, src)
+    out = x.new_empty((rows, width))
+    wide = msgs.numel() * torch.finfo(_ARC_ACC).bits // 8 > _ARC_PASS_BYTES
+    step = max(1, -(-width // 4)) if wide else max(1, width)
+    for c in range(0, width, step):
+        part = msgs[:, c:c + step].to(_ARC_ACC)
+        if pieces is not None:
+            part = torch.segment_reduce(part, "sum", lengths=pieces, axis=0)
+        out[:, c:c + step] = _segment_sum(part, counts, rows)
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.add("arc_gather", 0.0, counter.gather_bytes(x, src))
+        counter.ACTIVE.add("arc_sum", counter.sparse_flops(src.numel(), width),
+                           counter.segment_sum_bytes(msgs.nbytes, counts, out))
+    return out.reshape((rows,) + tuple(x.shape[1:]))
 
 
 def _forward_level(op: "TraversalOperator", lvl: int, sigma, depth):
@@ -258,25 +325,24 @@ class DenseOperator(TraversalOperator):
 
 
 class SparseOperator(TraversalOperator):
-    """``A @ x`` via arc-list gather + scatter-add.
+    """``A @ x`` via an arc-list gather and row sums
+    (:func:`_arc_product`), ``out[v] = Σ_{(u,v) arcs} x[u]``.
 
     ``src``/``dst`` are the padded symmetric arc arrays (int64); padding
-    arcs use the sentinel vertex ``n`` on both endpoints, which reads from
-    and writes to a discarded extra row.  ``out[v] = Σ_{(u,v) arcs} x[u]``.
+    arcs use the sentinel vertex ``n`` on both endpoints, which reads a
+    zero row and sums into a discarded one.  The arcs are reordered by
+    destination once, here.
     """
 
     def __init__(self, src: torch.Tensor, dst: torch.Tensor, n: int):
-        self.src = src
-        self.dst = dst
+        self.src, _, _, lengths = _by_destination(src, dst, None, n)
+        self.pieces, self.counts = _arc_pieces(lengths)
         self.n_rows = n
         self.device = src.device
 
     def apply(self, x):
-        n = self.n_rows
         x_pad = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))], dim=0)
-        msgs = x_pad.index_select(0, self.src)
-        out = x.new_zeros((n + 1,) + tuple(x.shape[1:])).index_add_(0, self.dst, msgs)
-        return out[:n]
+        return _arc_product(x_pad, self.src, self.pieces, self.counts, self.n_rows)
 
 
 class FusedDenseOperator(TraversalOperator):
@@ -338,9 +404,10 @@ class DistributedOperator(TraversalOperator):
     Per application, barrier schedule (``overlap="none"``):
       expand (Alg. 2 line 15):  ``all_gather`` over the rank's column group
           delivers the frontier slice of grid column j, ``[R·chunk, s]``.
-      local compute:            gather ``x_col[src_local]`` and
-          ``index_add_`` into ``dst_local`` (a ``C·chunk + 1`` accumulator
-          whose last row takes the padding arcs).
+      local compute:            gather ``x_col[src_local]`` and sum it
+          by ``dst_local`` (:func:`_arc_product`, over the arcs reordered
+          by destination at first use; the padding arcs sum into a
+          discarded ``C·chunk + 1``-th row).
       fold (Alg. 2 line 19):    ``reduce_scatter`` over the row group sums
           the C partials and delivers each rank its owned chunk.
 
@@ -402,6 +469,7 @@ class DistributedOperator(TraversalOperator):
         self.n_rows = chunk
         arcs = src_local if src_local is not None else ring_src_local
         self.device = None if arcs is None else arcs.device
+        self._by_dst: dict = {}
 
     # ---------------------------------------------- collective skeleton
     def _expand(self, x_owned: torch.Tensor) -> torch.Tensor:
@@ -410,11 +478,19 @@ class DistributedOperator(TraversalOperator):
     def _fold(self, partial: torch.Tensor) -> torch.Tensor:
         return reduce_scatter(partial, self.groups.row)
 
+    def _arcs_by_destination(self, slot: int | None = None) -> tuple[torch.Tensor, ...]:
+        """(src, pieces, counts) of the barrier arcs (``slot`` None) or of
+        ring slot ``slot``, reordered by destination at first use
+        (:func:`_arc_product`'s operands)."""
+        if slot not in self._by_dst:
+            src, dst = ((self.src_local, self.dst_local) if slot is None
+                        else (self.ring_src_local[slot], self.ring_dst_local[slot]))
+            src, _, _, lengths = _by_destination(src, dst, None, self.C * self.chunk)
+            self._by_dst[slot] = (src, *_arc_pieces(lengths))
+        return self._by_dst[slot]
+
     def _local(self, x_col: torch.Tensor) -> torch.Tensor:
-        rows = self.C * self.chunk
-        msgs = x_col.index_select(0, self.src_local)
-        out = x_col.new_zeros((rows + 1,) + tuple(x_col.shape[1:]))
-        return out.index_add_(0, self.dst_local, msgs)[:rows]
+        return _arc_product(x_col, *self._arcs_by_destination(), self.C * self.chunk)
 
     # ------------------------------------------------- ring schedules
     def _column_hop(self, tensors) -> tuple[list, list]:
@@ -443,18 +519,18 @@ class DistributedOperator(TraversalOperator):
 
     def _ring_partial(self, x_owned: torch.Tensor) -> torch.Tensor:
         """The arc-list ring expand: at each step only the chunk in hand's
-        arcs (ring slot r) are added into the ``C·chunk + 1`` accumulator."""
+        arcs (ring slot r) are summed and added into the ``C·chunk``
+        accumulator."""
         if self.ring_src_local is None or self.ring_dst_local is None:
             raise ValueError("overlap != 'none' needs the ring arc slots "
                              "(TwoDPartition.cell_ring_arcs)")
         rows = self.C * self.chunk
 
         def step(r, hand, acc):
-            return acc.index_add_(0, self.ring_dst_local[r],
-                                  hand[0].index_select(0, self.ring_src_local[r]))
+            return acc.add_(_arc_product(hand[0], *self._arcs_by_destination(r), rows))
 
-        acc = x_owned.new_zeros((rows + 1,) + tuple(x_owned.shape[1:]))
-        return self._ring_steps((x_owned,), step, acc)[:rows]
+        acc = x_owned.new_zeros((rows,) + tuple(x_owned.shape[1:]))
+        return self._ring_steps((x_owned,), step, acc)
 
     def _fold_ring(self, partial: torch.Tensor) -> torch.Tensor:
         """The reduce-ring fold: C-1 hops over the row group.  Block m of
@@ -499,9 +575,7 @@ class DistributedOperator(TraversalOperator):
     # ------------------------------------------- collective agreements
     @staticmethod
     def _all_reduce(value: torch.Tensor, op, group) -> torch.Tensor:
-        out = value.reshape(1).clone()
-        dist.all_reduce(out, op=op, group=group)
-        return out[0]
+        return all_reduce(value.reshape(1).clone(), op, group)[0]
 
     @property
     def _loop_group(self):
@@ -526,9 +600,7 @@ class DistributedOperator(TraversalOperator):
         return self._all_reduce(value, dist.ReduceOp.MAX, self.groups.replica)
 
     def reduce_sum(self, value):
-        out = value.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.groups.grid)
-        return out
+        return all_reduce(value.clone(), dist.ReduceOp.SUM, self.groups.grid)
 
     # ------------------------------------------------------- geometry
     def row_ids(self):
@@ -843,12 +915,14 @@ def _segment_min(val: torch.Tensor, index: torch.Tensor, rows: int) -> torch.Ten
     return torch.where(out > _BIG_DIST, torch.inf, out)
 
 
-def _by_destination(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, rows: int):
-    """The arcs reordered by destination (stable), and the arc count of
-    each of the ``rows + 1`` destination rows (the last the sentinel's)."""
+def _by_destination(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor | None, rows: int):
+    """The arcs (and weights, if any) reordered by destination (stable),
+    and the arc count of each of the ``rows + 1`` destination rows (the
+    last the sentinel's)."""
     order = torch.argsort(dst, stable=True)
     dst = dst[order]
-    return src[order], dst, w[order], torch.bincount(dst, minlength=rows + 1)
+    return (src[order], dst, None if w is None else w[order],
+            torch.bincount(dst, minlength=rows + 1))
 
 
 def _segment_sum(val: torch.Tensor, lengths: torch.Tensor, rows: int) -> torch.Tensor:
@@ -1005,8 +1079,7 @@ class DistributedWeightedOperator(DistributedOperator):
         return all_gather(x_owned, self.groups.row)
 
     def _min_fold(self, partial: torch.Tensor) -> torch.Tensor:
-        folded = partial.contiguous()
-        dist.all_reduce(folded, op=dist.ReduceOp.MIN, group=self.groups.row)
+        folded = all_reduce(partial.contiguous(), dist.ReduceOp.MIN, self.groups.row)
         j = self.groups.j
         return folded[j * self.chunk:(j + 1) * self.chunk]
 

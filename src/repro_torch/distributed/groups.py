@@ -45,14 +45,17 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..roofline import counter
 
-__all__ = ["GridGroups", "device_for_rank", "all_gather", "reduce_scatter", "ring_hop",
-           "run_gloo"]
+__all__ = ["GridGroups", "device_for_rank", "all_gather", "reduce_scatter", "all_reduce",
+           "ring_hop", "run_gloo"]
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """Concatenate every member's ``x`` along dim 0, in group-rank order."""
     x = x.contiguous()
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.collective("all-gather", x.nbytes, group)
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
     return out
@@ -61,9 +64,19 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over the members and hand block r of dim 0 to member r."""
     x = x.contiguous()
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.collective("reduce-scatter", x.nbytes, group)
     out = x.new_empty((x.shape[0] // dist.get_world_size(group),) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, group=group)
     return out
+
+
+def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """``x`` reduced with ``op`` over the members, in place; returns ``x``."""
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.collective("all-reduce", x.nbytes, group)
+    dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 def ring_hop(tensors, send_to: int, recv_from: int, group) -> tuple[list, list]:
@@ -75,6 +88,9 @@ def ring_hop(tensors, send_to: int, recv_from: int, group) -> tuple[list, list]:
     that makes the current stream wait, not the host).  The caller skips
     a one-member ring, which has nowhere to send."""
     tensors = [t.contiguous() for t in tensors]
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.collective("collective-permute", sum(t.nbytes for t in tensors), group,
+                                  count=len(tensors))
     bufs = [torch.empty_like(t) for t in tensors]
     ops = [dist.P2POp(dist.isend, t, send_to, group) for t in tensors]
     ops += [dist.P2POp(dist.irecv, b, recv_from, group) for b in bufs]

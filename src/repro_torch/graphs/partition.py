@@ -66,14 +66,30 @@ __all__ = [
 ]
 
 
-def _arc_tile_unique(d: np.ndarray, s: np.ndarray, bm: int, bk: int, num_tc: int):
+def _arc_tile_unique(d: np.ndarray, s: np.ndarray, bm: int, bk: int, num_tc: int,
+                     inverse: bool = True):
     """The arc→tile unique pass of one grid cell: maps its (dst_local,
     src_local) arc pairs onto the (bm × bk) tile grid and deduplicates.
     Returns ``(r_u, c_u, inv)`` — the unique tile row/col ids (sorted by
-    row-major key, i64) and the arc→unique-tile inverse map."""
-    key = (d // bm) * num_tc + (s // bk)
-    uniq, inv = np.unique(key, return_inverse=True)
+    row-major key, i64) and the arc→unique-tile inverse map (None unless
+    ``inverse``: the counts need none, and a plain sort is ~4x cheaper).
+    The key is int64: an int32 one wraps past 2^31 tiles (R-MAT scale 23
+    on one cell at tile 128 has 2^32)."""
+    key = (d.astype(np.int64) // bm) * num_tc + (s // bk)
+    if inverse:
+        uniq, inv = np.unique(key, return_inverse=True)
+    else:
+        key.sort()
+        uniq = key[np.concatenate(([True], key[1:] != key[:-1]))] if key.size else key
+        inv = None
     return uniq // num_tc, uniq % num_tc, inv
+
+
+def _distinct_sorted(a: np.ndarray) -> int:
+    """Distinct values of a sorted array (``np.unique(a).size`` without
+    its hash path, which some numpy versions take and which is slow on
+    10^8 values)."""
+    return int(np.count_nonzero(a[1:] != a[:-1])) + 1 if a.size else 0
 
 
 def default_tile_dim(chunk: int, preferred: int = 128) -> int:
@@ -379,16 +395,20 @@ class TwoDPartition:
             )
         return bm, bk
 
-    def _tile_pass(self, bm: int, bk: int) -> list[list[tuple]]:
+    def _tile_pass(self, bm: int, bk: int, inverse: bool = False) -> list[list[tuple]]:
         """The one arc→tile pass per (bm, bk), cached on the partition:
         ``result[i][j] = (r_u, c_u, inv)`` of :func:`_arc_tile_unique`.
         The counts, the hybrid choice, the memory guard and the layout
-        builds all read it, so a run sorts each cell's arcs once."""
+        builds all read it, so a run sorts each cell's arcs once; the
+        inverse map, which only the layout builds read, is computed (once)
+        when one first asks for it."""
         cache = self.__dict__.setdefault("_tile_pass_cache", {})
-        if (bm, bk) not in cache:
+        have = cache.get((bm, bk))
+        if have is None or (inverse and have[0][0][2] is None):
             num_tc = self.R * self.chunk // bk
             cache[(bm, bk)] = [
-                [_arc_tile_unique(*self._cell_arcs(i, j), bm, bk, num_tc) for j in range(self.C)]
+                [_arc_tile_unique(*self._cell_arcs(i, j), bm, bk, num_tc, inverse)
+                 for j in range(self.C)]
                 for i in range(self.R)
             ]
         return cache[(bm, bk)]
@@ -439,11 +459,11 @@ class TwoDPartition:
                     else (np.zeros(0, np.int64), np.zeros(0, np.int64), None)
                 )
                 nnz_cell[i, j] = r_u.size
-                full_cell[i, j] = r_u.size + num_tr - np.unique(r_u).size
+                full_cell[i, j] = r_u.size + num_tr - _distinct_sorted(r_u)
                 slot_max = 0
                 for r in range(R):
                     rows_r = r_u[(c_u // cpk) == r]
-                    slot_max = max(slot_max, rows_r.size + num_tr - np.unique(rows_r).size)
+                    slot_max = max(slot_max, rows_r.size + num_tr - _distinct_sorted(rows_r))
                 ring_slot_cell[i, j] = slot_max
         stored_full = max(int(full_cell.max()), 1)
         stored_ring = R * max(int(ring_slot_cell.max()), 1)
@@ -467,7 +487,7 @@ class TwoDPartition:
         cols, arc_tile)`` — i64 tile-row and tile-col of every stored tile
         (row-sorted, one zero filler per empty tile-row) and the stored
         position of every arc's tile."""
-        r_u, c_u, inv = self._tile_pass(bm, bk)[i][j]
+        r_u, c_u, inv = self._tile_pass(bm, bk, inverse=True)[i][j]
         rows, cols, position = _row_complete(r_u, c_u, self.C * self.chunk // bm)
         return rows, cols, position[inv]
 
@@ -477,7 +497,7 @@ class TwoDPartition:
         sourced in grid row r's chunk, tile-cols re-based to the chunk),
         the cell arcs (positions in :meth:`_cell_arcs` order) it holds
         and the stored position of each one's tile."""
-        r_u, c_u, inv = self._tile_pass(bm, bk)[i][j]
+        r_u, c_u, inv = self._tile_pass(bm, bk, inverse=True)[i][j]
         num_tr, cpk = self.C * self.chunk // bm, self.chunk // bk
         slot_of = c_u // cpk
         out = []
@@ -655,7 +675,8 @@ def partition_arcs_2d(
     dst_local = (dst_block * chunk + dst % chunk).astype(np.int32)
 
     cell = i_of_arc * C + j_of_arc
-    order = np.argsort(cell, kind="stable")
+    # one cell holds every arc in input order (the stable sort's order)
+    order = np.arange(cell.size) if R * C == 1 else np.argsort(cell, kind="stable")
     cell_sorted = cell[order]
     counts = np.bincount(cell_sorted, minlength=R * C).reshape(R, C)
 

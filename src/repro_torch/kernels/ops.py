@@ -22,6 +22,10 @@ raises on anything the kernel does not take.  Then:
 * tensors on a CUDA device go to the hand-written kernel, which either
   launches or raises — there is no fallback.
 
+While a :class:`~repro_torch.roofline.counter.WorkCounter` is active,
+every wrapper reports its call's FLOP and bytes (the counter's formulas,
+from the operands' shapes, on either device).
+
 :data:`LAUNCHES` counts kernel launches per wrapper (plain ints, bumped
 only where a kernel was launched), so a run can show that its main path
 went through the kernels; :func:`reset_launches` zeroes them.  A K3–K6
@@ -33,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..roofline import counter
 from . import ref
 from .blocked_spmm import NonzeroIndex, dependency_sparse_cuda, frontier_sparse_cuda, layout_key
 from .dependency_spmm import dependency_partial_cuda, dependency_spmm_cuda
@@ -235,6 +240,9 @@ def frontier_spmm(
     """Fused forward BFS level (K1): returns (σ', d').  See
     kernels/ref.py:frontier_spmm_ref for the semantics."""
     _check("frontier_spmm", adjacency, sigma, depth)
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.add("frontier_spmm", counter.dense_flops(*adjacency.shape, sigma.shape[1]),
+                           counter.frontier_bytes(adjacency, sigma, depth))
     if adjacency.device.type == "cpu":
         return ref.frontier_spmm_ref(adjacency, sigma, depth, lvl)
     if sigma.numel() == 0:
@@ -255,6 +263,10 @@ def dependency_spmm(
     """Fused backward dependency level (K2): returns δ'.  See
     kernels/ref.py:dependency_spmm_ref for the semantics."""
     _check("dependency_spmm", adjacency, sigma, depth, delta, omega)
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.add("dependency_spmm",
+                           counter.dense_flops(*adjacency.shape, sigma.shape[1]),
+                           counter.dependency_bytes(adjacency, sigma, depth, delta, omega))
     if adjacency.device.type == "cpu":
         return ref.dependency_spmm_ref(adjacency, sigma, depth, delta, omega, lvl)
     if sigma.numel() == 0:
@@ -281,6 +293,10 @@ def frontier_spmm_partial(
     """Pre-fold forward partial on a rectangular block (K3): returns t f32
     [m, s].  See kernels/ref.py:frontier_partial_ref for the semantics."""
     _check("frontier_spmm_partial", adjacency, sigma, depth, acc=acc, square=False)
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.add("frontier_spmm_partial",
+                           counter.dense_flops(*adjacency.shape, sigma.shape[1]),
+                           counter.partial_bytes(adjacency, sigma, depth, acc=acc))
     if adjacency.device.type == "cpu":
         return ref.frontier_partial_ref(adjacency, sigma, depth, lvl, acc)
     if adjacency.shape[0] == 0 or sigma.shape[1] == 0:
@@ -302,6 +318,10 @@ def dependency_spmm_partial(
     """Pre-fold backward partial on a rectangular block (K4): returns t f32
     [m, s].  See kernels/ref.py:dependency_partial_ref for the semantics."""
     _check("dependency_spmm_partial", adjacency, sigma, depth, delta, omega, acc, square=False)
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.add("dependency_spmm_partial",
+                           counter.dense_flops(*adjacency.shape, sigma.shape[1]),
+                           counter.partial_bytes(adjacency, sigma, depth, delta, omega, acc))
     if adjacency.device.type == "cpu":
         return ref.dependency_partial_ref(adjacency, sigma, depth, delta, omega, lvl, acc)
     if adjacency.shape[0] == 0 or sigma.shape[1] == 0:
@@ -309,6 +329,19 @@ def dependency_spmm_partial(
     out = dependency_partial_cuda(adjacency, sigma, depth, delta, omega, lvl, acc)
     LAUNCHES["dependency_spmm_partial" if acc is None else "dependency_spmm_partial_acc"] += 1
     return out
+
+
+def _count_sparse(name: str, tiles, index, m: int, sigma, *state) -> None:
+    """Report a K5/K6 call to the active counter: over its nonzero index,
+    or (a CPU call without one) over the tiles' nonzero entries."""
+    s = sigma.shape[1]
+    if index is not None:
+        nnz, nbytes = index.col.numel(), counter.sparse_bytes(index, sigma, *state)
+    else:
+        nnz = int(torch.count_nonzero(tiles))
+        nbytes = counter.index_sparse_bytes(m, nnz, sigma.nbytes + sum(x.nbytes for x in state),
+                                            s)
+    counter.ACTIVE.add(name, counter.sparse_flops(nnz, s), nbytes)
 
 
 def frontier_spmm_sparse(
@@ -334,6 +367,8 @@ def frontier_spmm_sparse(
     zero tile entries: on a non-finite operand see frontier_index_ref)."""
     _check_sparse("frontier_spmm_sparse", tiles, tile_rows, tile_cols, index, m, sigma, depth,
                   acc=acc)
+    if counter.ACTIVE is not None:
+        _count_sparse("frontier_spmm_sparse", tiles, index, m, sigma, depth)
     if tiles.device.type == "cpu":
         return ref.frontier_sparse_ref(tiles, tile_rows, tile_cols, sigma, depth, lvl, m, acc)
     if m == 0 or sigma.shape[1] == 0:
@@ -362,6 +397,8 @@ def dependency_spmm_sparse(
     kernels/ref.py:dependency_sparse_ref for the semantics."""
     _check_sparse("dependency_spmm_sparse", tiles, tile_rows, tile_cols, index, m, sigma, depth,
                   delta, omega, acc)
+    if counter.ACTIVE is not None:
+        _count_sparse("dependency_spmm_sparse", tiles, index, m, sigma, depth, delta, omega)
     if tiles.device.type == "cpu":
         return ref.dependency_sparse_ref(tiles, tile_rows, tile_cols, sigma, depth, delta, omega,
                                          lvl, m, acc)
@@ -403,6 +440,9 @@ def segment_bag(
         raise ValueError(f"{name}: unsupported device {table.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
+    if counter.ACTIVE is not None:
+        counter.ACTIVE.add(name, counter.sparse_flops(indices.numel(), table.shape[1]),
+                           counter.segment_bag_bytes(table, indices, weights))
     if table.device.type == "cpu":
         return ref.segment_bag_ref(table, indices, weights)
     if indices.shape[0] == 0 or table.shape[1] == 0:

@@ -1,31 +1,58 @@
-"""Cell programs of the port: (arch × shape) -> a callable on one device.
+"""Cell programs of the port: (arch × shape) -> a callable.
 
 The counterpart of the JAX package's ``launch/steps.py`` for the archs
-the port has (so far DLRM, ``_build_dlrm_cell`` there).  A cell owns its
-model, created on the device from a seeded generator, and a callable
-that takes one batch of numpy arrays (or tensors), moves it to the
-device and returns the outputs there:
+the port has: DLRM (``_build_dlrm_cell`` there) and the paper's own BC
+workload (``_build_bc_cell``); :func:`build_cell` dispatches on the arch.
+
+A DLRM cell owns its model, created on the device from a seeded
+generator, and a callable that takes one batch of numpy arrays (or
+tensors), moves it to the device and returns the outputs there:
 
   serve      -> sigmoid(logit) f32 [B]
   retrieval  -> (scores [B, 100], candidate ids [B, 100])
 
 ``static_meta`` holds ``n_params`` and ``model_flops``, computed as the
 JAX cell computes them.
+
+A BC cell is one distributed MGBC round of the shape's R-MAT graph on a
+caller's :class:`~repro_torch.distributed.GridGroups` grid, on the
+``sparse`` engine (the JAX cell's engine): the graph made on the host
+from a seed, its residual under the arch's heuristics, the schedule and
+the 2-D partition, the rank's arc arrays and ω on the device.  Its
+callable runs one round on inputs sources i32 [fr, s] and derived i32
+[fr, k, 3] (the JAX cell's ``args_specs``).  The JAX cell only lowers the
+round on placeholder arrays; this one runs it.  ``static_meta`` is
+computed from the shapes and the grid alone (:func:`bc_static_meta`), so
+a shape no card holds still has its meta.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Callable
 
+import numpy as np
 import torch
 
-from ..configs.base import DLRMArch, DLRMShape
+from ..autotune import AUTOTUNE_MODES, CostCache, graph_key
+from ..checkpoint.checkpointer import DEFAULT_GENERATIONS
+from ..configs.base import BCArch, BCShape, DLRMArch, DLRMShape
 from ..configs.registry import ArchBundle
+from ..core.distributed import distributed_graph_arrays, make_distributed_round_fn
+from ..core.driver import DEFAULT_MAX_RETRIES, DEFAULT_RETRY_BACKOFF_S
+from ..core.scheduler import Schedule, build_schedule
 from ..device import resolve_device
+from ..distributed.chaos import FAULT_KINDS
+from ..distributed.groups import GridGroups, device_for_rank
+from ..graphs.generators import rmat_graph
+from ..graphs.graph import Graph
+from ..graphs.partition import TwoDPartition, default_tile_dim, partition_2d
 from ..models.dlrm import DLRM, interaction_dims, retrieval_scores
+from ..roofline.model import device_hbm_footprint
 
 __all__ = ["DLRMCell", "build_dlrm_cell", "dlrm_model_flops", "dlrm_n_params", "pad_mult",
-           "RETRIEVAL_TOP_K"]
+           "RETRIEVAL_TOP_K", "BCCell", "build_bc_cell", "bc_static_meta", "build_cell"]
 
 RETRIEVAL_TOP_K = 100
 DEV_MULT = 512  # the JAX cells pad the candidate count to this multiple
@@ -134,3 +161,171 @@ def build_dlrm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int 
         model=model,
         static_meta={"n_params": dlrm_n_params(cfg), "model_flops": dlrm_model_flops(cfg, shape)},
     )
+
+
+# --------------------------------------------------------------------- BC
+#: the engines whose per-device footprint a BC cell's meta prices: the
+#: port's names of the JAX cell's "sparse", "pallas" and "pallas_sparse"
+_FOOTPRINT_ENGINES = ("sparse", "fused", "fused_sparse")
+
+
+def bc_static_meta(cfg: BCArch, shape: BCShape, fr: int = 1, R: int = 1, C: int = 1) -> dict:
+    """The BC cell's meta on an fr × R × C grid, from the shapes alone (no
+    graph is made), with the JAX cell's keys and formulas: n = 2^scale,
+    m2 = 2·EF·n arcs, s + k sources a round (k = max(1, s // 2) derived
+    columns), model FLOP 2·(m2/2)·(s + k)·2·fr (one traversed-edge update
+    per column, forward and backward, per replica), the per-device
+    footprint of each engine of :data:`_FOOTPRINT_ENGINES` at
+    max_arcs = 1.5·m2/(R·C) padded to 8 and the default tile (nonzero
+    tiles bounded by one per arc), the autotune cache's report (read
+    only; the path from ``AUTOTUNE_CACHE_JSON``, default
+    ``AUTOTUNE_cache.json``) and the resilience defaults."""
+    n = 1 << shape.scale
+    chunk = -(-n // (R * C))
+    m2 = 2 * shape.edge_factor * n
+    max_arcs = int(1.5 * m2 / (R * C))  # imbalance headroom
+    max_arcs += (-max_arcs) % 8
+    tile = default_tile_dim(chunk)
+    tiles_per_dev = (C * chunk // tile) * (R * chunk // tile)
+    footprints = {
+        kind: device_hbm_footprint(
+            kind, R=R, C=C, chunk=chunk, batch_size=cfg.batch_size,
+            nnz_tiles=min(max_arcs, tiles_per_dev), bm=tile, bk=tile, max_arcs=max_arcs,
+        )["total_bytes"]
+        for kind in _FOOTPRINT_ENGINES
+    }
+    cache_path = os.environ.get("AUTOTUNE_CACHE_JSON", "AUTOTUNE_cache.json")
+    tune_cache = CostCache(cache_path) if os.path.exists(cache_path) else None
+    gkey = graph_key(n, m2, R=R, C=C, fr=fr)
+    s, k = cfg.batch_size, max(1, cfg.batch_size // 2)
+    return {
+        "n_vertices": n,
+        "n_arcs": m2,
+        "sources_per_round": s + k,
+        "model_flops": 2.0 * (m2 / 2) * (s + k) * 2 * fr,
+        "hbm_footprint_bytes": footprints,
+        "tune": {
+            "graph_key": gkey,
+            "modes": list(AUTOTUNE_MODES),
+            "cache_path": cache_path if tune_cache is not None else None,
+            "cached_configs": (
+                len(tune_cache.entries.get(gkey, {})) if tune_cache is not None else 0
+            ),
+        },
+        "resilience": {
+            "max_retries": DEFAULT_MAX_RETRIES,
+            "retry_backoff_s": DEFAULT_RETRY_BACKOFF_S,
+            "checkpoint_generations": DEFAULT_GENERATIONS,
+            "remesh_on_replica_loss": fr > 1,
+            "fault_kinds": list(FAULT_KINDS),
+        },
+    }
+
+
+@dataclasses.dataclass
+class BCCell:
+    """One BC round of a shape on a grid.  ``fn(sources, derived, *,
+    num_levels=cfg.max_levels)`` runs it (``num_levels=None``: the
+    liveness loop) and returns :func:`make_distributed_round_fn`'s outputs
+    (bc f32 [fr, n_pad], ns, roots, levels), gathered to every rank.
+    Without a grid (meta only) ``fn`` and the host state are None."""
+
+    name: str
+    fn: Callable | None
+    static_meta: dict
+    fr: int = 1  #: replicas: rounds a dispatch block
+    schedule: Schedule | None = None
+    residual: Graph | None = None  #: the graph the round traverses
+    omega: np.ndarray | None = None  #: f64 [n] 1-degree weights of the residual
+    partition: TwoDPartition | None = None
+    setup: dict = dataclasses.field(default_factory=dict)  #: host seconds and sizes
+
+    def round_inputs(self, block: int) -> tuple[np.ndarray, np.ndarray]:
+        """(sources i32 [fr, s], derived i32 [fr, k, 3]) of dispatch block
+        ``block``: rounds fr·block … fr·block + fr − 1 of the schedule, a
+        replica each (all padding past the last round)."""
+        fr = self.fr
+        rounds = self.schedule.rounds[fr * block:fr * (block + 1)]
+        s, k = self.schedule.batch_size, self.schedule.derived_per_round
+        sources = np.full((fr, s), -1, np.int32)
+        derived = np.full((fr, k, 3), -1, np.int32)
+        for f, rnd in enumerate(rounds):
+            sources[f], derived[f] = rnd.sources, rnd.derived
+        return sources, derived
+
+
+def build_bc_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups, *, device=None,
+                  seed: int = 0) -> BCCell:
+    """The BC cell of ``shape_name`` on the caller's grid (every rank calls
+    it, as every rank builds the groups): ``rmat_graph(scale, EF, seed)``
+    on the host, its schedule under the arch's heuristics and batch (the
+    residual and ω), ``partition_2d`` of the residual on the grid, and the
+    rank's arc arrays and ω on ``device`` (None: the card; ``"cpu"`` for
+    gloo ranks).  ``setup`` records the host seconds of each step apart
+    (``rmat_s``, ``schedule_s``, ``partition_s``, ``device_s``) and the
+    graph's size."""
+    cfg, shape = bundle.arch, bundle.shapes[shape_name]
+    if not isinstance(cfg, BCArch):
+        raise TypeError(f"not a BC arch: {type(cfg).__name__}")
+    dev = device_for_rank(device)
+    setup = {}
+    t = time.perf_counter()
+    graph = rmat_graph(shape.scale, shape.edge_factor, seed=seed)
+    setup["rmat_s"] = time.perf_counter() - t
+    setup["n"], setup["arcs"] = graph.n, graph.num_arcs
+    t = time.perf_counter()
+    schedule, _, residual, omega = build_schedule(graph, batch_size=cfg.batch_size,
+                                                  heuristics=cfg.heuristics)
+    setup["schedule_s"] = time.perf_counter() - t
+    setup["residual_arcs"], setup["rounds"] = residual.num_arcs, len(schedule.rounds)
+    del graph
+    t = time.perf_counter()
+    part = partition_2d(residual, groups.R, groups.C)
+    setup["partition_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    graph_args = distributed_graph_arrays(part, "sparse", groups.i, groups.j, dev)
+    omega_pad = np.zeros(part.n_pad, np.float32)
+    omega_pad[: residual.n] = omega
+    omega_t = torch.from_numpy(omega_pad).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    setup["device_s"] = time.perf_counter() - t
+    fr, s, k = groups.fr, schedule.batch_size, schedule.derived_per_round
+    round_fns = {}
+
+    def fn(sources, derived, *, num_levels: int | None = cfg.max_levels):
+        sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
+        derived = torch.as_tensor(derived, dtype=torch.int32, device=dev)
+        if tuple(sources.shape) != (fr, s) or tuple(derived.shape) != (fr, k, 3):
+            raise ValueError(f"{cfg.name}:{shape.name}: sources must be [{fr}, {s}] and derived "
+                             f"[{fr}, {k}, 3], got {tuple(sources.shape)} and "
+                             f"{tuple(derived.shape)}")
+        if num_levels not in round_fns:
+            round_fns[num_levels] = make_distributed_round_fn(part, groups,
+                                                              num_levels=num_levels)
+        return round_fns[num_levels](graph_args, omega_t, sources, derived)
+
+    return BCCell(name=f"{cfg.name}:{shape.name}", fn=fn,
+                  static_meta=bc_static_meta(cfg, shape, fr, groups.R, groups.C), fr=fr,
+                  schedule=schedule, residual=residual, omega=omega, partition=part,
+                  setup=setup)
+
+
+def build_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups | None = None, *,
+               grid: tuple[int, int, int] = (1, 1, 1), **kwargs):
+    """The cell of an (arch × shape) pair, the counterpart of the JAX
+    package's ``build_cell``.  DLRM: :func:`build_dlrm_cell` (``kwargs``:
+    device, seed, model).  BC: with ``groups``, the runnable round on that
+    grid (:func:`build_bc_cell`; ``kwargs``: device, seed); without, only
+    the meta on ``grid`` = (fr, R, C), which takes the place of the JAX
+    mesh (:func:`bc_static_meta`; no graph is made)."""
+    arch = bundle.arch
+    if isinstance(arch, DLRMArch):
+        return build_dlrm_cell(bundle, shape_name, **kwargs)
+    if isinstance(arch, BCArch):
+        if groups is not None:
+            return build_bc_cell(bundle, shape_name, groups, **kwargs)
+        shape = bundle.shapes[shape_name]
+        return BCCell(name=f"{arch.name}:{shape.name}", fn=None,
+                      static_meta=bc_static_meta(arch, shape, *grid), fr=grid[0])
+    raise TypeError(f"no cell for arch {type(arch).__name__}")

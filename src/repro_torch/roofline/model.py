@@ -16,6 +16,22 @@ and the level-time model behind ``overlap="auto"``
 data-sheet rates; none of the JAX package's TPU constants is used here.
 The card's memory capacity reaches the guard as an input
 (:func:`repro_torch.core.distributed.check_device_memory`).
+
+The roofline terms of a measured piece of work (:func:`roofline_terms`,
+the JAX package's model, priced with a :class:`HardwareSpec`): per device
+
+    compute    = FLOP / peak_flops
+    memory     = bytes / hbm_bandwidth
+    collective = link bytes / link_bandwidth
+
+where the link bytes weight each collective's operand bytes by the ring
+algorithm (g = group size): all-gather (g−1)·operand (the operand is the
+shard), reduce-scatter and all-to-all (g−1)/g·operand, all-reduce
+2·(g−1)/g·operand, a collective-permute (one ring hop) its operand.  The
+records are those of :class:`repro_torch.roofline.counter.WorkCounter`
+(the JAX package reads them from the compiled HLO).  :func:`ring_steps`
+counts the hops they imply and :func:`ring_latency_s` prices them at the
+per-hop α.
 """
 from __future__ import annotations
 
@@ -26,6 +42,11 @@ import numpy as np
 __all__ = [
     "HardwareSpec",
     "H100",
+    "RooflineTerms",
+    "roofline_terms",
+    "link_bytes",
+    "ring_steps",
+    "ring_latency_s",
     "overlap_step_time",
     "auto_overlap_policy",
     "TILE_OVERHEAD_BYTES",
@@ -51,8 +72,9 @@ class HardwareSpec:
 #: H100 SXM data sheet: f32 FFMA (the exact engines use no tensor cores),
 #: HBM3 3.35 TB/s, NVLink 4 at 450 GB/s a direction.  The per-hop α is an
 #: assumption (an NCCL point-to-point launch and its sync), not a
-#: measurement; where the autotuner has measured walls, the seams read
-#: those instead of this model.
+#: measurement: a one-card machine has no NVLink hop to time, and a gloo
+#: hop on the host says nothing of one.  Where the autotuner has measured
+#: walls, the seams read those instead of this model.
 H100 = HardwareSpec(
     name="h100-sxm",
     peak_flops=67e12,
@@ -60,6 +82,112 @@ H100 = HardwareSpec(
     link_bandwidth=450e9,
     hop_latency_s=10e-6,
 )
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops: float
+    bytes: float
+    link_bytes: float
+    bottleneck: str
+    model_flops_total: float
+    useful_fraction: float  #: model FLOP / (counted FLOP × devices)
+    ring_steps: int = 0  #: ring hops the collectives imply
+    ring_latency_s: float = 0.0  #: α term: ring_steps · per-hop latency
+
+    @property
+    def step_time_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """The dominant term's share of the three summed: 1.0 when one
+        term is all of it, lower the more the others could overlap it."""
+        total = self.compute_s + self.memory_s + self.collective_s
+        return self.step_time_s / total if total > 0 else 0.0
+
+
+def link_bytes(coll_records: list[dict]) -> float:
+    """Bytes the recorded collectives put on one device's links (the ring
+    weights of the module docstring)."""
+    total = 0.0
+    for rec in coll_records:
+        g = max(rec.get("group_size", 1), 1)
+        b = rec["operand_bytes"]
+        cls = rec["class"]
+        if cls == "all-gather":
+            total += (g - 1) * b
+        elif cls in ("reduce-scatter", "all-to-all"):
+            total += (g - 1) / g * b
+        elif cls == "all-reduce":
+            total += 2 * (g - 1) / g * b
+        else:  # collective-permute, broadcast
+            total += b
+    return total
+
+
+def ring_steps(coll_records: list[dict]) -> int:
+    """Ring hops the recorded collectives imply (the α model's step count):
+    a collective over g devices runs a g−1-hop ring (2·(g−1) for an
+    all-reduce: reduce-scatter then all-gather), a collective-permute is
+    one hop.  A record's ``count`` is the collectives it stands for."""
+    total = 0
+    for rec in coll_records:
+        g = max(rec.get("group_size", 1), 1)
+        sites = max(rec.get("count", 1), 1)
+        cls = rec["class"]
+        if cls == "all-reduce":
+            total += sites * 2 * (g - 1)
+        elif cls in ("all-gather", "reduce-scatter", "all-to-all"):
+            total += sites * (g - 1)
+        else:  # collective-permute, broadcast: a single hop each
+            total += sites
+    return total
+
+
+def ring_latency_s(coll_records: list[dict], hw: HardwareSpec = H100) -> float:
+    """α term: the per-hop latency over every implied ring hop."""
+    return ring_steps(coll_records) * hw.hop_latency_s
+
+
+def roofline_terms(
+    terms: dict,
+    n_devices: int,
+    model_flops_total: float = 0.0,
+    hw: HardwareSpec = H100,
+) -> RooflineTerms:
+    """The three terms of one device's ``terms`` (``{"flops", "bytes",
+    "collectives"}``, :meth:`repro_torch.roofline.counter.WorkCounter.terms`)
+    on ``hw``; ``model_flops_total`` over all ``n_devices`` gives the useful
+    fraction."""
+    flops = terms["flops"]
+    mem_bytes = terms["bytes"]
+    colls = terms.get("collectives", [])
+    lb = link_bytes(colls)
+    steps = ring_steps(colls)
+    compute_s = flops / hw.peak_flops
+    memory_s = mem_bytes / hw.hbm_bandwidth
+    collective_s = lb / hw.link_bandwidth
+    times = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    useful = (
+        model_flops_total / (flops * n_devices) if flops > 0 and model_flops_total else 0.0
+    )
+    return RooflineTerms(
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        flops=flops,
+        bytes=mem_bytes,
+        link_bytes=lb,
+        bottleneck=max(times, key=times.get),
+        model_flops_total=model_flops_total,
+        useful_fraction=useful,
+        ring_steps=steps,
+        ring_latency_s=steps * hw.hop_latency_s,
+    )
 
 
 def overlap_step_time(compute_s: float, collective_s: float, k: int) -> float:

@@ -898,3 +898,33 @@ def test_profile_fills_block_times_on_the_card(cuda):
     assert len(res.block_times) == -(-len(schedule.rounds) // 2)
     assert min(res.block_times) > 0 and res.recovery_stats["quarantined_blocks"] == 0
     np.testing.assert_allclose(res.bc, brandes_reference(g), rtol=1e-5, atol=1e-5)
+
+
+def test_bc_cell_round_on_a_1x1_nccl_grid_matches_one_device(nccl_1x1):
+    """The bc-rmat cell at R-MAT scale 12 (the arch's batch 16, h3, 12
+    levels) on the card: its first round, at the static bound and with
+    the liveness loop, against the single-device sparse round of the same
+    residual, ω and inputs (rtol 1e-5 / atol 1e-5), under the work
+    counter (memory-bound, 23 level products of the static round)."""
+    from repro_torch.configs import ArchBundle, BCShape
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline import WorkCounter, roofline_terms
+
+    arch = get_arch("bc-rmat").arch
+    cell = build_cell(ArchBundle(arch, {"s12": BCShape("s12", 12, 16)}), "s12", nccl_1x1, seed=1)
+    sources, derived = cell.round_inputs(0)
+    with WorkCounter() as counter:
+        static = cell.fn(sources, derived)
+    live = cell.fn(sources, derived, num_levels=None)
+    op = pbc.make_operator(cell.residual, "sparse", torch.device("cuda"))
+    omega = torch.from_numpy(cell.omega.astype(np.float32)).cuda()
+    one = pbc.make_round_fn(op, omega)(torch.from_numpy(sources).cuda(),
+                                       torch.from_numpy(derived).cuda())
+    n = cell.residual.n
+    assert static[0].is_cuda and int(live[3][0]) == one[3][0] == int(static[3][0])
+    for got in (static, live):
+        np.testing.assert_allclose(got[0][0, :n].cpu().numpy(), one[0][0].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    assert counter.by_name()["arc_sum"]["calls"] == 2 * arch.max_levels - 1
+    terms = roofline_terms(counter.terms(), 1, cell.static_meta["model_flops"])
+    assert terms.bottleneck == "memory" and terms.collective_s == 0.0

@@ -7,9 +7,8 @@ imports only numpy, torch and the port — never jax or the JAX package.
 Every rank runs the same cases in the same order, as the collectives
 require.
 
-The collective counter wraps ``all_gather_into_tensor``,
-``reduce_scatter_tensor`` and ``batch_isend_irecv`` of
-``torch.distributed`` in this process and files every call under the
+The package's work counter (roofline/counter.py) records every
+collective the level steps issue; :func:`_counted` files each under the
 group it ran on (``column``, ``row`` or ``other``), so a case can show
 which exchanges its level steps made — the counterpart of the JAX
 package's HLO check (tests/test_dist_overlap.py).
@@ -20,7 +19,6 @@ import collections
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import engine
 from repro_torch.core.distributed import (
@@ -34,60 +32,28 @@ from repro_torch.core.operators import (
     TraversalOperator,
 )
 from repro_torch.graphs.partition import partition_2d
+from repro_torch.roofline.counter import WorkCounter
 
 S = 8  # sources of an operator-state case (tests/test_dist_overlap.py)
 
 
-class CollectiveCounter:
-    """Counts the frontier collectives and hops per group while active."""
-
-    NAMES = {"all_gather_into_tensor": "gather", "reduce_scatter_tensor": "reduce_scatter",
-             "batch_isend_irecv": "hops"}
-
-    def __init__(self, groups):
-        self.groups = groups
-        self.counts = collections.Counter()
-        self.active = False
-        for fn_name, kind in self.NAMES.items():
-            setattr(dist, fn_name, self._wrap(getattr(dist, fn_name), kind))
-
-    def _where(self, group) -> str:
-        for name in ("column", "row"):
-            if group is getattr(self.groups, name):
-                return name
-        return "other"
-
-    def _wrap(self, fn, kind):
-        def counted(*args, **kwargs):
-            if self.active:
-                if kind == "hops":
-                    group = args[0][0].group
-                else:
-                    group = kwargs.get("group")
-                self.counts[(self._where(group), kind)] += 1
-            return fn(*args, **kwargs)
-
-        return counted
-
-    def run(self, fn):
-        """``fn()`` with counting on; returns (its result, the counts)."""
-        self.counts.clear()
-        self.active = True
-        try:
-            out = fn()
-        finally:
-            self.active = False
-        return out, {f"{g}/{k}": n for (g, k), n in self.counts.items()}
+#: the counter's collective classes, by the names the ring tests read
+KINDS = {"all-gather": "gather", "reduce-scatter": "reduce_scatter",
+         "collective-permute": "hops", "all-reduce": "all_reduce"}
 
 
-_COUNTER: CollectiveCounter | None = None
-
-
-def _counter(groups) -> CollectiveCounter:
-    global _COUNTER
-    if _COUNTER is None or _COUNTER.groups is not groups:
-        _COUNTER = CollectiveCounter(groups)
-    return _COUNTER
+def _counted(groups, fn):
+    """``fn()`` under the package's :class:`WorkCounter`; returns (its
+    result, the collectives it issued per group and kind — ``column``,
+    ``row`` or ``other``; a ring hop is one record, whatever it sends)."""
+    with WorkCounter() as counter:
+        out = fn()
+    counts = collections.Counter()
+    for rec in counter.records:
+        where = next((name for name in ("column", "row")
+                      if rec["group"] is getattr(groups, name)), "other")
+        counts[f"{where}/{KINDS[rec['class']]}"] += 1
+    return out, dict(counts)
 
 
 def _state(groups, graph, engine_kind, overlap):
@@ -121,7 +87,7 @@ def _state(groups, graph, engine_kind, overlap):
         delta = engine.backward_accumulation(op, fwd.sigma, fwd.depth, omega, fwd.max_depth)
         return fwd.sigma, fwd.depth, delta
 
-    (sigma, depth, delta), counts = _counter(groups).run(traverse)
+    (sigma, depth, delta), counts = _counted(groups, traverse)
     n = graph.n
     state = tuple(groups.gather_vertices(x)[0, :n].numpy() for x in (sigma, depth, delta))
     return state + (counts, levels["forward_level"] + levels["backward_level"])
