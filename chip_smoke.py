@@ -7,13 +7,14 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 3–5, 8, 10–15, 6, 7: phase 9
-first, while nothing else holds device memory, because its tables take
-65 GiB; phases 8 and 10–15 share phase 5's NCCL process
-group, and phase 7's kernel table carries phase 8's, 10's, 12's and 14's
-launches, K7's times, which phase 9 takes on its tables, and the
-acc-mode chains that phase 12 (b) times; a kernel's launches count its
-plain and its acc mode):
+Phases (run in the order 1, 2, 9, 16, 3–5, 8, 10–15, 6, 7: phases 9
+and 16 first, while nothing else holds device memory, because their
+tables and train state take 65 and 52 GiB; phases 8 and 10–15 share
+phase 5's NCCL process group, and phase 7's kernel table carries phase
+8's, 10's, 12's and 14's launches, K7's times, which phase 9 takes on
+its tables, phase 16's train launches of K7, and the acc-mode chains
+that phase 12 (b) times; a kernel's launches count its plain and its acc
+mode):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
@@ -228,6 +229,35 @@ plain and its acc mode):
      finding); the memory guard refusing
      fused and fused_sparse with the priced GiB; rmat_s25_ef16's meta, no
      graph made.
+ 16. DLRM training on one card, after phase 9 has freed its tables (less
+     than 1 GiB allocated, checked): dlrm-rm2 at every width and the
+     train_batch shape (B = 65 536) with 2^21 rows a table (params,
+     grads, μ and ν 4 × 13.0 GiB: the published 10 485 760 rows would
+     need 260 GiB), seed 0, ClickLogStream batches: (a) one batch's loss
+     and every gradient through K7's autograd Function (K7 forward, the
+     order-fixed float64 sum backward) and through the plain version's
+     autograd: the table gradient of each within rtol 1e-5 plus, per
+     entry, (n − 1)·2^-24·Σ|t| of its n lookups (the bound of any f32
+     summation order, which cancellation does not shrink) of the float64
+     sum of the same upstream rows, zero in every row no bag reads; the
+     MLP gradients of the two paths within rtol 1e-5 / atol 1e-6; two
+     backward passes bitwise equal (params and grads only, no optimizer
+     state); (b) 20 steps of ``build_cell(bundle, "train_batch")``
+     (AdamW, batches from the port's Prefetcher): K7 launched once a
+     step, a finite loss whose mean over the last 5 steps is below the
+     first 5's; step ms (median of CUDA events around the step), the
+     optimizer pass's ms (events around its step), examples/s, peak
+     memory beside the reckoned ~56 GiB, and one step under
+     torch.profiler (K7, the backward's sort and segment sums, GEMMs and
+     the elementwise kernels); (c) at 2^16 rows, 6 steps straight against
+     3 steps, a save through CheckpointManager(async_writes=True) into a
+     temporary directory (removed), a restore into a cell of other
+     weights and 3 more steps: params bitwise equal; the save's ms and
+     MB; (d) adamw, adafactor and sgd_momentum under cosine_with_warmup,
+     5 steps of identical gradients on a [3, 257, 130] stacked leaf, a
+     matrix and a vector, on the card against the CPU (rtol 1e-6 / atol
+     1e-7).  Every part prints the card's name and power limit, and the
+     phase its wall.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -771,6 +801,280 @@ def dlrm_phase(dev, trace_run) -> list[dict]:
     check(torch.cuda.memory_allocated() < 2 * GIB, "[9] the tables were not released")
     print(f"[9] DLRM serving ok in {time.perf_counter() - t9:.1f}s")
     return entries
+
+
+# phase 16: DLRM training on the card
+TRAIN_ROWS = 1 << 21  # rows per table of the train cell: 4 x 13.0 GiB of state fit one card
+RESUME_ROWS = 1 << 16  # (c)'s rows: 1.3 GB of state on disk
+TRAIN_STEPS, RESUME_STEPS = 20, 6
+TRAIN_PEAK_GIB = 56.0  # reckoned: params, grads, μ, ν 52.0 GiB + activations and temporaries
+OPT_PARITY_STEPS = 5
+
+
+def grad_bound(grad_out: torch.Tensor, bags: torch.Tensor, uniq: torch.Tensor,
+               inv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the float64 table gradient at the rows ``uniq`` that the bags
+    read, each entry's (n - 1)·2^-24·Σ|t|): the sum of the f32 upstream
+    rows ``grad_out[b]`` over each row's n lookups in float64, and the
+    worst-case rounding of any float32 summation order of those n terms
+    (cancellation does not shrink it).  L = 1: lookup i is bag i."""
+    d = grad_out.shape[1]
+    g64 = grad_out[bags.reshape(-1) >= 0].double()
+    want = torch.zeros((uniq.numel(), d), dtype=torch.float64, device=g64.device)
+    want.index_add_(0, inv, g64)
+    scale = torch.zeros_like(want).index_add_(0, inv, g64.abs())
+    terms = torch.bincount(inv, minlength=uniq.numel()).double()
+    return want, (terms - 1).clamp(min=0)[:, None] * 2.0**-24 * scale
+
+
+def train_phase(dev, trace_run, smi: str) -> int:
+    """Phase 16: DLRM training on one card (dlrm-rm2 at every width with
+    TRAIN_ROWS rows a table): (a) K7's gradient at full width, (b) the
+    train cell, (c) an exact resume at RESUME_ROWS rows, (d) the
+    optimizers on the card against the CPU.  Returns (b)'s K7 launches."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ArchBundle, get_arch
+    from repro_torch.data import ClickLogStream, Prefetcher
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import DLRM, dlrm_loss
+
+    t16 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    check(live < GIB, f"[16] {live / GIB:.2f} GiB allocated before the train phase")
+    rm2 = get_arch("dlrm-rm2")
+    shape = rm2.shapes["train_batch"]
+    cfg = dataclasses.replace(rm2.arch, rows_per_table=TRAIN_ROWS)
+    f, d, b = cfg.n_sparse, cfg.embed_dim, shape.batch
+    print(f"[16] {smi}; dlrm-rm2 train_batch at every width (B = {b}), rows per table "
+          f"{TRAIN_ROWS} of {rm2.arch.rows_per_table}: state 4 x {f * TRAIN_ROWS * d * 4 / GIB:.2f}"
+          f" GiB ({live / GIB:.2f} GiB allocated before)")
+    batch0 = ClickLogStream(cfg, b, seed=0).batch_at(0)
+
+    # ---- (a) K7's gradient at full width: the Function against the plain
+    # version's autograd and a float64 sum of the same upstream rows
+    t = time.perf_counter()
+    model = DLRM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch0.items()}
+    captured = []
+    kernel_bag = ops.segment_bag
+
+    def capturing(table, indices, weights=None):
+        out = kernel_bag(table, indices, weights)
+        out.register_hook(captured.append)
+        return out
+
+    def grads_of(lookup) -> tuple[float, dict]:
+        model.zero_grad(set_to_none=True)
+        ops.segment_bag = lookup
+        try:
+            loss, _ = dlrm_loss(model, tb)
+            loss.backward()
+        finally:
+            ops.segment_bag = kernel_bag
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+    ops.reset_launches()
+    loss_k7, g_k7 = grads_of(capturing)
+    check(ops.LAUNCHES["segment_bag"] == 1, "[16] (a) the forward did not launch K7 once")
+    _, again = grads_of(kernel_bag)
+    same = all(torch.equal(g_k7[n], again[n]) for n in g_k7)
+    del again
+    check(same, "[16] (a) two backward passes through K7's Function differ")
+    loss_plain, g_plain = grads_of(lambda tbl, idx, w=None: ref.segment_bag_ref(tbl, idx, w))
+    check(loss_plain == loss_k7, f"[16] (a) loss {loss_k7} through K7, {loss_plain} plain")
+    bags = flat_bags(tb["sparse"], cfg.rows_per_table)
+    ids = bags[bags >= 0].long()
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    want, bound = grad_bound(captured[0], bags, uniq, inv)
+
+    def table_grad_check(tag: str, grad: torch.Tensor) -> None:
+        flat = grad.view(-1, d)
+        got = flat[uniq].double()
+        diff = (got - want).abs()
+        allowed = 1e-5 * want.abs() + bound
+        nonzero_elsewhere = int(torch.count_nonzero(flat)) - int(torch.count_nonzero(got))
+        err = float(diff.max())
+        check(bool((diff <= allowed).all()) and nonzero_elsewhere == 0,
+              f"[16] (a) {tag}: table gradient off the float64 sum (max err {err:.3g}) "
+              f"or {nonzero_elsewhere} nonzero entries in rows no bag reads")
+        print(f"[16] (a) {tag}: table gradient at the {uniq.numel()} rows read (of "
+              f"{f * cfg.rows_per_table}) vs the float64 sum of the same upstream rows: max abs "
+              f"err {err:.3g}, max err / (1e-5·|want| + bound) "
+              f"{float((diff / allowed.clamp(min=1e-30)).max()):.3g}; every other row exactly 0")
+
+    table_grad_check("K7 Function", g_k7["tables"])
+    table_grad_check("plain autograd", g_plain["tables"])
+    worst_mlp = 0.0
+    for name in g_k7:
+        if name == "tables":
+            continue
+        ok, err = close(g_k7[name], g_plain[name], 1e-5, 1e-6)
+        check(ok, f"[16] (a) the {name} gradients of the two paths differ: {err:.3g}")
+        worst_mlp = max(worst_mlp, err)
+    hot = int(torch.bincount(inv).max())
+    print(f"[16] (a) loss {loss_k7:.6f} both paths; MLP gradients K7 path vs plain: max err "
+          f"{worst_mlp:.3g} (rtol 1e-5 / atol 1e-6); two backward passes bitwise equal; the "
+          f"table's rtol 1e-5 with an atol per entry of (n - 1)·2^-24·Σ|t| over its n lookups "
+          f"(the bound of any f32 summation order; the hottest row takes {hot} lookups, whose "
+          f"terms cancel); {time.perf_counter() - t:.1f}s")
+    del model, g_k7, g_plain, tb, captured, want, bound, uniq, inv, ids, bags
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    check(live < GIB, f"[16] (a) left {live / GIB:.2f} GiB allocated")
+
+    # ---- (b) the train cell, TRAIN_STEPS steps
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cell = build_cell(ArchBundle(cfg, {shape.name: shape}), shape.name, device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[16] (b) {cell.name} built in {time.perf_counter() - t:.2f}s (params and AdamW "
+          f"state zero: {torch.cuda.memory_allocated() / GIB:.2f} GiB), "
+          f"n_params {cell.static_meta['n_params']}, {cell.static_meta['model_flops'] / 1e9:.1f} "
+          f"GFLOP a step of MLP+interaction")
+    inner_step, opt_events = cell.optimizer.step, []
+
+    def timed_step(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner_step(*args, **kwargs)
+        ev[1].record()
+        opt_events.append(ev)
+        return out
+
+    cell.optimizer.step = timed_step
+    stream = ClickLogStream(cfg, b, seed=0)
+    pf = Prefetcher(stream.batch_at, depth=2)
+    losses, step_ms, wall = [], [], []
+    ops.reset_launches()
+    try:
+        for step in range(TRAIN_STEPS):
+            got_step, batch = pf.get()
+            check(got_step == step, f"[16] (b) the prefetcher gave step {got_step} for {step}")
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev[0].record()
+            out = cell.fn(batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(out["loss"]))
+    finally:
+        pf.close()
+    k7_train = ops.LAUNCHES["segment_bag"]
+    peak = torch.cuda.max_memory_allocated()
+    opt_ms = [s.elapsed_time(e) for s, e in opt_events]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"[16] (b) {smi}: {TRAIN_STEPS} steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
+    med = float(np.median(step_ms))
+    print(f"[16] (b) step {med:.3f} ms median (CUDA events; min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}; host wall median {1e3 * float(np.median(wall)):.3f} ms), "
+          f"{b / (med / 1e3):.0f} examples/s; optimizer pass {float(np.median(opt_ms)):.3f} ms "
+          f"median ({100 * float(np.median(opt_ms)) / med:.1f}% of a step); peak "
+          f"{peak / GIB:.2f} GiB against the reckoned {TRAIN_PEAK_GIB:.0f} GiB; K7 launched "
+          f"{k7_train} times; mean loss of steps 1-5 {first:.5f}, of steps "
+          f"{TRAIN_STEPS - 4}-{TRAIN_STEPS} {last:.5f}")
+    check(k7_train == TRAIN_STEPS, f"[16] (b) K7 launched {k7_train} times in {TRAIN_STEPS} steps")
+    check(all(np.isfinite(losses)) and last < first, "[16] (b) the loss is not finite or did "
+          "not fall")
+    tbatch = stream.batch_at(TRAIN_STEPS)
+    trace_run("[16] (b) one train step", lambda: cell.fn(tbatch),
+              {"K7": "segment_bag", "backward sort": ("Sort",), "backward segment sum":
+               "segment_reduce", "GEMM (MLPs, bmm)": "gemm", "elementwise (optimizer, "
+               "activations, zeroing)": "elementwise"})
+    del cell.optimizer.step  # the wrapper, which holds the optimizer: no cycle left
+    del cell, inner_step, timed_step, out
+    torch.cuda.empty_cache()
+
+    # ---- (c) exact resume at RESUME_ROWS rows
+    rcfg = dataclasses.replace(cfg, rows_per_table=RESUME_ROWS)
+    rbundle = ArchBundle(rcfg, {shape.name: shape})
+    rstream = ClickLogStream(rcfg, b, seed=0)
+    rbatches = [rstream.batch_at(step) for step in range(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+    straight = build_cell(rbundle, shape.name, device=dev, seed=0)
+    for batch in rbatches:
+        straight.fn(batch)
+    want = {k: v.detach().clone() for k, v in straight.train_state()["params"].items()}
+    del straight
+    root = tempfile.mkdtemp(prefix="train_resume_")
+    try:
+        first_leg = build_cell(rbundle, shape.name, device=dev, seed=0)
+        for batch in rbatches[:half]:
+            first_leg.fn(batch)
+        mgr = CheckpointManager(root, keep_last=1, save_every=1, async_writes=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        check(mgr.maybe_save(half - 1, first_leg.train_state(), {"stream_step": half}),
+              "[16] (c) no checkpoint written")
+        save_ms = (time.perf_counter() - t) * 1e3
+        mb = sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(root)
+                 for fn in fns) / 1e6
+        del first_leg
+        resumed = build_cell(rbundle, shape.name, device=dev, seed=1)  # other weights
+        t = time.perf_counter()
+        state, meta, start = mgr.restore_or_init(resumed.train_state())
+        resumed.load_train_state(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        mgr.ckpt.close()
+        check(start == half and meta == {"stream_step": half}, f"[16] (c) resumed at {start}")
+        for batch in rbatches[start:]:
+            resumed.fn(batch)
+        got = {k: v.detach() for k, v in resumed.train_state()["params"].items()}
+        bitwise = all(torch.equal(got[k], want[k]) for k in want)
+        worst = max(close(got[k], want[k], 0.0, 0.0)[1] for k in want)
+        check(bitwise, f"[16] (c) the resumed params differ from the straight run's: {worst:.3g}")
+        print(f"[16] (c) {smi}: {RESUME_STEPS} steps straight vs {half} + save + restore into "
+              f"a cell of other weights + {RESUME_STEPS - half} at {RESUME_ROWS} rows: params "
+              f"bitwise equal; save {save_ms:.1f} ms through CheckpointManager(async_writes=True)"
+              f" ({mb:.1f} MB on disk: host copy, sha1, npz, commit), restore {restore_s:.2f}s")
+        del resumed, state, got, want
+    finally:
+        shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    # ---- (d) the optimizers on the card against the CPU, identical gradients
+    rng = np.random.default_rng(16)
+    shapes = {"stack": (3, 257, 130), "w": (33, 17), "b": (17,)}
+    init = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (2.0 * rng.standard_normal(s)).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(OPT_PARITY_STEPS)]
+    for name in ("adamw", "adafactor", "sgd_momentum"):
+        runs = {}
+        for where in ("cpu", dev):
+            params = {k: torch.nn.Parameter(torch.tensor(v, device=where))
+                      for k, v in init.items()}
+            opt = getattr(optim, name)(list(params.values()),
+                                       lr=optim.cosine_with_warmup(1e-2, 2, OPT_PARITY_STEPS))
+            for g in grads:
+                for k, p in params.items():
+                    p.grad = torch.tensor(g[k], device=where)
+                opt.step()
+            runs[str(where)] = (params, opt)
+        (cpu_p, cpu_o), (gpu_p, gpu_o) = runs["cpu"], runs[str(dev)]
+        worst = 0.0
+        for k in shapes:
+            pairs = [(gpu_p[k].detach(), cpu_p[k].detach())]
+            pairs += [(gpu_o.state[gpu_p[k]][s], cpu_o.state[cpu_p[k]][s])
+                      for s in cpu_o.state[cpu_p[k]] if s != "step"]
+            for g_t, c_t in pairs:
+                ok, err = close(g_t.cpu(), c_t, 1e-6, 1e-7)
+                check(ok, f"[16] (d) {name}: the card's {k} differs from the CPU's: {err:.3g}")
+                worst = max(worst, err)
+        print(f"[16] (d) {name}, cosine_with_warmup, {OPT_PARITY_STEPS} steps ([3, 257, 130] "
+              f"stacked leaf, [33, 17], [17]): card vs CPU max err {worst:.3g} (rtol 1e-6 / "
+              f"atol 1e-7)")
+    torch.cuda.empty_cache()
+    print(f"[16] DLRM training ok in {time.perf_counter() - t16:.1f}s")
+    return k7_train
 
 
 # phase 10: durable, self-checking and served BC on phase 4's graph
@@ -2243,6 +2547,12 @@ def main() -> None:
     # ------------------- 9. DLRM-RM2 serving at full width (and K7's times)
     # first, while nothing else holds memory: the tables take 65 GiB
     k7_entries = dlrm_phase(dev, trace_run)
+
+    # ------------------------------------- 16. DLRM training on the card
+    # next, while nothing else holds memory: its state takes 52 GiB
+    k7_train = train_phase(dev, trace_run, smi)
+    for entry in k7_entries:
+        entry["launches"] += k7_train
 
     # --------------------------------------------------- 3. kernel parity
     t3 = time.perf_counter()

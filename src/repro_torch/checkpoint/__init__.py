@@ -1,4 +1,5 @@
-"""Durable state of the BC round loop: the round snapshot."""
-from .checkpointer import DEFAULT_GENERATIONS, BCCheckpoint
+"""Durable state: training-state checkpoints (``Checkpointer``,
+``CheckpointManager``) and the BC round snapshot."""
+from .checkpointer import DEFAULT_GENERATIONS, BCCheckpoint, CheckpointManager, Checkpointer
 
-__all__ = ["BCCheckpoint", "DEFAULT_GENERATIONS"]
+__all__ = ["Checkpointer", "CheckpointManager", "BCCheckpoint", "DEFAULT_GENERATIONS"]

@@ -1,11 +1,27 @@
-"""The BC round snapshot: the driver's (partial BC, n_s bookkeeping,
-committed rounds) triple, one atomic npz per run, with the committed set
-namespaced per replica ledger.
+"""Durable state: checkpoints of state trees, and the BC round snapshot.
 
-The file format is the JAX package's byte for byte (the same npz keys,
-the same sha1 manifest, the same generation rotation), so a snapshot
-written by one package resumes in the other.  numpy and the standard
-library only.
+Two checkpoint families live here, each in the JAX package's file format
+byte for byte, so that a checkpoint written by one package resumes in
+the other:
+
+* :class:`Checkpointer` / :class:`CheckpointManager` — nested dicts of
+  tensors (a training state: parameters and optimizer state), one
+  directory per step:
+
+      <root>/step_00000100/
+          manifest.json      — leaves (key, shape, dtype, logical dtype,
+                               sha1), the tree's keys, user metadata
+          shard_p0.npz       — every leaf as a host array
+          COMMITTED          — the marker, written last
+
+  A leaf's key is its path of dict keys joined with ``/`` (the JAX
+  package's key of the same leaf of the same tree).  The directory is
+  written as ``.tmp`` and renamed, so a torn write never becomes a
+  resume point; restore validates keys, shapes and hashes.
+
+* :class:`BCCheckpoint` — the BC driver's (partial BC, n_s bookkeeping,
+  committed rounds) triple, one atomic npz per run, with the committed
+  set namespaced per replica ledger.
 """
 from __future__ import annotations
 
@@ -13,18 +29,237 @@ import hashlib
 import json
 import logging
 import os
+import queue
+import re
+import shutil
+import threading
+from typing import Any
 
 import numpy as np
+import torch
 
-__all__ = ["BCCheckpoint", "DEFAULT_GENERATIONS"]
+__all__ = ["Checkpointer", "CheckpointManager", "BCCheckpoint", "DEFAULT_GENERATIONS"]
 
 log = logging.getLogger(__name__)
+
+_COMMIT = "COMMITTED"
 
 #: BC snapshot generations kept on disk (newest at ``path``, older at
 #: ``path.g1``, ``path.g2``, …).  3 balances torn-write survival — one
 #: torn newest + one bit-rotted older still leaves an intact resume
 #: point — against disk for large-graph partial BC arrays.
 DEFAULT_GENERATIONS = 3
+
+
+def _flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """(key, leaf) pairs of a nested dict, keys joined with ``/``."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _flatten(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _unflatten_like(like: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
+    if isinstance(like, dict):
+        return {k: _unflatten_like(v, leaves, f"{prefix}{k}/") for k, v in like.items()}
+    return leaves[prefix[:-1]]
+
+
+def _host_copy(leaf: Any) -> tuple[np.ndarray, str]:
+    """(a host array this checkpoint owns, the leaf's logical dtype).  A
+    tensor is copied off its device, or cloned on the CPU (whose
+    ``.numpy()`` would share the storage the optimizer keeps updating);
+    bfloat16, which npz cannot store, as its raw uint16 bits."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf, copy=True)
+    return arr, str(arr.dtype)
+
+
+def _sha1(arr: np.ndarray) -> str:
+    return hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _to_tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
+    if logical == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if logical != str(arr.dtype):
+        raise ValueError(f"cannot restore a {logical} leaf stored as {arr.dtype}")
+    return torch.from_numpy(arr)
+
+
+class Checkpointer:
+    """Save/restore nested dicts of tensors; optionally asynchronous.
+
+    ``save`` copies every leaf to host memory of its own before it
+    returns (a device tensor is fetched, a CPU tensor cloned), so the
+    caller may go on updating the state in place while an asynchronous
+    write drains.  ``restore`` returns CPU tensors in the structure of
+    ``like``."""
+
+    def __init__(self, root: str, async_writes: bool = False):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._async = async_writes
+        self._queue: queue.Queue | None = None
+        self._worker: threading.Thread | None = None
+        self._errors: list[Exception] = []
+        if async_writes:
+            self._queue = queue.Queue()
+            self._worker = threading.Thread(target=self._drain, daemon=True)
+            self._worker.start()
+
+    # ------------------------------------------------------------- write
+    def _drain(self):
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            try:
+                self._write(*item)
+            except Exception as e:  # surfaced on wait()
+                self._errors.append(e)
+            finally:
+                self._queue.task_done()
+
+    def step_dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:08d}")
+
+    def save(self, step: int, state: Any, metadata: dict | None = None) -> str:
+        """Snapshot ``state`` (host copies first, so the caller can keep
+        training while an async write drains)."""
+        leaves = _flatten(state)
+        host = [(key, *_host_copy(leaf)) for key, leaf in leaves]
+        treedef = "nested dict: " + ", ".join(key for key, _ in leaves)
+        if self._async:
+            self._queue.put((step, host, treedef, metadata or {}))
+        else:
+            self._write(step, host, treedef, metadata or {})
+        return self.step_dir(step)
+
+    def _write(self, step, host_leaves, treedef_str, metadata):
+        d = self.step_dir(step)
+        tmp = d + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        arrays = {}
+        entries = []
+        for key, arr, logical_dtype in host_leaves:
+            arrays[key] = arr
+            entries.append({
+                "key": key,
+                "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                "logical_dtype": logical_dtype,
+                "sha1": _sha1(arr),
+            })
+        np.savez(os.path.join(tmp, "shard_p0.npz"), **arrays)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "treedef": treedef_str, "leaves": entries,
+                       "metadata": metadata}, f, indent=1)
+        with open(os.path.join(tmp, _COMMIT), "w") as f:
+            f.write("ok")
+        if os.path.exists(d):
+            shutil.rmtree(d)
+        os.replace(tmp, d)
+
+    def wait(self) -> None:
+        """Block until pending async writes land (re-raises failures)."""
+        if self._queue is not None:
+            self._queue.join()
+        if self._errors:
+            raise self._errors[0]
+
+    def close(self) -> None:
+        """Shut the worker down even when a queued write failed: wait()
+        re-raises the write error, so the sentinel/join must run on the
+        way out or the writer thread leaks past close()."""
+        if self._queue is None:
+            return
+        try:
+            self.wait()
+        finally:
+            self._queue.put(None)
+            self._worker.join()
+
+    # -------------------------------------------------------------- read
+    def available_steps(self) -> list[int]:
+        steps = []
+        if not os.path.isdir(self.root):
+            return steps
+        for name in os.listdir(self.root):
+            m = re.fullmatch(r"step_(\d+)", name)
+            if m and os.path.exists(os.path.join(self.root, name, _COMMIT)):
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def restore(self, like: Any, step: int | None = None) -> tuple[Any, dict]:
+        """Restore into the structure of ``like`` (validates keys, shapes
+        and hashes): (state of CPU tensors, metadata)."""
+        steps = self.available_steps()
+        if not steps:
+            raise FileNotFoundError(f"no committed checkpoints under {self.root}")
+        step = steps[-1] if step is None else step
+        d = self.step_dir(step)
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(d, "shard_p0.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        by_key = {e["key"]: e for e in manifest["leaves"]}
+        for key, arr in arrays.items():
+            if by_key[key]["sha1"] != _sha1(arr):
+                raise IOError(f"checkpoint corruption in {key} at step {step}")
+        restored = {}
+        for key, leaf in _flatten(like):
+            if key not in arrays:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arr = arrays[key]
+            t = _to_tensor(arr, by_key[key].get("logical_dtype", by_key[key]["dtype"]))
+            want_shape = tuple(getattr(leaf, "shape", t.shape))
+            if tuple(t.shape) != want_shape:
+                raise ValueError(f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs "
+                                 f"{want_shape}")
+            restored[key] = t
+        return _unflatten_like(like, restored), manifest["metadata"]
+
+
+class CheckpointManager:
+    """Retention + auto-resume policy on top of Checkpointer."""
+
+    def __init__(self, root: str, keep_last: int = 3, save_every: int = 100,
+                 async_writes: bool = False):
+        self.ckpt = Checkpointer(root, async_writes=async_writes)
+        self.keep_last = keep_last
+        self.save_every = save_every
+
+    def maybe_save(self, step: int, state: Any, metadata: dict | None = None) -> bool:
+        if step % self.save_every != 0:
+            return False
+        self.ckpt.save(step, state, metadata)
+        self.ckpt.wait()
+        self._gc()
+        return True
+
+    def _gc(self) -> None:
+        steps = self.ckpt.available_steps()
+        for s in steps[: -self.keep_last]:
+            shutil.rmtree(self.ckpt.step_dir(s))
+
+    def latest_step(self) -> int | None:
+        steps = self.ckpt.available_steps()
+        return steps[-1] if steps else None
+
+    def restore_or_init(self, init_state: Any) -> tuple[Any, dict, int]:
+        """(state, metadata, start_step) — exact resume when possible."""
+        step = self.latest_step()
+        if step is None:
+            return init_state, {}, 0
+        state, meta = self.ckpt.restore(init_state, step)
+        return state, meta, step + 1
 
 
 class BCCheckpoint:

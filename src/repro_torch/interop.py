@@ -22,11 +22,22 @@ parameter dict as numpy arrays and gives the port's module state::
 
     model.load_state_dict(dlrm_params_from_arrays(
         {k: np.asarray(v) for k, v in jax_params.items()}))
+
+and :func:`dlrm_params_to_jax` goes the other way: the JAX package's
+dict (its keys, its [in, out] weights) as views of the port's
+parameters.  A train state carries the optimizer's too:
+:func:`optimizer_state_to_jax` gives the reference's ``AdamWState`` /
+``AdafactorState`` / ``SGDState`` fields (``step``, then ``mu`` / ``nu``,
+``vr`` / ``vc`` or ``momentum`` keyed like the parameters) as views of
+the port optimizer's state, :func:`optimizer_state_from_jax` copies such
+a tree in, and :func:`assign_jax_layout` copies any tree of values into
+a tree of such views.  The views are what a checkpoint of the port's
+train state holds, so that either package restores the other's.
 """
 from __future__ import annotations
 
 import re
-from collections.abc import Sequence
+from collections.abc import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -34,12 +45,17 @@ import torch
 from .core.scheduler import Round, Schedule
 from .graphs.graph import Graph
 from .graphs.partition import TwoDPartition
+from .optim.optimizers import Adafactor, AdamW, SGDMomentum
 
 __all__ = [
     "graph_from_arrays",
     "schedule_from_arrays",
     "partition_from_arrays",
     "dlrm_params_from_arrays",
+    "dlrm_params_to_jax",
+    "optimizer_state_to_jax",
+    "optimizer_state_from_jax",
+    "assign_jax_layout",
 ]
 
 
@@ -160,3 +176,98 @@ def dlrm_params_from_arrays(params: dict[str, np.ndarray]) -> dict[str, torch.Te
         else:
             state[f"{tag}.{i}.bias"] = torch.tensor(arr)
     return state
+
+
+_PORT_MLP_KEY = re.compile(r"(bot|top)\.(\d+)\.(weight|bias)")
+
+
+def _jax_key(name: str) -> tuple[str, bool]:
+    """(the JAX package's key of the port's DLRM parameter ``name``,
+    whether the port holds it transposed)."""
+    if name == "tables":
+        return name, False
+    match = _PORT_MLP_KEY.fullmatch(name)
+    if match is None:
+        raise ValueError(f"unknown DLRM parameter {name!r}")
+    tag, i, kind = match.groups()
+    return (f"{tag}_w{i}", True) if kind == "weight" else (f"{tag}_b{i}", False)
+
+
+def dlrm_params_to_jax(named: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The JAX package's DLRM parameter dict from the port's parameters
+    (``dict(model.named_parameters())`` or a state dict): ``tables`` and
+    ``{bot,top}_{w,b}{i}``, each weight as the [in, out] view ``W.T`` of
+    the port's [out, in] one (a view: no copy; ``np.asarray`` of a CPU
+    view gives the reference's array)."""
+    out = {}
+    for name, t in named.items():
+        key, transposed = _jax_key(name)
+        out[key] = t.T if transposed else t
+    return out
+
+
+#: the reference's optimizer state fields, per port optimizer
+_SLOTS = {AdamW: ("mu", "nu"), Adafactor: ("vr", "vc"), SGDMomentum: ("momentum",)}
+
+
+def _slots(opt) -> tuple[str, ...]:
+    if type(opt) not in _SLOTS:
+        raise TypeError(f"no JAX layout for the state of {type(opt).__name__}")
+    return _SLOTS[type(opt)]
+
+
+def optimizer_state_to_jax(opt, named: Mapping[str, torch.Tensor]) -> dict:
+    """The reference's optimizer state of the DLRM parameters ``named``
+    (port name -> parameter of ``opt``): ``{"step": i32 0-d, <field>:
+    {jax key: view}}``.  Elementwise fields of a transposed weight are
+    transposed views; Adafactor's ``vr`` / ``vc`` of one are swapped
+    (the port's row statistics of [out, in] are the reference's column
+    statistics of [in, out]).  Every parameter must have taken the same
+    number of steps: the reference keeps one step."""
+    slots = _slots(opt)
+    steps = {opt.state[p]["step"] for p in named.values()}
+    if len(steps) != 1:
+        raise ValueError(f"the parameters took different numbers of steps: {sorted(steps)}")
+    tree = {"step": torch.tensor(steps.pop(), dtype=torch.int32)}
+    tree.update({slot: {} for slot in slots})
+    swap = {"vr": "vc", "vc": "vr"}
+    for name, p in named.items():
+        key, transposed = _jax_key(name)
+        state = opt.state[p]
+        for slot in slots:
+            if not transposed:
+                tree[slot][key] = state[slot]
+            elif isinstance(opt, Adafactor):
+                tree[slot][key] = state[swap[slot]]
+            else:
+                tree[slot][key] = state[slot].T
+    return tree
+
+
+def assign_jax_layout(views, values) -> None:
+    """Copy ``values`` (numpy arrays or tensors, a nested dict like
+    ``views``) into the tensors of ``views`` (views of the port's state,
+    as :func:`dlrm_params_to_jax` and :func:`optimizer_state_to_jax` give
+    them), in place, shapes checked."""
+    if isinstance(views, dict):
+        for key, view in views.items():
+            assign_jax_layout(view, values[key])
+        return
+    src = values if isinstance(values, torch.Tensor) else torch.tensor(np.asarray(values))
+    if tuple(src.shape) != tuple(views.shape):
+        raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(views.shape)}")
+    with torch.no_grad():
+        views.copy_(src)
+
+
+def optimizer_state_from_jax(opt, named: Mapping[str, torch.Tensor], tree) -> None:
+    """Copy the reference's optimizer state ``tree`` (as
+    :func:`optimizer_state_to_jax` lays it out) into ``opt``'s state of
+    the parameters ``named``, in place; every parameter takes its
+    ``step``."""
+    step = int(np.asarray(tree["step"]))
+    for p in named.values():
+        opt.state[p]["step"] = step
+    views = optimizer_state_to_jax(opt, named)
+    assign_jax_layout({slot: views[slot] for slot in _slots(opt)},
+                      {slot: tree[slot] for slot in _slots(opt)})

@@ -52,6 +52,8 @@ __all__ = [
     "frontier_spmm_sparse",
     "dependency_spmm_sparse",
     "segment_bag",
+    "segment_bag_table_grad",
+    "SegmentBag",
     "checksum_append",
     "checksum_residual",
     "bucket_index",
@@ -416,7 +418,25 @@ def segment_bag(
     Σ_l w[b,l]·table[indices[b,l]], with table [V, D] f32 or bf16, indices
     i32 [B, L] (a negative id is padding; the others must lie below V) and
     optional f32 weights [B, L].  See kernels/ref.py:segment_bag_ref for
-    the semantics."""
+    the semantics.
+
+    Differentiable in ``table``: where autograd records (grad mode on and
+    ``table.requires_grad``), the call goes through :class:`SegmentBag`,
+    whose forward is this same call and whose backward is
+    :func:`segment_bag_table_grad`.  ``weights`` get no gradient: one that
+    requires it is refused."""
+    if torch.is_grad_enabled() and (
+        table.requires_grad or (weights is not None and weights.requires_grad)
+    ):
+        if weights is not None and weights.requires_grad:
+            raise ValueError("segment_bag: per-sample weights get no gradient; detach them")
+        return SegmentBag.apply(table, indices, weights)
+    return _segment_bag(table, indices, weights)
+
+
+def _segment_bag(table, indices, weights):
+    """K7's checked call, no autograd: the kernel on a CUDA tensor, the
+    plain version on a CPU one."""
     name = "segment_bag"
     if table.dtype not in TABLE_DTYPES:
         raise TypeError(f"{name}: table must be float32 or bfloat16, got {table.dtype}")
@@ -450,3 +470,72 @@ def segment_bag(
     out = segment_bag_cuda(table, indices, weights)
     LAUNCHES["segment_bag"] += 1
     return out
+
+
+#: lookups of one table row that the first level of K7's gradient sums
+#: in one piece at most (:func:`segment_bag_table_grad`)
+GRAD_PIECE = 256
+
+
+def segment_bag_table_grad(grad_out: torch.Tensor, indices: torch.Tensor,
+                           weights: torch.Tensor | None, num_rows: int) -> torch.Tensor:
+    """The gradient of :func:`segment_bag`'s sum in its table: f32
+    [num_rows, D], row r = Σ over the lookups (b, l) of r of
+    w[b,l]·grad_out[b] (zero for rows no bag reads), dense as
+    ``jax.grad`` gives it.  torch ops, no kernel: the JAX package has no
+    backward kernel for K7 either and trains through XLA's gather.
+
+    The sum is order-fixed, not atomic: the lookups are sorted by row id
+    (stable: bag order within a row), each one's f32 product w·grad_out
+    is widened to float64, summed in that order in pieces of at most
+    :data:`GRAD_PIECE` lookups and then the pieces (``segment_reduce``:
+    one thread sums a run in order; no thread sums a hot row's ~10^4
+    click-log lookups in one chain), and rounded once into the rows
+    (``index_copy_`` of distinct rows).  The same inputs give the same
+    bits, and the result is the float64 sum correctly rounded but for
+    the float64 rounding of the sum itself."""
+    bag_len = indices.shape[1]
+    flat = indices.reshape(-1)
+    lookup = torch.nonzero(flat >= 0).squeeze(1)  # bag-major
+    ids, order = torch.sort(flat[lookup].long(), stable=True)
+    lookup = lookup[order]
+    grad = torch.zeros((num_rows, grad_out.shape[1]), dtype=torch.float32,
+                       device=grad_out.device)
+    if ids.numel() == 0:
+        return grad
+    rows = grad_out.index_select(0, lookup // bag_len)
+    if weights is not None:
+        rows = rows * weights.reshape(-1)[lookup, None]
+    unique, lengths = torch.unique_consecutive(ids, return_counts=True)
+    rows = rows.to(torch.float64)
+    if lengths.numel() and int(lengths.max()) > GRAD_PIECE:
+        counts = (lengths + GRAD_PIECE - 1) // GRAD_PIECE
+        run = torch.repeat_interleave(torch.arange(lengths.numel(), device=lengths.device),
+                                      counts)
+        k = torch.arange(run.numel(), device=lengths.device) - (counts.cumsum(0) - counts)[run]
+        pieces = (lengths[run] - k * GRAD_PIECE).clamp(max=GRAD_PIECE)
+        rows = torch.segment_reduce(rows, "sum", lengths=pieces, axis=0)
+        lengths = counts
+    sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0)
+    return grad.index_copy_(0, unique, sums.to(torch.float32))
+
+
+class SegmentBag(torch.autograd.Function):
+    """K7 with a gradient in the table: forward K7's checked call (the
+    kernel on the card, launched and counted, or its plain version on the
+    CPU), backward :func:`segment_bag_table_grad`, in the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights):
+        ctx.save_for_backward(indices, weights)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return _segment_bag(table, indices, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        indices, weights = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = segment_bag_table_grad(grad_out.contiguous(), indices, weights,
+                                          ctx.table_shape[0]).to(ctx.table_dtype)
+        return grad, None, None

@@ -8,11 +8,17 @@ A DLRM cell owns its model, created on the device from a seeded
 generator, and a callable that takes one batch of numpy arrays (or
 tensors), moves it to the device and returns the outputs there:
 
+  train      -> {"loss", "bce"} f32 0-d, after one AdamW step (lr 1e-3,
+                as the JAX cell) taken in place: K7 forward, its
+                order-fixed gradient, the dense update of every table
   serve      -> sigmoid(logit) f32 [B]
   retrieval  -> (scores [B, 100], candidate ids [B, 100])
 
-``static_meta`` holds ``n_params`` and ``model_flops``, computed as the
-JAX cell computes them.
+The train cell's state, parameters and optimizer, is exposed in the JAX
+package's layout (``DLRMCell.train_state`` / ``load_train_state``), so a
+checkpoint written through ``checkpoint.CheckpointManager`` resumes in
+either package.  ``static_meta`` holds ``n_params`` and ``model_flops``,
+computed as the JAX cell computes them.
 
 A BC cell is one distributed MGBC round of the shape's R-MAT graph on a
 caller's :class:`~repro_torch.distributed.GridGroups` grid, on the
@@ -48,10 +54,18 @@ from ..distributed.groups import GridGroups, device_for_rank
 from ..graphs.generators import rmat_graph
 from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, default_tile_dim, partition_2d
-from ..models.dlrm import DLRM, interaction_dims, retrieval_scores
+from ..interop import (
+    assign_jax_layout,
+    dlrm_params_to_jax,
+    optimizer_state_from_jax,
+    optimizer_state_to_jax,
+)
+from ..models.dlrm import DLRM, dlrm_loss, interaction_dims, retrieval_scores
+from ..optim import adafactor, adamw
 from ..roofline.model import device_hbm_footprint
 
 __all__ = ["DLRMCell", "build_dlrm_cell", "dlrm_model_flops", "dlrm_n_params", "pad_mult",
+           "make_optimizer",
            "RETRIEVAL_TOP_K", "BCCell", "build_bc_cell", "bc_static_meta", "build_cell"]
 
 RETRIEVAL_TOP_K = 100
@@ -90,47 +104,81 @@ def dlrm_model_flops(cfg: DLRMArch, shape: DLRMShape) -> float:
     return 1.0 * b * per_example
 
 
+def make_optimizer(name: str, params, lr=1e-4) -> torch.optim.Optimizer:
+    """The JAX cells' ``_make_optimizer``: Adafactor for ``"adafactor"``,
+    else AdamW, over ``params``."""
+    return adafactor(params, lr) if name == "adafactor" else adamw(params, lr)
+
+
 @dataclasses.dataclass
 class DLRMCell:
     name: str
     fn: Callable  # batch dict -> outputs on the device
     model: DLRM
     static_meta: dict
+    optimizer: torch.optim.Optimizer | None = None  #: the train cell's
+
+    def _named(self) -> dict:
+        if self.optimizer is None:
+            raise ValueError(f"{self.name} is not a train cell: it has no train state")
+        return dict(self.model.named_parameters())
+
+    def train_state(self) -> dict:
+        """``{"params": ..., "opt": ...}`` in the JAX package's layout and
+        keys (``interop.dlrm_params_to_jax``, ``optimizer_state_to_jax``):
+        views of the live state (the step a fresh i32 0-d tensor), which a
+        ``Checkpointer`` copies to the host when it saves."""
+        named = self._named()
+        return {"params": dlrm_params_to_jax(named),
+                "opt": optimizer_state_to_jax(self.optimizer, named)}
+
+    def load_train_state(self, state: dict) -> None:
+        """Copy a train state in the JAX package's layout (numpy arrays or
+        tensors, e.g. a restored checkpoint) into the model and the
+        optimizer, in place."""
+        named = self._named()
+        assign_jax_layout(dlrm_params_to_jax(named), state["params"])
+        optimizer_state_from_jax(self.optimizer, named, state["opt"])
 
 
 def build_dlrm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int = 0,
                     model: DLRM | None = None) -> DLRMCell:
-    """The ``serve`` or ``retrieval`` cell of a DLRM arch on one device
-    (``device=None``: the card, raising without one).  The model's
-    parameters are created on the device from a generator there seeded
-    with ``seed``, unless ``model`` (built for the same arch on the same
-    device) is passed: cells of several shapes then share one set of
-    tables, as one server holds one copy.  Retrieval batches carry
-    ``candidates`` [Nc', D], Nc' the shape's candidate count padded to a
-    multiple of 512."""
+    """The ``train``, ``serve`` or ``retrieval`` cell of a DLRM arch on
+    one device (``device=None``: the card, raising without one).  The
+    model's parameters are created on the device from a generator there
+    seeded with ``seed``, unless ``model`` (built for the same arch on the
+    same device) is passed: cells of several shapes then share one set of
+    tables, as one server holds one copy.  A serve or retrieval cell that
+    builds its model freezes it (no autograd state on the tables; its
+    callable runs under ``inference_mode``); the train cell's model is
+    trainable, with ``adamw(1e-3)`` over it, its state zero.  Train
+    batches carry ``labels`` f32 [B]; retrieval batches ``candidates``
+    [Nc', D], Nc' the shape's candidate count padded to a multiple of
+    512.  A cell with fewer rows per table is a bundle of
+    ``dataclasses.replace(arch, rows_per_table=...)``."""
     cfg, shape = bundle.arch, bundle.shapes[shape_name]
     if not isinstance(cfg, DLRMArch):
         raise TypeError(f"not a DLRM arch: {type(cfg).__name__}")
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "the DLRM train cell waits for the optimizer's port (ROADMAP Queue 1 item 12)"
-        )
-    if shape.kind not in ("serve", "retrieval"):
+    if shape.kind not in ("train", "serve", "retrieval"):
         raise ValueError(f"unknown DLRM shape kind {shape.kind!r}")
     dev = resolve_device(device)
     if model is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         model = DLRM(cfg, device=dev, generator=gen)
+        if shape.kind != "train":
+            model.requires_grad_(False)
     else:
         here = model.tables.device
         if model.cfg != cfg or here.type != dev.type or dev.index not in (None, here.index):
             raise ValueError(f"the model was built for {model.cfg.name} on {here}, "
                              f"not {cfg.name} on {dev}")
-    model.eval()
+    model.train(shape.kind == "train")
     b = shape.batch
     want = {"dense": ((b, cfg.n_dense), torch.float32),
             "sparse": ((b, cfg.n_sparse, cfg.hot_size), torch.int32)}
+    if shape.kind == "train":
+        want["labels"] = ((b,), torch.float32)
     if shape.kind == "retrieval":
         want["candidates"] = ((pad_mult(shape.n_candidates), cfg.embed_dim), torch.float32)
 
@@ -144,7 +192,17 @@ def build_dlrm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int 
             out[key] = t
         return out
 
-    if shape.kind == "retrieval":
+    optimizer = None
+    if shape.kind == "train":
+        optimizer = make_optimizer("adamw", model.parameters(), 1e-3)
+
+        def fn(batch):
+            loss, metrics = dlrm_loss(model, to_device(batch))
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+    elif shape.kind == "retrieval":
         @torch.inference_mode()
         def fn(batch):
             return retrieval_scores(model, to_device(batch), top_k=RETRIEVAL_TOP_K)
@@ -160,6 +218,7 @@ def build_dlrm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int 
         fn=fn,
         model=model,
         static_meta={"n_params": dlrm_n_params(cfg), "model_flops": dlrm_model_flops(cfg, shape)},
+        optimizer=optimizer,
     )
 
 

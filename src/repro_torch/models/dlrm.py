@@ -4,9 +4,12 @@ The port of the JAX package's ``models/dlrm.py``.  The embedding lookup
 is the hot path: the ``[F, V, D]`` tables are read as one flat
 ``[F·V, D]`` table (a view, no copy), each (example, field) pair is one
 bag, and the bags go through :func:`repro_torch.kernels.ops.segment_bag`
-— the hand-written K7 on the card, its plain version on the CPU.  The
-model runs on one device: the JAX package's row sharding of the tables
-over a mesh has no counterpart yet.
+— the hand-written K7 on the card, its plain version on the CPU — which
+is differentiable in the tables (``ops.SegmentBag``: K7 forward, an
+order-fixed sum backward), so the model trains as the JAX package's does
+(its ``dlrm_loss`` trains through XLA's gather).  The model runs on one
+device: the JAX package's row sharding of the tables over a mesh has no
+counterpart yet.
 
 Batch format (numpy or tensors):
   dense  f32 [B, n_dense]       sparse i32 [B, n_sparse, hot] (-1 = pad)
@@ -78,7 +81,7 @@ class DLRM(nn.Module):
         self.cfg = cfg
         device = torch.device(device)
         f, v, d = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
-        self.tables = nn.Parameter(torch.empty((f, v, d), device=device), requires_grad=False)
+        self.tables = nn.Parameter(torch.empty((f, v, d), device=device))
         with torch.no_grad():
             for table in self.tables:  # one table at a time: 671 M elements at RM2
                 table.normal_(0.0, d**-0.5, generator=generator)
@@ -101,8 +104,8 @@ class DLRM(nn.Module):
 
 
 def dlrm_loss(model: DLRM, batch: dict) -> tuple[torch.Tensor, dict]:
-    """Mean binary cross-entropy of the logits against ``labels`` (the
-    forward value; training waits for the optimizer's port)."""
+    """Mean binary cross-entropy of the logits against ``labels``, in the
+    reference's stable form; differentiable in every parameter."""
     logit, _ = model(batch["dense"], batch["sparse"])
     labels = batch["labels"]
     loss = torch.mean(

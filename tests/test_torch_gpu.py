@@ -861,6 +861,52 @@ def test_reduced_dlrm_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(logit.cpu(), want_logit, rtol=1e-5, atol=1e-5)
 
 
+def test_segment_bag_gradient_on_the_card_matches_the_plain_autograd(cuda):
+    """K7's autograd Function on the card: the forward is K7 (one launch,
+    equal to the plain version: the same sum in the same order); the
+    table gradient is the order-fixed float64 sum rounded once, within
+    rtol 1e-6 (atol 1e-9: the float64 sum's own rounding) of autograd
+    through the plain version in float64, and within rtol 1e-5 of the
+    plain version's float32 autograd (``index_add_``'s atomics) plus the
+    bound of any float32 summation order, (n - 1)·2^-24·Σ|t| for an
+    entry's n terms (the hot row's ~2 000 cancel: rtol alone cannot hold
+    them); two backward passes give the same bits."""
+    rng = np.random.default_rng(11)
+    V, D, nb, L = 2000, 64, 4096, 3
+    idx = torch.from_numpy(((rng.zipf(1.2, size=(nb, L)) - 1) % V).astype(np.int32)).to(cuda)
+    idx[::9, -1] = -1
+    table_np = rng.standard_normal((V, D)).astype(np.float32)
+    up = torch.from_numpy(rng.standard_normal((nb, D)).astype(np.float32)).to(cuda)
+    table = torch.tensor(table_np, device=cuda, requires_grad=True)
+    grads = []
+    for _ in range(2):
+        table.grad = None
+        ops.reset_launches()
+        out = ops.segment_bag(table, idx)
+        (out * up).sum().backward()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["segment_bag"] == 1  # the forward; the backward is torch ops
+        grads.append(table.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    t64 = torch.tensor(table_np, dtype=torch.float64, device=cuda, requires_grad=True)
+    (ref.segment_bag_ref(t64, idx) * up.double()).sum().backward()
+    torch.testing.assert_close(grads[0].double(), t64.grad, rtol=1e-6, atol=1e-9)
+    plain = torch.tensor(table_np, device=cuda, requires_grad=True)
+    want = ref.segment_bag_ref(plain, idx)
+    assert torch.equal(out.detach(), want.detach())
+    (want * up).sum().backward()
+    valid = idx >= 0
+    rows = idx[valid].long()
+    terms = torch.bincount(rows, minlength=V).double()
+    bags = torch.nonzero(valid)[:, 0]
+    scale = torch.zeros((V, D), dtype=torch.float64, device=cuda).index_add_(
+        0, rows, up[bags].abs().double())
+    bound = (terms - 1).clamp(min=0)[:, None] * 2.0**-24 * scale
+    assert bool(((plain.grad.double() - t64.grad).abs() <= bound + 1e-12).all())
+    assert bool(((grads[0] - plain.grad).abs().double()
+                 <= 1e-5 * plain.grad.abs().double() + bound + 1e-12).all())
+
+
 def _two_lane_fused(graph, batch, device):
     schedule, prep, residual, omega_np = build_schedule(graph, batch_size=batch)
     op = pbc.make_operator(residual, "fused", device)
