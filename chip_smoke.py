@@ -7,9 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 16, 3–5, 8, 10–15, 6, 7: phases 9
-and 16 first, while nothing else holds device memory, because their
-tables and train state take 65 and 52 GiB; phases 8 and 10–15 share
+Phases (run in the order 1, 2, 9, 16, 17, 3–5, 8, 10–15, 6, 7: phases
+9, 16 and 17 first, while nothing else holds device memory, because
+their tables, train state and KV caches take 65, 52 and 51.5 GB;
+phase 17 drives no kernel of ours; phases 8 and 10–15 share
 phase 5's NCCL process group, and phase 7's kernel table carries phase
 8's, 10's, 12's and 14's launches, K7's times, which phase 9 takes on
 its tables, phase 16's train launches of K7, and the acc-mode chains
@@ -258,11 +259,41 @@ mode):
      matrix and a vector, on the card against the CPU (rtol 1e-6 / atol
      1e-7).  Every part prints the card's name and power limit, and the
      phase its wall.
+ 17. LM serving on one card, after phase 16 (less than 1 GiB allocated,
+     checked; bf16 GEMMs reduced in f32, checked), no kernel of ours (the
+     JAX LM path reaches no pallas_call): (a) the five LM archs reduced by
+     reduced_lm(layers=2, d_model=256, vocab=2048), weights from seed 0 on
+     the CPU copied to the card, prefill of 256 tokens and 8
+     teacher-forced decode steps on both: logits within 5 % and the cache
+     within 2 % of the CPU's largest value (an MoE arch may have 1 % of
+     its cache rows past that: a route flipped at a near-tie), the CPU
+     tests' tolerances against the JAX package; (b) granite-moe-1b-a400m
+     at every published width (1.335 G params, weights from seed 0 on the
+     card): serve_loop(batch=4, prompt_len=32768, gen=16); the prefill_32k
+     cell at B = 4, cut from 32 (32 × 32 768 tokens need a 51.5 GB cache
+     beside > 80 GB of MoE buffers), median of 3 CUDA-event timings; the
+     decode_32k cell at B = 32, cut from 128 (a 206 GB cache), and
+     long_500k uncut (B = 1, 25.8 GB), each 20 steps at the last position
+     on a cache of N(0, 1) bf16, the step replayed as a CUDA graph (its
+     op-by-op time and the capture printed beside; the drops counted on
+     an op-by-op step); (c) gemma-7b at every published width
+     (8.54 G params): serve_loop(batch=1, prompt_len=4096, gen=16), the
+     prefill_32k cell at B = 1 (cut from 32: 15.0 GB of cache a
+     sequence), and prefill(2048) + decode_step(2048) against
+     prefill(2049)'s last logits (5 % of the largest, argmax equal past
+     that margin).  Each run prints ms, tokens/s, peak GiB beside the
+     cell's reckoned bytes, a decode step's share of its bytes bound
+     ((params + cache) / 3.35 TB/s), a prefill's FLOP share of the H100's
+     dense bf16 peak (989 TFLOP/s) and the (token, expert) assignments
+     dropped, recounted from the router; logits finite, tokens in range;
+     one prefill and one decode step of each part once more under
+     torch.profiler (device time by kernel family).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -381,17 +412,22 @@ def gpu_clocks() -> str:
     ).stdout.strip()
 
 
-def trace_run(tag: str, run, shares: dict[str, str] | None = None) -> dict[str, tuple]:
+def trace_run(tag: str, run, shares: dict[str, str] | None = None,
+              host_ops: bool = True) -> dict[str, tuple]:
     """``run()`` once more under torch.profiler: device time per kernel and
     the device's busy share of the traced wall time (the untraced runs give
     the end-to-end numbers).  ``shares`` maps a label to a substring (or a
     tuple of substrings, all required) of kernel names whose summed share
-    of device time is printed; returns label -> (device ms, launches)."""
+    of device time is printed; returns label -> (device ms, launches).
+    ``host_ops=False`` records the device activity alone (no host op
+    events): a run of ~10^5 ops then takes seconds, not tens of seconds,
+    to summarise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2496,6 +2532,310 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
     print(f"[15] bc-rmat phase ok in {time.perf_counter() - t15:.1f}s ({smi})")
 
 
+# ----------------------------------------------------------------- phase 17
+LM_ARCHS = ("gemma-7b", "codeqwen1.5-7b", "deepseek-coder-33b", "granite-moe-1b-a400m",
+            "llama4-maverick-400b-a17b")
+LM_REDUCED = dict(layers=2, d_model=256, vocab=2048)  # (a): serve_lm --reduced's config
+LM_PROMPT, LM_STEPS = 256, 8  # (a): two q-chunks of the reduced config, 8 decode steps
+# the CPU tests' tolerances against the JAX package (tests/test_torch_lm_serve.py), each a
+# share of the reference's largest |value|: logits and the KV cache; an MoE arch may have
+# LM_MOE_ROWS of its cache rows past the cache tolerance (a route flipped at a near-tie by a
+# bf16 ulp upstream moves that token's rows, and may move one token across the capacity)
+LM_TOL_LOGITS, LM_TOL_CACHE, LM_MOE_ROWS = 5e-2, 2e-2, 0.01
+# (c): prefill(P) + decode_step(P) against prefill(P + 1)'s last logits, card against card:
+# the logits tolerance of (a), whose two layers' bf16 drift it bounds, held at 28 layers
+LM_CONSIST_P, LM_TOL_CONSIST = 2048, LM_TOL_LOGITS
+LM_DECODE_STEPS = 20
+# H100 SXM data sheet: dense BF16 tensor-core peak (1 979 TFLOP/s with 2:4 sparsity)
+PEAK_BF16_DENSE_FLOP_PER_S = 989e12
+LM_SHARES = {"softmax": "SoftMaxForward", "bf16 casts": "bfloat16_copy",
+             "cuBLAS GEMMs": "nvjet", "masked fills": "masked_fill", "fills": "FillFunctor",
+             "scans (MoE slots)": "scan", "gathers / scatters": "index"}
+
+
+def lm_forward_flops(cfg, batch: int, seq: int) -> float:
+    """FLOP of one prefill as the port computes it: 2 per weight a token in
+    the layers (routed experts only), the last position's logits, and the
+    score and PV products over every key of every q-chunk (no causal block
+    is skipped)."""
+    d, hhd, khd = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    ffn = 3 * d * (cfg.d_ff if cfg.moe is None else cfg.moe.d_ff * cfg.moe.top_k)
+    per_token = cfg.n_layers * (2 * d * hhd + 2 * d * khd + ffn)
+    attn = cfg.n_layers * 4.0 * batch * seq * seq * hhd
+    vocab = cfg.vocab + (-cfg.vocab) % 256
+    return 2.0 * per_token * batch * seq + attn + 2.0 * batch * d * vocab
+
+
+def lm_rows_off(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
+    """(largest |got − want| / largest |want|, share of the cache rows — one
+    (layer, sequence, position) each — whose largest error passes tol · largest |want|)."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    rows = diff.amax(dim=(-2, -1))
+    return diff.max().item() / scale, (rows > tol * scale).float().mean().item()
+
+
+def lm_card_vs_cpu(dev) -> None:
+    """(a): each LM arch, reduced, on the card against the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import TransformerLM
+
+    for name in LM_ARCHS:
+        t = time.perf_counter()
+        cfg = reduced_lm(get_arch(name).arch, **LM_REDUCED)
+        cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        card = TransformerLM(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, LM_PROMPT + LM_STEPS)).astype(np.int32))
+        out = {}
+        for tag, model in (("cpu", cpu), ("card", card)):
+            tk = tokens.to(model.device)
+            logits, cache = model.prefill(tk[:, :LM_PROMPT], max_seq=LM_PROMPT + LM_STEPS)
+            steps = [logits]
+            for i in range(LM_STEPS):  # teacher-forced: both sides read the same tokens
+                logits, cache = model.decode_step(cache, tk[:, LM_PROMPT + i], LM_PROMPT + i)
+                steps.append(logits)
+            out[tag] = (torch.stack(steps).cpu(), {k: v.cpu() for k, v in cache.items()})
+        (lg, cg), (lw, cw) = out["card"], out["cpu"]
+        check(bool(torch.isfinite(lg).all()), f"[17] (a) {name}: non-finite logits on the card")
+        err_l = ((lg - lw).abs().amax(dim=-1) / lw.abs().amax(dim=-1)).max().item()
+        err_k, off_k = lm_rows_off(cg["k"], cw["k"], LM_TOL_CACHE)
+        err_v, off_v = lm_rows_off(cg["v"], cw["v"], LM_TOL_CACHE)
+        allowed = LM_MOE_ROWS if cfg.moe is not None else 0.0
+        print(f"[17] (a) {name} reduced (L {cfg.n_layers}, d {cfg.d_model}, H {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, moe {cfg.moe is not None}): prefill {LM_PROMPT} + {LM_STEPS} "
+              f"teacher-forced steps, card vs CPU: logits err {err_l:.3g} of the largest "
+              f"(tol {LM_TOL_LOGITS}); cache k err {err_k:.3g}, v {err_v:.3g}, rows past "
+              f"{LM_TOL_CACHE}: k {off_k:.4f}, v {off_v:.4f} (allowed {allowed}); "
+              f"{time.perf_counter() - t:.1f}s")
+        check(err_l <= LM_TOL_LOGITS, f"[17] (a) {name}: logits off by {err_l:.3g}")
+        check(off_k <= allowed and off_v <= allowed, f"[17] (a) {name}: cache rows off")
+
+
+class DropCounter:
+    """Wraps the transformer's ``moe_ffn`` and recounts, from the router, the
+    (token, expert) assignments each call drops: an expert chosen by n
+    assignments keeps the first cap and drops max(0, n − cap)."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        from repro_torch.models.moe import capacity
+
+        self.module, self.capacity = transformer, capacity
+        self.inner = transformer.moe_ffn
+        self.dropped = self.assigned = 0  # summed on the card: no host sync a layer
+
+    def __call__(self, x, router_w, wi, wo, *, top_k, capacity_factor, activation):
+        e = router_w.shape[1]
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        chosen = torch.topk(probs, top_k, dim=-1).indices
+        counts = torch.bincount(chosen.reshape(-1), minlength=e)
+        cap = self.capacity(x.shape[0], top_k, e, capacity_factor)
+        self.dropped = self.dropped + (counts - cap).clamp_min(0).sum()
+        self.assigned += chosen.numel()
+        return self.inner(x, router_w, wi, wo, top_k=top_k, capacity_factor=capacity_factor,
+                          activation=activation)
+
+    def __enter__(self):
+        self.module.moe_ffn = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_ffn = self.inner
+
+    def take(self) -> str:
+        line = f"{int(self.dropped)} of {self.assigned} assignments dropped"
+        self.dropped = self.assigned = 0
+        return line
+
+
+def lm_full_width(dev, smi: str, name: str, serve: tuple[int, int], prefill_batch: int,
+                  decode_cells: dict, consistency: bool) -> None:
+    """(b) / (c): one arch at every published width, weights from seed 0 on
+    the card: serve_loop, the prefill_32k cell at ``prefill_batch``, the
+    decode cells (shape name -> batch) and, with ``consistency``, prefill +
+    decode_step against a longer prefill."""
+    import dataclasses
+
+    from repro_torch.configs import ArchBundle, get_arch
+    from repro_torch.launch.serve_lm import serve_loop
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import TransformerLM, padded_vocab
+
+    bundle = get_arch(name)
+    cfg = bundle.arch
+    part = "(b)" if cfg.moe is not None else "(c)"
+    tag = f"[17] {part} {name}"
+    vp = padded_vocab(cfg)
+    t_part = time.perf_counter()
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    p_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"{tag}: L {cfg.n_layers}, d {cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, {'moe ' + str(cfg.moe) if cfg.moe else f'd_ff {cfg.d_ff}'}, vocab "
+          f"{cfg.vocab} padded to {vp}: {n_par} params, {p_bytes / 1e9:.3f} GB, drawn on the card "
+          f"in {time.perf_counter() - t_part:.1f}s [{smi}]")
+    counter = DropCounter() if cfg.moe is not None else None
+
+    def in_range(tokens: torch.Tensor, where: str) -> None:
+        check(bool(((tokens >= 0) & (tokens < vp)).all()), f"{tag} {where}: token out of range")
+
+    def logits_ok(logits: torch.Tensor, rows: int, where: str) -> None:
+        check(tuple(logits.shape) == (rows, vp) and logits.dtype == torch.float32,
+              f"{tag} {where}: logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), f"{tag} {where}: non-finite logits")
+        in_range(logits.argmax(dim=-1), where)
+
+    def drops(what: str = "") -> str:
+        return f"; {counter.take()}{what}" if counter is not None else ""
+
+    # ---- serve_loop: the entry point end to end
+    b, prompt = serve
+    gen = 16
+    torch.cuda.reset_peak_memory_stats()
+    out, t_p, t_d = serve_loop(cfg, b, prompt, gen, device=dev, params=model)
+    check(out.shape == (b, gen), f"{tag} serve_loop gave {out.shape}")
+    in_range(torch.from_numpy(out), "serve_loop")
+    print(f"{tag} serve_loop(batch={b}, prompt_len={prompt}, gen={gen}): prefill "
+          f"{t_p * 1e3:.1f} ms ({b * prompt / t_p:.0f} tok/s), decode {t_d * 1e3:.1f} ms for "
+          f"{gen - 1} steps ({t_d * 1e3 / (gen - 1):.3f} ms a step, {b * (gen - 1) / t_d:.1f} "
+          f"tok/s); peak {torch.cuda.max_memory_allocated() / GIB:.2f} GiB")
+
+    def events(fn) -> float:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop), out
+
+    print(f"{tag} serve_loop done at {time.perf_counter() - t_part:.1f}s of this part")
+
+    # ---- prefill_32k
+    shape = dataclasses.replace(bundle.shapes["prefill_32k"], global_batch=prefill_batch)
+    cell = build_cell(ArchBundle(cfg, {shape.name: shape}), shape.name, device=dev, model=model)
+    tokens = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len), dtype=torch.int32,
+                           device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        with counter or contextlib.nullcontext():
+            ms, (logits, cache) = events(lambda: cell.fn({"tokens": tokens}))
+        times.append(ms)
+        logits_ok(logits, shape.global_batch, "prefill_32k")
+        del cache
+    ms = float(np.median(times))
+    n_tok = shape.global_batch * shape.seq_len
+    flops = lm_forward_flops(cfg, shape.global_batch, shape.seq_len)
+    meta = cell.static_meta
+    print(f"{tag} prefill_32k at B = {shape.global_batch} (cut from "
+          f"{bundle.shapes['prefill_32k'].global_batch}), S = {shape.seq_len}: {ms:.1f} ms "
+          f"(median of 3: {', '.join(f'{x:.1f}' for x in times)}), {n_tok / ms * 1e3:.0f} tok/s; "
+          f"peak {torch.cuda.max_memory_allocated() / GIB:.2f} GiB against the reckoned "
+          f"{meta['analytic_bytes_global'] / GIB:.2f} GiB (the cell's analytic bytes); "
+          f"{flops / 1e12:.1f} TFLOP (the meta's 6·N·D: {meta['model_flops'] / 1e12:.1f}) = "
+          f"{flops / ms * 1e3 / 1e12:.1f} TFLOP/s, {100 * flops / ms * 1e3 / PEAK_BF16_DENSE_FLOP_PER_S:.2f}"
+          f"% of the dense BF16 peak {PEAK_BF16_DENSE_FLOP_PER_S / 1e12:.1f} TFLOP/s"
+          f"{drops(' (the 3 calls of the same tokens)')}")
+    del logits
+    t = time.perf_counter()
+    trace_run(f"{tag} prefill_32k B = {shape.global_batch}", lambda: cell.fn({"tokens": tokens}),
+              LM_SHARES, host_ops=False)
+    print(f"{tag} the traced prefill took {time.perf_counter() - t:.1f}s with its summary; "
+          f"prefill_32k done at {time.perf_counter() - t_part:.1f}s of this part")
+    del cell
+    torch.cuda.empty_cache()
+
+    # ---- decode cells: a cache of N(0, 1) bf16 filled on the card, steps at the last position
+    for shape_name, batch in decode_cells.items():
+        full = bundle.shapes[shape_name]
+        shape = dataclasses.replace(full, global_batch=batch)
+        cell = build_cell(ArchBundle(cfg, {shape.name: shape}), shape.name, device=dev,
+                          model=model)
+        torch.cuda.reset_peak_memory_stats()
+        cache = cell.empty_cache()
+        gen_c = torch.Generator(device=dev).manual_seed(3)
+        for key in cache:
+            for layer in range(cfg.n_layers):
+                cache[key][layer].normal_(generator=gen_c)
+        c_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+        tokens = torch.randint(0, cfg.vocab, (batch,), dtype=torch.int32, device=dev,
+                               generator=gen_c)
+        pos = shape.seq_len - 1
+        batch_in = {"tokens": tokens, "pos": pos}
+        with counter or contextlib.nullcontext():  # one eager step counts the drops
+            logits, cache = model.decode_step(cache, tokens, pos, graph=False)
+        eager_ms, _ = events(lambda: model.decode_step(cache, tokens, pos, graph=False))
+        capture_ms, _ = events(lambda: cell.fn(cache, batch_in))  # captures the step's graph
+        times = []
+        for _ in range(LM_DECODE_STEPS):
+            ms, (logits, cache) = events(lambda: cell.fn(cache, batch_in))
+            times.append(ms)
+        logits_ok(logits, batch, shape_name)
+        ms = float(np.median(times))
+        bound_ms = (p_bytes + c_bytes) / PEAK_BYTES_PER_S * 1e3
+        cut = "uncut" if batch == full.global_batch else f"cut from {full.global_batch}"
+        print(f"{tag} {shape_name} at B = {batch} ({cut}), cache {shape.seq_len} positions "
+              f"({c_bytes / 1e9:.2f} GB), {LM_DECODE_STEPS} steps at pos {pos}: {ms:.3f} ms a step "
+              f"(median; min {min(times):.3f}, max {max(times):.3f}), {batch / ms * 1e3:.1f} "
+              f"tok/s; bytes bound (params + cache read) / {PEAK_BYTES_PER_S / 1e12:.2f} TB/s = "
+              f"{bound_ms:.3f} ms: {100 * bound_ms / ms:.1f}% of it; peak "
+              f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB against the reckoned "
+              f"{cell.static_meta['analytic_bytes_global'] / GIB:.2f} GiB{drops(' (one step)')}; "
+              f"the step op by op (no graph) {eager_ms:.3f} ms, its graph's capture "
+              f"{capture_ms:.3f} ms")
+        trace_run(f"{tag} {shape_name} step", lambda: cell.fn(cache, batch_in), LM_SHARES)
+        del cache, cell, logits
+        torch.cuda.empty_cache()
+        print(f"{tag} {shape_name} done at {time.perf_counter() - t_part:.1f}s of this part")
+
+    # ---- prefill(P) then decode_step(P) against prefill(P + 1)'s last logits
+    if consistency:
+        p = LM_CONSIST_P
+        tokens = torch.randint(0, cfg.vocab, (1, p + 1), dtype=torch.int32, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(4))
+        want, _ = model.prefill(tokens)
+        _, cache = model.prefill(tokens[:, :p], max_seq=p + 1)
+        got, _ = model.decode_step(cache, tokens[:, p], p)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        top2 = want.topk(2, dim=-1).values[0]
+        margin = ((top2[0] - top2[1]) / want.abs().max()).item()
+        same = bool(got.argmax() == want.argmax())
+        print(f"{tag} prefill({p}) + decode_step({p}) against prefill({p + 1}): logits err "
+              f"{err:.3g} of the largest (tol {LM_TOL_CONSIST}); argmax equal {same} (top-2 "
+              f"margin {margin:.3g} of the largest)")
+        check(err <= LM_TOL_CONSIST, f"{tag}: decode_step disagrees with the longer prefill")
+        check(same or margin <= LM_TOL_CONSIST, f"{tag}: argmax differs past a clear margin")
+        trace_run(f"{tag} decode step B = 1 at pos {p}",
+                  lambda: model.decode_step(cache, tokens[:, p], p), LM_SHARES)
+        del cache
+    del model
+    torch.cuda.empty_cache()
+    print(f"{tag} done in {time.perf_counter() - t_part:.1f}s")
+
+
+def lm_phase(dev, smi: str) -> None:
+    """Phase 17: LM serving on one card — (a) the five reduced archs against
+    the CPU, (b) granite-moe-1b-a400m and (c) gemma-7b at every published
+    width (see the module docstring)."""
+    t17 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    check(live < GIB, f"[17] {live / GIB:.2f} GiB allocated before the LM phase")
+    print(f"[17] {smi}; {live / GIB:.2f} GiB allocated before; bf16 reduced-precision "
+          f"reductions {torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "[17] bf16 GEMMs must reduce in f32")
+    lm_card_vs_cpu(dev)
+    lm_full_width(dev, smi, "granite-moe-1b-a400m", serve=(4, 32768), prefill_batch=4,
+                  decode_cells={"decode_32k": 32, "long_500k": 1}, consistency=False)
+    lm_full_width(dev, smi, "gemma-7b", serve=(1, 4096), prefill_batch=1, decode_cells={},
+                  consistency=True)
+    print(f"[17] LM serving ok in {time.perf_counter() - t17:.1f}s [{smi}]")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
@@ -2553,6 +2893,10 @@ def main() -> None:
     k7_train = train_phase(dev, trace_run, smi)
     for entry in k7_entries:
         entry["launches"] += k7_train
+
+    # ---------------------------------------- 17. LM serving on the card
+    # after phase 16 has freed its state: granite's decode cache takes 51.5 GB
+    lm_phase(dev, smi)
 
     # --------------------------------------------------- 3. kernel parity
     t3 = time.perf_counter()

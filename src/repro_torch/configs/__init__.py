@@ -1,8 +1,29 @@
 """Architecture configs of the port; importing this package populates the
-registry (``bc-rmat`` and ``dlrm-rm2`` so far)."""
-from . import bc_rmat, dlrm_rm2  # noqa: F401
-from .base import BC_SHAPES, DLRM_SHAPES, BCArch, BCShape, DLRMArch, DLRMShape
+registry: the paper's ``bc-rmat``, ``dlrm-rm2`` and the five LMs
+(``gemma-7b``, ``codeqwen1.5-7b``, ``deepseek-coder-33b``,
+``granite-moe-1b-a400m``, ``llama4-maverick-400b-a17b``)."""
+from . import (  # noqa: F401
+    bc_rmat,
+    codeqwen15_7b,
+    deepseek_coder_33b,
+    dlrm_rm2,
+    gemma_7b,
+    granite_moe_1b_a400m,
+    llama4_maverick_400b_a17b,
+)
+from .base import (
+    BC_SHAPES,
+    DLRM_SHAPES,
+    LM_SHAPES,
+    BCArch,
+    BCShape,
+    DLRMArch,
+    DLRMShape,
+    LMArch,
+    LMShape,
+    MoESpec,
+)
 from .registry import ArchBundle, get_arch, list_archs
 
-__all__ = ["ArchBundle", "get_arch", "list_archs", "DLRMArch", "DLRMShape", "DLRM_SHAPES",
-           "BCArch", "BCShape", "BC_SHAPES"]
+__all__ = ["ArchBundle", "get_arch", "list_archs", "MoESpec", "LMArch", "LMShape", "LM_SHAPES",
+           "DLRMArch", "DLRMShape", "DLRM_SHAPES", "BCArch", "BCShape", "BC_SHAPES"]

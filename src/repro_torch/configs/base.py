@@ -1,16 +1,65 @@
 """Config dataclasses and shape specs of the architectures the port runs.
 
-A copy of the DLRM and BC parts of the JAX package's ``configs/base.py``
-(``DLRMArch``, ``DLRMShape``, ``DLRM_SHAPES``; ``BCArch``, ``BCShape``,
-``BC_SHAPES``), field for field, so that one (arch × shape) pair names
-the same workload in both packages.  The other families (LM, GNN) are
-not ported yet.
+A copy of the LM, DLRM and BC parts of the JAX package's
+``configs/base.py`` (``MoESpec``, ``LMArch``, ``LMShape``, ``LM_SHAPES``;
+``DLRMArch``, ``DLRMShape``, ``DLRM_SHAPES``; ``BCArch``, ``BCShape``,
+``BC_SHAPES``), field for field and default for default, so that one
+(arch × shape) pair names the same workload in both packages.  The GNN
+family is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["DLRMArch", "DLRMShape", "DLRM_SHAPES", "BCArch", "BCShape", "BC_SHAPES"]
+__all__ = ["MoESpec", "LMArch", "LMShape", "LM_SHAPES", "DLRMArch", "DLRMShape", "DLRM_SHAPES", "BCArch", "BCShape", "BC_SHAPES"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMArch:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int  # dense-FFN hidden (ignored when moe is set)
+    vocab: int
+    activation: str = "silu"  # "silu"=SwiGLU, "gelu"=GeGLU
+    moe: MoESpec | None = None
+    rope_theta: float = 1e4
+    optimizer: str = "adamw"  # "adamw" | "adafactor" (memory plan)
+    remat: bool = True
+    attn_window: int | None = None
+    q_chunk: int = 512
+    loss_chunk: int = 512  # sequence chunking of the CE loss
+
+    @property
+    def family(self) -> str:
+        return "lm"
+
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES = (
+    LMShape("train_4k", "train", 4096, 256),
+    LMShape("prefill_32k", "prefill", 32768, 32),
+    LMShape("decode_32k", "decode", 32768, 128),
+    LMShape("long_500k", "decode", 524288, 1),
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,5 +2,6 @@
 prefetcher."""
 from .pipeline import Prefetcher
 from .recsys import ClickLogStream
+from .tokens import TokenStream
 
-__all__ = ["ClickLogStream", "Prefetcher"]
+__all__ = ["ClickLogStream", "TokenStream", "Prefetcher"]

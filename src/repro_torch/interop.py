@@ -33,6 +33,18 @@ the port optimizer's state, :func:`optimizer_state_from_jax` copies such
 a tree in, and :func:`assign_jax_layout` copies any tree of values into
 a tree of such views.  The views are what a checkpoint of the port's
 train state holds, so that either package restores the other's.
+
+The LM's parameters: :func:`lm_params_from_jax` takes the JAX package's
+tree (``embed``, ``ln_f``, ``layers`` of leaves stacked on a leading L
+axis; numpy arrays, bf16 ones of ml_dtypes' ``bfloat16``) and gives the
+state dict of :class:`~repro_torch.models.TransformerLM` (per-layer keys
+``layers.{i}.{name}``), bit for bit::
+
+    model = TransformerLM(cfg, device="cpu")
+    model.load_state_dict(lm_params_from_jax(cfg, jax.tree.map(np.asarray, params)))
+
+and :func:`lm_params_to_jax` stacks a model's parameters back into that
+tree (as tensors; a bf16 one reads as numpy through ``.view(torch.int16)``).
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import torch
 from .core.scheduler import Round, Schedule
 from .graphs.graph import Graph
 from .graphs.partition import TwoDPartition
+from .models.transformer import param_specs
 from .optim.optimizers import Adafactor, AdamW, SGDMomentum
 
 __all__ = [
@@ -56,6 +69,8 @@ __all__ = [
     "optimizer_state_to_jax",
     "optimizer_state_from_jax",
     "assign_jax_layout",
+    "lm_params_from_jax",
+    "lm_params_to_jax",
 ]
 
 
@@ -271,3 +286,53 @@ def optimizer_state_from_jax(opt, named: Mapping[str, torch.Tensor], tree) -> No
     views = optimizer_state_to_jax(opt, named)
     assign_jax_layout({slot: views[slot] for slot in _slots(opt)},
                       {slot: tree[slot] for slot in _slots(opt)})
+
+
+def _from_numpy(value) -> torch.Tensor:
+    """A CPU tensor holding ``value``'s bits (numpy has no bf16: an
+    ml_dtypes ``bfloat16`` array is read through its int16 view); a
+    read-only array (as ``np.asarray`` gives of a JAX array) is copied."""
+    arr = np.ascontiguousarray(np.asarray(value))
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_params_from_jax(cfg, params: Mapping) -> dict[str, torch.Tensor]:
+    """The state dict of the port's ``TransformerLM`` for ``cfg`` from the
+    JAX package's LM parameter tree (numpy arrays, or anything
+    ``np.asarray`` reads): ``embed``, ``ln_f`` and ``layers.{i}.{name}``,
+    the i-th slice of the reference's stacked leaf.  CPU tensors with the
+    arrays' bits (sharing a writable array's memory); shapes and dtypes
+    are checked against the config."""
+    specs = param_specs(cfg)
+    flat = [("embed", params["embed"], specs["embed"]), ("ln_f", params["ln_f"], specs["ln_f"])]
+    flat += [(f"layers.{name}", params["layers"][name], spec)
+             for name, spec in specs["layers"].items()]
+    state = {}
+    for key, value, (shape, dtype) in flat:
+        t = _from_numpy(value)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{key} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if key.startswith("layers."):
+            for i in range(cfg.n_layers):
+                state[f"layers.{i}.{key[len('layers.'):]}"] = t[i]
+        else:
+            state[key] = t
+    return state
+
+
+def lm_params_to_jax(model) -> dict:
+    """The JAX package's LM parameter tree from a ``TransformerLM``:
+    ``embed``, ``ln_f`` (the parameters themselves) and ``layers``, each
+    leaf the per-layer parameters stacked on a leading L axis (a copy, on
+    the model's device)."""
+    names = model.layers[0]._parameters.keys()
+    return {
+        "embed": model.embed,
+        "ln_f": model.ln_f,
+        "layers": {name: torch.stack([getattr(layer, name) for layer in model.layers])
+                   for name in names},
+    }

@@ -1,8 +1,24 @@
 """Cell programs of the port: (arch × shape) -> a callable.
 
 The counterpart of the JAX package's ``launch/steps.py`` for the archs
-the port has: DLRM (``_build_dlrm_cell`` there) and the paper's own BC
-workload (``_build_bc_cell``); :func:`build_cell` dispatches on the arch.
+the port has: the LMs' serving shapes (``_build_lm_cell`` there), DLRM
+(``_build_dlrm_cell``) and the paper's own BC workload
+(``_build_bc_cell``); :func:`build_cell` dispatches on the arch.
+
+An LM cell owns its ``TransformerLM`` on the device (drawn from a seeded
+generator there, or passed in) and a callable, as the JAX cell's:
+
+  prefill    fn(batch) -> (logits f32 [B, V_padded], cache), batch
+             {"tokens": i32 [B, S]}; the cache k / v bf16 [L, B, S, K, hd]
+  decode     fn(cache, batch) -> (logits, cache), batch {"tokens": i32
+             [B], "pos": int}; the cache [L, B, S, K, hd] (``empty_cache``)
+             is updated in place
+
+Its ``static_meta`` (``n_params``, ``model_flops``, ``tokens``,
+``analytic_bytes_global``) is the JAX cell's, computed from the shapes
+alone (:func:`lm_static_meta`): ``device="meta"`` builds a cell with the
+meta and nothing else, for an arch no card holds.  The ``train`` shape
+comes with the LM training slice.
 
 A DLRM cell owns its model, created on the device from a seeded
 generator, and a callable that takes one batch of numpy arrays (or
@@ -34,6 +50,7 @@ a shape no card holds still has its meta.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Callable
@@ -43,7 +60,7 @@ import torch
 
 from ..autotune import AUTOTUNE_MODES, CostCache, graph_key
 from ..checkpoint.checkpointer import DEFAULT_GENERATIONS
-from ..configs.base import BCArch, BCShape, DLRMArch, DLRMShape
+from ..configs.base import BCArch, BCShape, DLRMArch, DLRMShape, LMArch
 from ..configs.registry import ArchBundle
 from ..core.distributed import distributed_graph_arrays, make_distributed_round_fn
 from ..core.driver import DEFAULT_MAX_RETRIES, DEFAULT_RETRY_BACKOFF_S
@@ -60,11 +77,13 @@ from ..interop import (
     optimizer_state_from_jax,
     optimizer_state_to_jax,
 )
+from ..models import transformer as tf
 from ..models.dlrm import DLRM, dlrm_loss, interaction_dims, retrieval_scores
 from ..optim import adafactor, adamw
 from ..roofline.model import device_hbm_footprint
 
-__all__ = ["DLRMCell", "build_dlrm_cell", "dlrm_model_flops", "dlrm_n_params", "pad_mult",
+__all__ = ["LMCell", "build_lm_cell", "lm_model_flops", "lm_analytic_bytes", "lm_static_meta",
+           "DLRMCell", "build_dlrm_cell", "dlrm_model_flops", "dlrm_n_params", "pad_mult",
            "make_optimizer",
            "RETRIEVAL_TOP_K", "BCCell", "build_bc_cell", "bc_static_meta", "build_cell"]
 
@@ -77,6 +96,126 @@ def pad_mult(x: int, m: int = DEV_MULT) -> int:
     return x + (-x) % m
 
 
+# --------------------------------------------------------------------- LM
+def lm_model_flops(cfg: LMArch, tokens: int) -> float:
+    """6·N_active·D (MoE counts routed experts only), the JAX package's."""
+    d, hhd, khd = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    per_layer = 2 * d * hhd + 2 * d * khd + hhd * d  # qkv + o
+    if cfg.moe is None:
+        per_layer += 3 * d * cfg.d_ff
+    else:
+        per_layer += 3 * d * cfg.moe.d_ff * cfg.moe.top_k
+    n_active = cfg.n_layers * per_layer + cfg.vocab * d  # + embedding/head
+    return 6.0 * n_active * tokens
+
+
+def _params_bytes(cfg: LMArch) -> float:
+    specs = tf.param_specs(cfg)
+    leaves = [specs["embed"], specs["ln_f"], *specs["layers"].values()]
+    return float(sum(math.prod(shape) * dt.itemsize for shape, dt in leaves))
+
+
+def lm_analytic_bytes(cfg: LMArch, shape) -> float:
+    """The JAX package's analytic global HBM bytes of a prefill or decode
+    cell (``_lm_analytic_bytes``): params + cache (+ the cache written
+    and the per-layer score chunk at prefill), the same expression in the
+    same order, so the float is equal."""
+    pb = _params_bytes(cfg)
+    d = cfg.d_model
+    cache = 2 * cfg.n_layers * shape.global_batch * shape.seq_len * (
+        cfg.n_kv_heads * cfg.head_dim
+    ) * 2
+    if shape.kind == "decode":
+        return pb + cache + 2 * shape.global_batch * cfg.n_heads * shape.seq_len * 4
+    tokens = shape.global_batch * shape.seq_len
+    scores = shape.global_batch * cfg.n_heads * cfg.q_chunk * shape.seq_len * 4
+    return pb + 2 * cache + tokens * d * 2 * 2 + scores
+
+
+def _no_lm_train(cfg: LMArch, shape) -> None:
+    if shape.kind == "train":
+        raise NotImplementedError(
+            f"{cfg.name}:{shape.name}: LM training is not ported yet (ROADMAP Queue 1 item 12)")
+    if shape.kind not in ("prefill", "decode"):
+        raise ValueError(f"unknown LM shape kind {shape.kind!r}")
+
+
+def lm_static_meta(cfg: LMArch, shape) -> dict:
+    """The JAX LM cell's ``static_meta`` of a prefill or decode shape,
+    from the shapes alone (nothing allocated)."""
+    _no_lm_train(cfg, shape)
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        flops = lm_model_flops(cfg, tokens)
+    else:  # one new token per sequence: 2·N_active a token
+        tokens = shape.global_batch
+        flops = 2.0 * lm_model_flops(cfg, tokens) / 6.0
+    return {"n_params": tf.n_params(cfg), "model_flops": flops, "tokens": tokens,
+            "analytic_bytes_global": lm_analytic_bytes(cfg, shape)}
+
+
+@dataclasses.dataclass
+class LMCell:
+    name: str
+    fn: Callable | None  # None for a meta-only cell
+    model: tf.TransformerLM | None
+    static_meta: dict
+    shape: object = None
+
+    def empty_cache(self) -> dict[str, torch.Tensor]:
+        """A zero cache for the decode shape: k and v bf16 [L, B, S, K, hd]."""
+        if self.model is None or self.shape.kind != "decode":
+            raise ValueError(f"{self.name} is not a runnable decode cell")
+        return self.model.empty_cache(self.shape.global_batch, self.shape.seq_len)
+
+
+def build_lm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int = 0,
+                  model: tf.TransformerLM | None = None) -> LMCell:
+    """The ``prefill`` or ``decode`` cell of an LM arch on one device
+    (``device=None``: the card, raising without one; ``"meta"``: the meta
+    alone, no model).  The model is drawn on the device from ``seed``,
+    unless ``model`` (built for the same arch on the same device) is
+    passed, so that cells of several shapes share one copy of the
+    weights.  A cell of fewer sequences is a bundle of
+    ``dataclasses.replace(shape, global_batch=...)``.  The ``train``
+    shape raises ``NotImplementedError``."""
+    cfg, shape = bundle.arch, bundle.shapes[shape_name]
+    if not isinstance(cfg, LMArch):
+        raise TypeError(f"not an LM arch: {type(cfg).__name__}")
+    meta = lm_static_meta(cfg, shape)
+    name = f"{cfg.name}:{shape.name}"
+    if device is not None and torch.device(device).type == "meta":
+        return LMCell(name=name, fn=None, model=None, static_meta=meta, shape=shape)
+    dev = resolve_device(device)
+    if model is None:
+        model = tf.TransformerLM(cfg, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(seed))
+    elif model.cfg != cfg or model.device.type != dev.type or dev.index not in (
+            None, model.device.index):
+        raise ValueError(f"the model was built for {model.cfg.name} on {model.device}, "
+                         f"not {cfg.name} on {dev}")
+    b, s = shape.global_batch, shape.seq_len
+
+    def tokens_of(batch: dict, want: tuple[int, ...]) -> torch.Tensor:
+        t = torch.as_tensor(batch["tokens"], device=dev)
+        if tuple(t.shape) != want or t.dtype != torch.int32:
+            raise ValueError(f"{name}: tokens must be torch.int32 {want}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        return t
+
+    if shape.kind == "prefill":
+        def fn(batch):
+            return model.prefill(tokens_of(batch, (b, s)))
+    else:
+        def fn(cache, batch):
+            if tuple(cache["k"].shape[1:3]) != (b, s):
+                raise ValueError(f"{name}: the cache must hold [{b}, {s}] positions, got "
+                                 f"{tuple(cache['k'].shape[1:3])}")
+            return model.decode_step(cache, tokens_of(batch, (b,)), int(batch["pos"]))
+    return LMCell(name=name, fn=fn, model=model, static_meta=meta, shape=shape)
+
+
+# ------------------------------------------------------------------- DLRM
 def _pairs(dims: tuple[int, ...]):
     return zip(dims[:-1], dims[1:])
 
@@ -373,12 +512,15 @@ def build_bc_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups, *, de
 def build_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups | None = None, *,
                grid: tuple[int, int, int] = (1, 1, 1), **kwargs):
     """The cell of an (arch × shape) pair, the counterpart of the JAX
-    package's ``build_cell``.  DLRM: :func:`build_dlrm_cell` (``kwargs``:
-    device, seed, model).  BC: with ``groups``, the runnable round on that
+    package's ``build_cell``.  LM: :func:`build_lm_cell` (``kwargs``:
+    device — ``"meta"`` for the meta alone —, seed, model).  DLRM:
+    :func:`build_dlrm_cell` (``kwargs``: device, seed, model).  BC: with ``groups``, the runnable round on that
     grid (:func:`build_bc_cell`; ``kwargs``: device, seed); without, only
     the meta on ``grid`` = (fr, R, C), which takes the place of the JAX
     mesh (:func:`bc_static_meta`; no graph is made)."""
     arch = bundle.arch
+    if isinstance(arch, LMArch):
+        return build_lm_cell(bundle, shape_name, **kwargs)
     if isinstance(arch, DLRMArch):
         return build_dlrm_cell(bundle, shape_name, **kwargs)
     if isinstance(arch, BCArch):

@@ -71,7 +71,9 @@ def test_bc_configs_match_jax_field_by_field():
     assert [f.name for f in dataclasses.fields(pconfigs.BCArch)] == [
         f.name for f in dataclasses.fields(jbase.BCArch)]
     assert pconfigs.BCArch("x", 1, 2) == pconfigs.BCArch("x", 1, 2, 16, "h3", 24)
-    assert pconfigs.list_archs() == ["bc-rmat", "dlrm-rm2"]
+    assert pconfigs.list_archs() == [
+        "bc-rmat", "codeqwen1.5-7b", "deepseek-coder-33b", "dlrm-rm2", "gemma-7b",
+        "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
 
 
 # ------------------------------------------------------------- static meta

@@ -18,7 +18,15 @@ K7 against its plain version: rtol 1e-6 / atol 1e-6 for f32 tables,
 rtol 2e-2 for bf16 (the JAX kernel test's values; the two take the same
 sum in the same order); the reduced DLRM forward on the card against
 the same model on the CPU at rtol 1e-5 / atol 1e-5 (f32 matmuls summed
-in another order, TF32 off).
+in another order, TF32 off).  The reduced LMs on the card against the
+CPU at the tolerances tests/test_torch_lm_serve.py holds against the JAX
+package (logits 5 % and cache 2 % of the largest value; an MoE arch may
+have 1 % of its cache rows past that, a route flipped at a near-tie);
+the score product of bf16 operands with an f32 result within rtol 1e-5
+of the upcast product; a decode step's peak memory within LM_DECODE_MARGIN
+(8 MiB) of the parameters and the cache, far below an f32 copy of one
+layer's cache; the CUDA-graph replay of a decode step bitwise equal to
+the step run op by op.
 """
 import os
 import subprocess
@@ -48,7 +56,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.dependency_spmm import column_tile, fast_copies
 from repro_torch.kernels.blocked_spmm import SEGMENT, nonzero_index
-from repro_torch.models import DLRM
+from repro_torch.launch.train import reduced_lm
+from repro_torch.models import DLRM, TransformerLM
+from repro_torch.models.attention import bmm_f32
 
 SHAPES = [(8, 4), (16, 16), (64, 8), (128, 128), (130, 33), (256, 64), (1000, 192), (300, 260)]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -974,3 +984,83 @@ def test_bc_cell_round_on_a_1x1_nccl_grid_matches_one_device(nccl_1x1):
     assert counter.by_name()["arc_sum"]["calls"] == 2 * arch.max_levels - 1
     terms = roofline_terms(counter.terms(), 1, cell.static_meta["model_flops"])
     assert terms.bottleneck == "memory" and terms.collective_s == 0.0
+
+
+LM_ARCHS = ["gemma-7b", "codeqwen1.5-7b", "deepseek-coder-33b", "granite-moe-1b-a400m",
+            "llama4-maverick-400b-a17b"]
+LM_DECODE_MARGIN = 8 << 20
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_reduced_lm_on_the_card_matches_the_cpu(cuda, name):
+    resolve_device(cuda)  # TF32 off, bf16 GEMMs reduced in f32
+    cfg = reduced_lm(get_arch(name).arch, layers=2, d_model=128, vocab=512)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 264))
+                              .astype(np.int32))
+    runs = []
+    for model in (cpu, card):
+        t = tokens.to(model.device)
+        logits, cache = model.prefill(t[:, :256], max_seq=264)
+        steps = [logits]
+        for i in range(8):  # teacher-forced
+            logits, cache = model.decode_step(cache, t[:, 256 + i], 256 + i)
+            steps.append(logits)
+        runs.append((torch.stack(steps).cpu(), {k: v.cpu().float() for k, v in cache.items()}))
+    (lw, cw), (lg, cg) = runs
+    err = ((lg - lw).abs().amax(dim=-1) / lw.abs().amax(dim=-1)).max().item()
+    assert err <= 5e-2, err
+    for key in ("k", "v"):
+        rows = (cg[key] - cw[key]).abs().amax(dim=(-2, -1))
+        off = (rows > 2e-2 * cw[key].abs().max()).float().mean().item()
+        assert off <= (0.01 if cfg.moe is not None else 0.0), (key, off)
+
+
+@pytest.mark.parametrize("name,batch", [("granite-moe-1b-a400m", 1), ("granite-moe-1b-a400m", 5),
+                                        ("gemma-7b", 3)])
+def test_graph_replayed_decode_equals_the_eager_step_bitwise(cuda, name, batch):
+    cfg = reduced_lm(get_arch(name).arch, layers=2, d_model=256, vocab=512)
+    model = TransformerLM(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab, (batch, 72), device=cuda, dtype=torch.int32,
+                           generator=torch.Generator(device=cuda).manual_seed(2))
+    _, eager = model.prefill(tokens[:, :64], max_seq=72)
+    graph = {k: v.clone() for k, v in eager.items()}
+    for i in range(8):
+        want, _ = model.decode_step(eager, tokens[:, 64 + i], 64 + i, graph=False)
+        got, _ = model.decode_step(graph, tokens[:, 64 + i], torch.tensor(64 + i, device=cuda))
+        assert torch.equal(got, want), i
+    assert torch.equal(graph["k"], eager["k"]) and torch.equal(graph["v"], eager["v"])
+    assert model._graph is not None and model._graph.fits(graph, tokens[:, 0])
+
+
+def test_score_product_takes_bf16_operands_to_an_f32_result(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cache = torch.randn((3, 1000, 8, 64), generator=gen, device=cuda).bfloat16()
+    q = torch.randn((3, 2, 64), generator=gen, device=cuda).bfloat16()
+    got = bmm_f32(q, cache[:, :, 5].transpose(1, 2))  # a strided head of the cache
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 2, 1000)
+    want = torch.bmm(q.float(), cache[:, :, 5].transpose(1, 2).float())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_lm_decode_makes_no_f32_copy_of_the_cache(cuda):
+    cfg = reduced_lm(get_arch("granite-moe-1b-a400m").arch, layers=2, d_model=256, vocab=512)
+    model = TransformerLM(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    for batch in (1, 4):  # B <= K: a product a sequence; B > K: a product a kv head
+        cache = model.empty_cache(batch, 1 << 16)
+        for c in cache.values():
+            c.normal_()
+        tokens = torch.zeros(batch, dtype=torch.int32, device=cuda)
+        model.decode_step(cache, tokens, (1 << 16) - 1, graph=False)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()  # op by op: a graph's pool holds the same buffers
+        logits, _ = model.decode_step(cache, tokens, (1 << 16) - 1, graph=False)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        layer_f32 = cache["k"][0].numel() * 4
+        assert bool(torch.isfinite(logits).all())
+        assert extra <= LM_DECODE_MARGIN < layer_f32 // 2, (batch, extra, layer_f32)
+        del cache
