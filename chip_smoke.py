@@ -7,10 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 16, 17, 3–5, 8, 10–15, 6, 7: phases
-9, 16 and 17 first, while nothing else holds device memory, because
-their tables, train state and KV caches take 65, 52 and 51.5 GB;
-phase 17 drives no kernel of ours; phases 8 and 10–15 share
+Phases (run in the order 1, 2, 9, 16, 17, 18, 3–5, 8, 10–15, 6, 7:
+phases 9, 16, 17 and 18 first, while nothing else holds device memory,
+because their tables, train states and KV caches take 65, 52, 51.5 and
+~57 GB; phases 17 and 18 drive no kernel of ours; phases 8 and 10–15 share
 phase 5's NCCL process group, and phase 7's kernel table carries phase
 8's, 10's, 12's and 14's launches, K7's times, which phase 9 takes on
 its tables, phase 16's train launches of K7, and the acc-mode chains
@@ -134,7 +134,9 @@ mode):
      at Δ = 1 against phase 4's unweighted dense BC (rtol 1e-5 / atol
      1e-5, not bitwise; buckets = levels); (c) road_like_graph(128, 128,
      seed=1, dyadic) (~420 buckets), one round of 128 roots, against the
-     oracle; (d) road_like_graph(24, 24, seed=1, dyadic), exact, h1, on
+     oracle; (d) road_like_graph(12, 12, seed=1, dyadic) (n = 232, two
+     rounds of 128; the 24 × 24 graph of PR 25, six rounds and ~5 900
+     host readbacks a run, took ~113 s of the phase), exact, h1, on
      dense, fused and fused_bf16 and on the 1×1 grid's fused,
      fused_sparse and fused_hybrid (the [n, n, s] forms: small n only),
      each against the full oracle.  Every run prints its wall, buckets
@@ -288,6 +290,49 @@ mode):
      dropped, recounted from the router; logits finite, tokens in range;
      one prefill and one decode step of each part once more under
      torch.profiler (device time by kernel family).
+ 18. LM training on one card, after phase 17 (less than 1 GiB allocated,
+     checked; bf16 GEMMs reduced in f32, checked), no kernel of ours:
+     (a) the five LM archs reduced by reduced_lm(layers=2, d_model=256,
+     vocab=2048), B = 2, S = 256 (a 255-token loss: a chunk of 128 and a
+     ragged tail), remat on, weights from seed 0 on the CPU copied to the
+     card: lm_loss and every gradient (the score product's f32 backward
+     runs only here and in the card tests) on the card against the CPU,
+     the card held to the CPU's expert routes (a top-1 route flipped at
+     a near-tie moves the whole gradient), at the CPU tests' tolerances
+     against the JAX package (loss 1e-2 relative, each gradient 5 % of
+     its largest value; at most 1 % of the tokens to other experts on the
+     card's own routes); then one train-cell step each (AdamW, Adafactor
+     for llama4-maverick) at the cell's lr 1e-4 (checked), card against
+     CPU (loss 1e-2, μ 5 %, ν / vr / vc 10 % of their largest value,
+     params within 2·lr + one unit, each parameter's update by norms over
+     the leaf: the difference within 0.25 and the norm within 5 % of the
+     CPU's, tests/torch_lm_routes.py, whose route pinning this phase also
+     uses);
+     (b) granite-moe-1b-a400m's train_4k at every published width (24
+     layers, d 1 024, 32 experts top-8, vocab 49 155 padded to 49 408,
+     S = 4 096), the batch cut from 256 to 16 (the largest power of two
+     that fits: 16.0 GB of state, ~2.3 GB a sequence), weights from seed
+     0 on the card, TokenStream batches through the Prefetcher into
+     ``build_cell(..., "train_4k")``: one warm-up and 5 timed steps —
+     step ms (median of CUDA events), tokens/s, the share of the dense
+     bf16 peak of lm_model_flops(B·S) (and of the reference meta's 3×),
+     the optimizer pass's ms, peak GiB beside the cell's reckoned bytes,
+     the dropped (token, expert) assignments, each loss finite and below
+     2·ln(V_pad); the loss forward alone; one step under torch.profiler
+     (device time by kernel family); (c) the launcher train_lm on granite
+     at every width cut to 2 layers, B = 2, AdamW at the launcher's lr
+     3e-3, on its default device, each process as a user runs it: one
+     process trains 6 steps straight, then 4 steps saving every 3 through
+     CheckpointManager(async_writes=True) into a temporary directory
+     (removed); a new process resumes after step 3 (its Prefetcher
+     replays the stream from step 4): the losses and the whole train
+     state bitwise equal; one save's ms and MB; (d) gemma-7b's
+     train_4k meta only (8.54 G params at 12 bytes are more than a card
+     holds).  Every part prints the card's name and power limit, and the
+     phase its wall.
+Each torch.profiler trace opens with 256 spin kernels of ~0.5 ms, which
+its numbers leave out: late in the script a trace loses its first device
+records, and these take the loss (a trace that kept none of them fails).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -296,6 +341,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import os
 import re
 import subprocess
@@ -412,6 +458,12 @@ def gpu_clocks() -> str:
     ).stdout.strip()
 
 
+# each trace opens with TRACE_SPINS spin kernels of ~0.5 ms, left out of its numbers: late in
+# this script a trace loses its first device records (on the H100: phase 4's first pageable
+# copies, fills and one K1 operand pass), and with them it loses spin kernels instead
+TRACE_SPINS, TRACE_SPIN_CYCLES = 256, 1_000_000
+
+
 def trace_run(tag: str, run, shares: dict[str, str] | None = None,
               host_ops: bool = True) -> dict[str, tuple]:
     """``run()`` once more under torch.profiler: device time per kernel and
@@ -428,6 +480,9 @@ def trace_run(tag: str, run, shares: dict[str, str] | None = None,
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] if host_ops else []
     with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_SPINS):
+            torch.cuda._sleep(TRACE_SPIN_CYCLES)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -439,12 +494,17 @@ def trace_run(tag: str, run, shares: dict[str, str] | None = None,
     events = [(ev.key, ev.count, ev.self_device_time_total,
                getattr(ev, "is_user_annotation", False)) for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    spins = sum(e[1] for e in events if "spin_kernel" in e[0])
+    check(spins > 0, f"the traced {tag} run lost all {TRACE_SPINS} opening spin kernels: its own "
+          f"first records may be lost too")
+    events = [e for e in events if "spin_kernel" not in e[0]]
     rows = [r[:3] for r in events if not r[3]]
     busy_us = sum(r[2] for r in rows)
     check(busy_us > 0, f"the traced {tag} run recorded no device time")
     print(f"{tag} traced: wall {wall_us / 1e6:.3f}s, device busy "
           f"{busy_us / 1e6:.3f}s ({100 * busy_us / wall_us:.1f}%), idle "
-          f"{100 * (1 - busy_us / wall_us):.1f}%")
+          f"{100 * (1 - busy_us / wall_us):.1f}%; {spins} of the {TRACE_SPINS} spin kernels "
+          f"that open the trace recorded")
     found = {}
     for label, needle in (shares or {}).items():
         needles = (needle,) if isinstance(needle, str) else needle  # all must match
@@ -2183,7 +2243,7 @@ def autotune_chaos_phase(dev, graph, groups, fused_2d_bc: np.ndarray, smi: str) 
 
 # phase 11: weighted BC (bucketed delta-stepping) at full width
 ROAD_SHAPE = (128, 128)  # (c): n = 26 258, about 420 buckets a round
-DENSE_ROAD_SHAPE = (24, 24)  # (d): n = 926, where [n, n, s] fits the card
+DENSE_ROAD_SHAPE = (12, 12)  # (d): n = 232 (2 rounds of 128), where [n, n, s] fits the card
 # the arc-list bucket steps' device ops, by kernel name
 WEIGHTED_SHARES = {"gathers x[arc]": "vectorized_gather_kernel",
                    "scatter_reduce_ (amin)": "_scatter_gather_elementwise_kernel",
@@ -2629,11 +2689,12 @@ class DropCounter:
 
     def __call__(self, x, router_w, wi, wo, *, top_k, capacity_factor, activation):
         e = router_w.shape[1]
-        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
-        chosen = torch.topk(probs, top_k, dim=-1).indices
-        counts = torch.bincount(chosen.reshape(-1), minlength=e)
-        cap = self.capacity(x.shape[0], top_k, e, capacity_factor)
-        self.dropped = self.dropped + (counts - cap).clamp_min(0).sum()
+        with torch.no_grad():  # no autograd state of its own inside a train step
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            chosen = torch.topk(probs, top_k, dim=-1).indices
+            counts = torch.bincount(chosen.reshape(-1), minlength=e)
+            cap = self.capacity(x.shape[0], top_k, e, capacity_factor)
+            self.dropped = self.dropped + (counts - cap).clamp_min(0).sum()
         self.assigned += chosen.numel()
         return self.inner(x, router_w, wi, wo, top_k=top_k, capacity_factor=capacity_factor,
                           activation=activation)
@@ -2836,12 +2897,395 @@ def lm_phase(dev, smi: str) -> None:
     print(f"[17] LM serving ok in {time.perf_counter() - t17:.1f}s [{smi}]")
 
 
+# ----------------------------------------------------------------- phase 18
+LM_TRAIN_ARCH = "granite-moe-1b-a400m"
+# (b): the batch, cut from the published 256 to the largest power of two whose step fits one
+# card (reckoned: 16.0 GB of bf16 params and grads and f32 μ and ν, then ~2.3 GB a sequence,
+# most of it one layer's recompute: eight q-chunks' f32 and bf16 probabilities, the MoE buffers)
+LM_TRAIN_BATCH = 16
+LM_TRAIN_STEPS = 5  # timed, after one warm-up step
+LM_TRAIN_SHAPE = (2, 256)  # (a): B, S — a 255-token loss, one chunk of 128 and a ragged tail
+# (a): the CPU tests' tolerances against the JAX package (tests/test_torch_lm_train.py): the
+# loss relative, each gradient leaf a share of its largest |value| with the routes held equal;
+# at most LM_MOE_FLIPS of the tokens may go to another set of experts unheld
+LM_TOL_LOSS, LM_TOL_GRAD, LM_MOE_FLIPS = 1e-2, 5e-2, 0.01
+# (c): granite cut to 2 layers, B = 2; train_lm's straight run of 6 steps against 4 steps
+# saving every 3 (at steps 0 and 3) and a rerun that resumes after step 3
+LM_RESUME_LAYERS, LM_RESUME_BATCH, LM_RESUME_SEQ = 2, 2, 4096
+LM_RESUME_STEPS, LM_RESUME_EVERY = 6, 3
+# (b)'s trace, by kernel family (the needles match disjoint kernel names; the rest is the
+# elementwise math of the norms, rope, activations, the loss and AdamW)
+LM_TRAIN_SHARES = {"bf16 GEMMs (cuBLAS nvjet)": "nvjet",
+                   "other GEMMs (the score product's f32 backward)": "gemm",
+                   "softmax forward": "SoftMaxForward", "softmax backward": "SoftMaxBackward",
+                   "casts to bf16": "bfloat16_copy", "strided copies and casts": "direct_copy",
+                   "device-to-device memcpy": "Memcpy DtoD", "the mask fill": "masked_fill",
+                   "fills (zeros)": "FillFunctor", "gathers / scatters (MoE, embedding)": "index",
+                   "reductions (norms, logsumexp, sums)": "reduce_kernel"}
+
+
+def share_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / max |want| (want nonzero)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def lm_train_card_vs_cpu(dev) -> None:
+    """(a): each LM arch, reduced, trained on the card against the CPU."""
+    from repro_torch.configs import ArchBundle, LMShape, get_arch
+    from repro_torch.launch.steps import build_lm_cell
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.transformer import lm_loss
+    from torch_lm_routes import UPDATE_TOL_DIR, UPDATE_TOL_NORM, leaves, port_routes, update_gap
+
+    b, s = LM_TRAIN_SHAPE
+    for name in LM_ARCHS:
+        t = time.perf_counter()
+        cfg = reduced_lm(get_arch(name).arch, **LM_REDUCED)
+        cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                            trainable=True)
+        card = TransformerLM(cfg, device=dev, trainable=True)
+        card.load_state_dict(cpu.state_dict())
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (b, s))
+                                  .astype(np.int32))
+
+        def loss_and_grads(model, pinned=None):
+            model.zero_grad(set_to_none=True)
+            with port_routes(model, pinned) as routes:
+                loss, metrics = lm_loss(model, tokens.to(model.device))
+                loss.backward()
+            grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            return loss.item(), {k: v.item() for k, v in metrics.items()}, grads, routes
+
+        want_loss, want_m, want_g, routes = loss_and_grads(cpu)
+        free_loss, _, _, free_routes = loss_and_grads(card)
+        loss, metrics, grads, _ = loss_and_grads(card, routes or None)
+        flips = float(np.mean([np.any(np.sort(x, -1) != np.sort(y, -1), axis=-1).mean()
+                               for x, y in zip(free_routes, routes)])) if routes else 0.0
+        errs = {n: share_err(grads[n], want_g[n]) for n in want_g}
+        worst = max(errs, key=errs.get)
+        rel = max(abs(free_loss - want_loss), abs(loss - want_loss)) / abs(want_loss)
+        aux_rel = abs(metrics["aux"] - want_m["aux"]) / abs(want_m["aux"]) if routes else 0.0
+        check(all(np.isfinite([loss, free_loss])), f"[18] (a) {name}: non-finite loss")
+        check(rel <= LM_TOL_LOSS and aux_rel <= LM_TOL_LOSS, f"[18] (a) {name}: loss off by "
+              f"{rel:.3g} (aux {aux_rel:.3g})")
+        check(flips <= LM_MOE_FLIPS, f"[18] (a) {name}: {flips:.3g} of the tokens routed to "
+              f"other experts than on the CPU")
+        check(errs[worst] <= LM_TOL_GRAD, f"[18] (a) {name}: the {worst} gradient is off by "
+              f"{errs[worst]:.3g} of its largest value")
+
+        # one train step each, from the same weights and zero state, on the CPU's routes
+        bundle = ArchBundle(cfg, {"t": LMShape("t", "train", s, b)})
+        cells = {"cpu": build_lm_cell(bundle, "t", device="cpu", model=cpu),
+                 "card": build_lm_cell(bundle, "t", device=dev, model=card)}
+        start = {k: p.detach().double().clone()
+                 for k, p in leaves(cells["cpu"].train_state()["params"])}
+        with port_routes(cpu) as routes:
+            want_out = cells["cpu"].fn({"tokens": tokens})
+        with port_routes(card, routes or None):
+            out = cells["card"].fn({"tokens": tokens})
+        states = {k: c.train_state() for k, c in cells.items()}
+        step_rel = abs(out["loss"].item() - want_out["loss"].item()) / abs(want_out["loss"].item())
+        lr = cells["cpu"].optimizer.param_groups[0]["lr"]
+        check(lr == 1e-4, f"[18] (a) {name}: the train cell's lr is {lr}, not the reference's")
+        p_worst, m_worst, u_worst = 0.0, 0.0, 0.0
+        card_params = dict(leaves(states["card"]["params"]))
+        for key, want_p in leaves(states["cpu"]["params"]):
+            got_p = card_params[key].detach().double().cpu()
+            want_p = want_p.detach().double()
+            unit = 2.0**-7 if card_params[key].dtype == torch.bfloat16 else 2.0**-22
+            over = ((got_p - want_p).abs() - (2 * lr + unit * want_p.abs())).max().item()
+            p_worst = max(p_worst, over)
+            gap_dir, gap_norm = update_gap(got_p.numpy(), want_p.numpy(), start[key].numpy())
+            u_worst = max(u_worst, gap_dir / UPDATE_TOL_DIR, abs(gap_norm) / UPDATE_TOL_NORM)
+        for slot, tree in states["cpu"]["opt"].items():
+            if slot == "step":
+                continue
+            card_slot = dict(leaves(states["card"]["opt"][slot]))
+            tol = LM_TOL_GRAD if slot == "mu" else 2 * LM_TOL_GRAD
+            for key, want_v in leaves(tree):
+                if want_v.abs().max() > 0:
+                    m_worst = max(m_worst, share_err(card_slot[key], want_v) / tol)
+        check(step_rel <= LM_TOL_LOSS, f"[18] (a) {name}: the train step's loss is off by "
+              f"{step_rel:.3g}")
+        check(p_worst <= 0.0, f"[18] (a) {name}: a parameter moved {p_worst:.3g} past 2·lr "
+              f"+ one unit from the CPU's")
+        check(m_worst <= 1.0, f"[18] (a) {name}: the optimizer state is off by {m_worst:.3g}× "
+              f"its tolerance")
+        check(u_worst <= 1.0, f"[18] (a) {name}: a parameter's update is off the CPU's by "
+              f"{u_worst:.3g}× its tolerance")
+        print(f"[18] (a) {name} reduced (L {cfg.n_layers}, d {cfg.d_model}, moe "
+              f"{cfg.moe is not None}, {cfg.optimizer}), B {b} S {s} (255-token loss: a chunk of "
+              f"128 and a tail), remat: card vs CPU loss {loss:.6f} / {want_loss:.6f} (rel "
+              f"{rel:.3g}, tol {LM_TOL_LOSS}); {flips:.4f} of the tokens to other experts on the "
+              f"card's own routes (allowed {LM_MOE_FLIPS}); on the CPU's routes every gradient "
+              f"within {errs[worst]:.3g} of its largest value (worst {worst}, tol {LM_TOL_GRAD});"
+              f" one {type(cells['card'].optimizer).__name__} step: loss rel {step_rel:.3g}, the "
+              f"optimizer state within {m_worst:.3g}× its tolerance, params within 2·lr + one "
+              f"unit, the updates within {u_worst:.3g}× theirs; {time.perf_counter() - t:.1f}s")
+        del cells, states
+
+
+def lm_train_full_width(dev, smi: str) -> None:
+    """(b): granite-moe-1b-a400m's train_4k at every width, the batch cut."""
+    import dataclasses
+
+    from repro_torch.configs import ArchBundle, get_arch
+    from repro_torch.data import Prefetcher, TokenStream
+    from repro_torch.launch.steps import build_cell, lm_model_flops
+    from repro_torch.models import padded_vocab
+    from repro_torch.models.transformer import lm_loss
+
+    bundle = get_arch(LM_TRAIN_ARCH)
+    cfg, full = bundle.arch, bundle.shapes["train_4k"]
+    shape = dataclasses.replace(full, global_batch=LM_TRAIN_BATCH)
+    b, s = shape.global_batch, shape.seq_len
+    vp = padded_vocab(cfg)
+    tag = f"[18] (b) {cfg.name}:{shape.name}"
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cell = build_cell(ArchBundle(cfg, {shape.name: shape}), shape.name, device=dev, seed=0)
+    torch.cuda.synchronize()
+    meta = cell.static_meta
+    print(f"{tag}: L {cfg.n_layers}, d {cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, moe {cfg.moe}, vocab {cfg.vocab} padded to {vp}, remat {cfg.remat}, "
+          f"loss_chunk {cfg.loss_chunk}, {cfg.optimizer} lr "
+          f"{cell.optimizer.param_groups[0]['lr']}; B = {b} (cut from {full.global_batch}), "
+          f"S = {s}; {meta['n_params']} params, built with zero optimizer state in "
+          f"{time.perf_counter() - t:.1f}s ({torch.cuda.memory_allocated() / GIB:.2f} GiB) "
+          f"[{smi}]")
+    inner_step, opt_events = cell.optimizer.step, []
+
+    def timed_step(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner_step(*args, **kwargs)
+        ev[1].record()
+        opt_events.append(ev)
+        return out
+
+    cell.optimizer.step = timed_step
+    stream = TokenStream(vocab=cfg.vocab, batch=b, seq_len=s, seed=0)
+    pf = Prefetcher(stream.batch_at, depth=2)
+    losses, step_ms, wall = [], [], []
+    counter = DropCounter()
+    try:
+        for step in range(1 + LM_TRAIN_STEPS):
+            got_step, tokens = pf.get()
+            check(got_step == step, f"{tag}: the prefetcher gave step {got_step} for {step}")
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with counter if step == 0 else contextlib.nullcontext():
+                ev[0].record()
+                out = cell.fn({"tokens": tokens})
+                ev[1].record()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append({k: v.item() for k, v in out.items()})
+    finally:
+        pf.close()
+    peak = torch.cuda.max_memory_allocated()
+    timed, opt_ms = step_ms[1:], [a.elapsed_time(z) for a, z in opt_events[1:]]
+    med = float(np.median(timed))
+    n_tok = b * s
+    flops = lm_model_flops(cfg, n_tok)
+    dropped, assigned = int(counter.dropped) // 2, counter.assigned // 2  # forward + recompute
+    ceiling = 2 * math.log(vp)
+    print(f"{tag}: losses (loss / ce / aux) " + "; ".join(
+        f"{x['loss']:.5f} / {x['ce']:.5f} / {x['aux']:.5f}" for x in losses))
+    print(f"{tag}: step {med:.1f} ms median of {LM_TRAIN_STEPS} after a warm-up of "
+          f"{step_ms[0]:.1f} ms (CUDA events; min {min(timed):.1f}, max {max(timed):.1f}; host "
+          f"wall median {1e3 * float(np.median(wall[1:])):.1f} ms), {n_tok / med * 1e3:.0f} "
+          f"tokens/s; lm_model_flops(B·S) = {flops / 1e12:.1f} TFLOP (6·N_active·D) = "
+          f"{flops / med * 1e3 / 1e12:.1f} TFLOP/s, {100 * flops / med * 1e3 / PEAK_BF16_DENSE_FLOP_PER_S:.2f}"
+          f"% of the dense BF16 peak {PEAK_BF16_DENSE_FLOP_PER_S / 1e12:.0f} TFLOP/s (the "
+          f"reference meta's model_flops, 3x that = {meta['model_flops'] / 1e12:.1f} TFLOP: "
+          f"{100 * meta['model_flops'] / med * 1e3 / PEAK_BF16_DENSE_FLOP_PER_S:.2f}%); "
+          f"optimizer pass {float(np.median(opt_ms)):.2f} ms median "
+          f"({100 * float(np.median(opt_ms)) / med:.2f}% of a step); peak {peak / GIB:.2f} GiB "
+          f"against the cell's reckoned {meta['analytic_bytes_global'] / GIB:.2f} GiB (the "
+          f"reference's analytic bytes at B = {b}); {dropped} of {assigned} (token, expert) "
+          f"assignments dropped in the warm-up step's forward [{smi}]")
+    check(all(np.isfinite(x["loss"]) and x["loss"] < ceiling for x in losses),
+          f"{tag}: a loss is not finite or not below 2·ln(V_pad) = {ceiling:.3f}")
+    with torch.no_grad():
+        fwd_ms, _ = events_ms(lambda: lm_loss(cell.model, torch.as_tensor(tokens, device=dev)))
+    print(f"{tag}: the loss forward alone (no autograd) {fwd_ms:.1f} ms: the remat backward "
+          f"repeats the layers' share of it")
+    trace_run(f"{tag} one train step", lambda: cell.fn({"tokens": tokens}), LM_TRAIN_SHARES,
+              host_ops=False)
+    del cell.optimizer.step  # the wrapper, which holds the optimizer: no cycle left
+    del cell, inner_step, timed_step, out
+    torch.cuda.empty_cache()
+
+
+def events_ms(fn) -> tuple[float, object]:
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def lm_resume_runs(runs: list) -> None:
+    """One process of (c): ``train_lm`` on the cut granite on its default
+    device, once for each ``(steps, ckpt_dir or None, timed)`` of ``runs``;
+    prints as its last line a JSON list, for each run: its losses, the
+    device of its state, the sha1 of every leaf of its final state and,
+    where ``timed``, the ms and MB of one more save of that state."""
+    import dataclasses
+    import hashlib
+    import shutil
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH).arch, n_layers=LM_RESUME_LAYERS)
+    results = []
+    for steps, ckpt_dir, timed in runs:
+        out = train_lm(cfg, steps, LM_RESUME_BATCH, LM_RESUME_SEQ, ckpt_dir=ckpt_dir,
+                       save_every=LM_RESUME_EVERY, log_every=steps)
+        leaves = {}
+
+        def walk(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}/")
+                else:
+                    leaves[prefix + k] = v
+
+        walk(out["state"])
+        res = {"losses": out["losses"], "device": str(out["state"]["params"]["embed"].device),
+               "sha1": {k: hashlib.sha1(v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                                        .tobytes()).hexdigest() for k, v in leaves.items()}}
+        if timed:
+            mgr = CheckpointManager(tempfile.mkdtemp(), save_every=1, async_writes=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mgr.maybe_save(steps - 1, out["state"], {"stream_step": steps})
+            res["save_ms"] = (time.perf_counter() - t) * 1e3
+            mgr.ckpt.close()
+            saved = mgr.ckpt.step_dir(steps - 1)
+            res["save_mb"] = sum(os.path.getsize(os.path.join(saved, fn))
+                                 for fn in os.listdir(saved)) / 1e6
+            shutil.rmtree(mgr.ckpt.root)
+        results.append(res)
+        del out, leaves
+    print(json.dumps(results))
+
+
+def lm_train_resume(smi: str) -> None:
+    """(c): the launcher ``train_lm`` on granite at every width cut to
+    LM_RESUME_LAYERS layers, B = LM_RESUME_BATCH, as a user runs it: a
+    process that trains straight and then trains with checkpoints and
+    stops, and a new process that resumes from the checkpoints."""
+    import shutil
+
+    from repro_torch.launch.train import LR
+
+    steps, every = LM_RESUME_STEPS, LM_RESUME_EVERY
+    stop = every + 1  # the first run's last step saves: the second resumes after it
+
+    def child(runs: list) -> tuple[list, str, float]:
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.lm_resume_runs({runs!r})")
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t
+        check(proc.returncode == 0, f"[18] (c) a train_lm process failed (exit "
+              f"{proc.returncode}): {proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), proc.stdout, wall
+
+    root = tempfile.mkdtemp(prefix="lm_resume_")
+    try:
+        (straight, first), _, wall_a = child([(steps, None, False), (stop, root, False)])
+        check(straight["device"].startswith("cuda"),
+              f"[18] (c) train_lm's default device is {straight['device']}, not the card")
+        check(first["losses"] == straight["losses"][:stop], "[18] (c) the first run's losses "
+              "differ from the straight run's")
+        (resumed,), log, wall_b = child([(steps, root, True)])
+        check(f"resumed from step {stop}" in log, f"[18] (c) the new process did not resume "
+              f"after step {stop - 1}: {log[-2000:]}")
+        check(resumed["losses"] == straight["losses"][stop:], f"[18] (c) the resumed run's "
+              f"losses {resumed['losses']} are not the straight run's {straight['losses'][stop:]}")
+        check(resumed["sha1"] == straight["sha1"], "[18] (c) the resumed train state differs "
+              "from the straight run's")
+        print(f"[18] (c) {smi}: train_lm (lr {LR}) on {LM_TRAIN_ARCH} at every width cut to "
+              f"{LM_RESUME_LAYERS} layers, B = {LM_RESUME_BATCH}, S = {LM_RESUME_SEQ}, on its "
+              f"default device ({straight['device']}): one process ran {steps} steps straight, "
+              f"then {stop} steps saving every {every} through CheckpointManager(async_writes="
+              f"True) into a temporary directory ({wall_a:.1f}s); a new process resumed after "
+              f"step {stop - 1} and ran {len(resumed['losses'])} more ({wall_b:.1f}s): losses and "
+              f"the whole train state ({len(straight['sha1'])} leaves: params, μ, ν, step) "
+              f"bitwise equal; one save of the state {resumed['save_ms']:.1f} ms "
+              f"({resumed['save_mb']:.1f} MB on disk)")
+    finally:
+        shutil.rmtree(root)
+
+
+def lm_train_phase(dev, smi: str) -> None:
+    """Phase 18: LM training on one card — (a) the five reduced archs against
+    the CPU, (b) granite-moe-1b-a400m's train_4k at every published width,
+    (c) an exact resume, (d) gemma-7b's train meta (see the module
+    docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+
+    t18 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    live = torch.cuda.memory_allocated()
+    check(live < GIB, f"[18] {live / GIB:.2f} GiB allocated before the LM training phase")
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "[18] bf16 GEMMs must reduce in f32")
+    probe = torch.ones((1, 2, 2), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    overload = torch.bmm(probe, probe, out_dtype=torch.float32).grad_fn
+    print(f"[18] {smi}; {live / GIB:.2f} GiB allocated before; bf16 reduced-precision "
+          f"reductions off; torch.bmm(out_dtype=f32)'s own autograd node: "
+          f"{type(overload).__name__ if overload is not None else None} (the port's "
+          f"attention routes the score product under autograd through its own Function, "
+          f"whose backward is the reference's f32 cotangent product)")
+    t = time.perf_counter()
+    lm_train_card_vs_cpu(dev)
+    print(f"[18] (a) done in {time.perf_counter() - t:.1f}s [{smi}]")
+    t = time.perf_counter()
+    lm_train_full_width(dev, smi)
+    print(f"[18] (b) done in {time.perf_counter() - t:.1f}s [{smi}]")
+    t = time.perf_counter()
+    lm_train_resume(smi)
+    print(f"[18] (c) done in {time.perf_counter() - t:.1f}s [{smi}]")
+    before = torch.cuda.memory_allocated()
+    cell = build_cell(get_arch("gemma-7b"), "train_4k", device="meta")
+    check(cell.model is None and torch.cuda.memory_allocated() == before,
+          "[18] (d) the meta cell allocated")
+    meta = cell.static_meta
+    print(f"[18] (d) gemma-7b:train_4k meta only (no model made): {meta['n_params']} params, "
+          f"params + grads + AdamW μ, ν = {meta['n_params'] * 12 / 1e9:.1f} GB (> one card's "
+          f"80 GB), the reference's analytic bytes {meta['analytic_bytes_global'] / GIB:.1f} GiB "
+          f"at B = {meta['tokens'] // 4096}, model_flops {meta['model_flops'] / 1e15:.2f} PFLOP "
+          f"a step [{smi}]")
+    check(dict(ops.LAUNCHES) == launches, f"[18] the LM training path launched a kernel of ours: "
+          f"{ops.LAUNCHES} against {launches} before the phase")
+    print(f"[18] LM training ok in {time.perf_counter() - t18:.1f}s, none of K1-K7 launched "
+          f"[{smi}]")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "tests"))  # torch_lm_routes: phase 18's comparisons
     import torch.distributed as dist
 
     from repro_torch.core.bc import device_adjacency, betweenness_centrality
@@ -2897,6 +3341,10 @@ def main() -> None:
     # ---------------------------------------- 17. LM serving on the card
     # after phase 16 has freed its state: granite's decode cache takes 51.5 GB
     lm_phase(dev, smi)
+
+    # --------------------------------------- 18. LM training on the card
+    # after phase 17 has freed its caches: granite's train step takes ~57 GiB
+    lm_train_phase(dev, smi)
 
     # --------------------------------------------------- 3. kernel parity
     t3 = time.perf_counter()

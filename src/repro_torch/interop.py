@@ -37,14 +37,17 @@ train state holds, so that either package restores the other's.
 The LM's parameters: :func:`lm_params_from_jax` takes the JAX package's
 tree (``embed``, ``ln_f``, ``layers`` of leaves stacked on a leading L
 axis; numpy arrays, bf16 ones of ml_dtypes' ``bfloat16``) and gives the
-state dict of :class:`~repro_torch.models.TransformerLM` (per-layer keys
-``layers.{i}.{name}``), bit for bit::
+state dict of :class:`~repro_torch.models.TransformerLM` (stacked keys
+``layers.{name}``: the model keeps the reference's layout), bit for bit::
 
     model = TransformerLM(cfg, device="cpu")
     model.load_state_dict(lm_params_from_jax(cfg, jax.tree.map(np.asarray, params)))
 
-and :func:`lm_params_to_jax` stacks a model's parameters back into that
-tree (as tensors; a bf16 one reads as numpy through ``.view(torch.int16)``).
+and :func:`lm_params_to_jax` gives a model's parameters in that tree (the
+parameters themselves, no copy; a bf16 one reads as numpy through
+``.view(torch.int16)``).  :func:`lm_optimizer_state_to_jax` /
+:func:`lm_optimizer_state_from_jax` do for an LM optimizer's state what
+the DLRM functions do, keyed like that tree.
 """
 from __future__ import annotations
 
@@ -71,6 +74,8 @@ __all__ = [
     "assign_jax_layout",
     "lm_params_from_jax",
     "lm_params_to_jax",
+    "lm_optimizer_state_to_jax",
+    "lm_optimizer_state_from_jax",
 ]
 
 
@@ -231,6 +236,14 @@ def _slots(opt) -> tuple[str, ...]:
     return _SLOTS[type(opt)]
 
 
+def _one_step(opt, params) -> torch.Tensor:
+    """The step every one of ``params`` took (i32 0-d): the reference keeps one."""
+    steps = {opt.state[p]["step"] for p in params}
+    if len(steps) != 1:
+        raise ValueError(f"the parameters took different numbers of steps: {sorted(steps)}")
+    return torch.tensor(steps.pop(), dtype=torch.int32)
+
+
 def optimizer_state_to_jax(opt, named: Mapping[str, torch.Tensor]) -> dict:
     """The reference's optimizer state of the DLRM parameters ``named``
     (port name -> parameter of ``opt``): ``{"step": i32 0-d, <field>:
@@ -240,10 +253,7 @@ def optimizer_state_to_jax(opt, named: Mapping[str, torch.Tensor]) -> dict:
     statistics of [in, out]).  Every parameter must have taken the same
     number of steps: the reference keeps one step."""
     slots = _slots(opt)
-    steps = {opt.state[p]["step"] for p in named.values()}
-    if len(steps) != 1:
-        raise ValueError(f"the parameters took different numbers of steps: {sorted(steps)}")
-    tree = {"step": torch.tensor(steps.pop(), dtype=torch.int32)}
+    tree = {"step": _one_step(opt, named.values())}
     tree.update({slot: {} for slot in slots})
     swap = {"vr": "vc", "vc": "vr"}
     for name, p in named.items():
@@ -268,7 +278,7 @@ def assign_jax_layout(views, values) -> None:
         for key, view in views.items():
             assign_jax_layout(view, values[key])
         return
-    src = values if isinstance(values, torch.Tensor) else torch.tensor(np.asarray(values))
+    src = values if isinstance(values, torch.Tensor) else _from_numpy(values)
     if tuple(src.shape) != tuple(views.shape):
         raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(views.shape)}")
     with torch.no_grad():
@@ -303,8 +313,8 @@ def _from_numpy(value) -> torch.Tensor:
 def lm_params_from_jax(cfg, params: Mapping) -> dict[str, torch.Tensor]:
     """The state dict of the port's ``TransformerLM`` for ``cfg`` from the
     JAX package's LM parameter tree (numpy arrays, or anything
-    ``np.asarray`` reads): ``embed``, ``ln_f`` and ``layers.{i}.{name}``,
-    the i-th slice of the reference's stacked leaf.  CPU tensors with the
+    ``np.asarray`` reads): ``embed``, ``ln_f`` and ``layers.{name}``, the
+    reference's stacked leaf.  CPU tensors with the
     arrays' bits (sharing a writable array's memory); shapes and dtypes
     are checked against the config."""
     specs = param_specs(cfg)
@@ -316,23 +326,44 @@ def lm_params_from_jax(cfg, params: Mapping) -> dict[str, torch.Tensor]:
         t = _from_numpy(value)
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{key} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if key.startswith("layers."):
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{key[len('layers.'):]}"] = t[i]
-        else:
-            state[key] = t
+        state[key] = t
     return state
 
 
 def lm_params_to_jax(model) -> dict:
-    """The JAX package's LM parameter tree from a ``TransformerLM``:
-    ``embed``, ``ln_f`` (the parameters themselves) and ``layers``, each
-    leaf the per-layer parameters stacked on a leading L axis (a copy, on
-    the model's device)."""
-    names = model.layers[0]._parameters.keys()
-    return {
-        "embed": model.embed,
-        "ln_f": model.ln_f,
-        "layers": {name: torch.stack([getattr(layer, name) for layer in model.layers])
-                   for name in names},
-    }
+    """The JAX package's LM parameter tree of a ``TransformerLM``:
+    ``embed``, ``ln_f`` and ``layers`` (its stacked leaves) — the
+    parameters themselves, no copy."""
+    return {"embed": model.embed, "ln_f": model.ln_f,
+            "layers": dict(model.layers.named_parameters())}
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_optimizer_state_to_jax(opt, model) -> dict:
+    """The reference's optimizer state of a ``TransformerLM``'s parameters
+    (``AdamWState`` / ``AdafactorState`` / ``SGDState`` fields): ``{"step":
+    i32 0-d, <field>: tree keyed as :func:`lm_params_to_jax`}``, each leaf
+    the port optimizer's own state tensor (no copy; the LM keeps the
+    reference's layout, so nothing is transposed or swapped)."""
+    params = lm_params_to_jax(model)
+    tree = {"step": _one_step(opt, model.parameters())}
+    for slot in _slots(opt):
+        tree[slot] = _map_tree(lambda p: opt.state[p][slot], params)
+    return tree
+
+
+def lm_optimizer_state_from_jax(opt, model, tree) -> None:
+    """Copy the reference's optimizer state ``tree`` of an LM (as
+    :func:`lm_optimizer_state_to_jax` lays it out) into ``opt``'s state of
+    ``model``'s parameters, in place; every parameter takes its ``step``."""
+    step = int(np.asarray(tree["step"]))
+    for p in model.parameters():
+        opt.state[p]["step"] = step
+    views = lm_optimizer_state_to_jax(opt, model)
+    assign_jax_layout({slot: views[slot] for slot in _slots(opt)},
+                      {slot: tree[slot] for slot in _slots(opt)})

@@ -14,11 +14,22 @@ generator there, or passed in) and a callable, as the JAX cell's:
              [B], "pos": int}; the cache [L, B, S, K, hd] (``empty_cache``)
              is updated in place
 
+  train      fn(batch) -> {"loss", "ce", "aux"} f32 0-d, after one step of
+             ``make_optimizer(cfg.optimizer)`` (lr 1e-4, as the JAX cell)
+             taken in place on a trainable model: ``lm_loss``, its
+             backward, the step, the gradients set to None; batch
+             {"tokens": i32 [B, S]}
+
+The train cell's state is exposed in the JAX package's layout
+(``LMCell.train_state`` / ``load_train_state``: the model's stacked
+leaves and the optimizer's state tensors themselves), so a checkpoint
+written through ``checkpoint.CheckpointManager`` resumes in either
+package.
+
 Its ``static_meta`` (``n_params``, ``model_flops``, ``tokens``,
 ``analytic_bytes_global``) is the JAX cell's, computed from the shapes
 alone (:func:`lm_static_meta`): ``device="meta"`` builds a cell with the
-meta and nothing else, for an arch no card holds.  The ``train`` shape
-comes with the LM training slice.
+meta and nothing else, for an arch no card holds.
 
 A DLRM cell owns its model, created on the device from a seeded
 generator, and a callable that takes one batch of numpy arrays (or
@@ -74,6 +85,9 @@ from ..graphs.partition import TwoDPartition, default_tile_dim, partition_2d
 from ..interop import (
     assign_jax_layout,
     dlrm_params_to_jax,
+    lm_optimizer_state_from_jax,
+    lm_optimizer_state_to_jax,
+    lm_params_to_jax,
     optimizer_state_from_jax,
     optimizer_state_to_jax,
 )
@@ -109,19 +123,55 @@ def lm_model_flops(cfg: LMArch, tokens: int) -> float:
     return 6.0 * n_active * tokens
 
 
-def _params_bytes(cfg: LMArch) -> float:
+def _leaf_shapes(cfg: LMArch) -> list[tuple[tuple[int, ...], torch.dtype]]:
     specs = tf.param_specs(cfg)
-    leaves = [specs["embed"], specs["ln_f"], *specs["layers"].values()]
-    return float(sum(math.prod(shape) * dt.itemsize for shape, dt in leaves))
+    return [specs["embed"], specs["ln_f"], *specs["layers"].values()]
+
+
+def _params_bytes(cfg: LMArch) -> float:
+    return float(sum(math.prod(shape) * dt.itemsize for shape, dt in _leaf_shapes(cfg)))
+
+
+def _opt_state_bytes(cfg: LMArch) -> float:
+    """Bytes of the optimizer state as the reference's ``opt_state_specs``
+    lays it out: an i32 step, then f32 μ and ν of every leaf (AdamW), or
+    Adafactor's f32 row statistics (the shape without its last dim) and
+    column statistics (without its last but one; [1] for a vector), a
+    vector keeping a full second moment."""
+    leaves = [shape for shape, _ in _leaf_shapes(cfg)]
+    if cfg.optimizer == "adafactor":
+        f32 = sum(math.prod(s[:-1] if len(s) >= 2 else s)
+                  + math.prod(s[:-2] + s[-1:] if len(s) >= 2 else (1,)) for s in leaves)
+    else:
+        f32 = 2 * sum(math.prod(s) for s in leaves)
+    return float(4 + 4 * f32)
 
 
 def lm_analytic_bytes(cfg: LMArch, shape) -> float:
-    """The JAX package's analytic global HBM bytes of a prefill or decode
-    cell (``_lm_analytic_bytes``): params + cache (+ the cache written
-    and the per-layer score chunk at prefill), the same expression in the
-    same order, so the float is equal."""
+    """The JAX package's analytic global HBM bytes of an LM cell
+    (``_lm_analytic_bytes``), the same expression in the same order, so
+    the float is equal.  Train: params, grads and the optimizer state,
+    the bf16 residual carries of every layer, the per-layer transient of
+    the remat backward (dense or MoE) and one loss chunk's f32 logits.
+    Prefill / decode: params + cache (+ the cache written and the
+    per-layer score chunk at prefill)."""
     pb = _params_bytes(cfg)
     d = cfg.d_model
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        carries = cfg.n_layers * tokens * d * 2  # bf16 residual stack
+        if cfg.moe is None:
+            trans = tokens * (2 * cfg.d_ff + 4 * d) * 2
+        else:
+            m = cfg.moe
+            cap = int(m.capacity_factor * tokens * m.top_k / m.num_experts)
+            trans = (
+                m.num_experts * cap * (d + 2 * m.d_ff) * 2  # buf + h
+                + tokens * m.top_k * (d * 2 + 4 * m.num_experts)  # rows + router
+            )
+        logits = shape.global_batch * cfg.loss_chunk * tf.padded_vocab(cfg) * 4
+        grads = pb
+        return pb + grads + _opt_state_bytes(cfg) + carries + trans + logits
     cache = 2 * cfg.n_layers * shape.global_batch * shape.seq_len * (
         cfg.n_kv_heads * cfg.head_dim
     ) * 2
@@ -132,24 +182,20 @@ def lm_analytic_bytes(cfg: LMArch, shape) -> float:
     return pb + 2 * cache + tokens * d * 2 * 2 + scores
 
 
-def _no_lm_train(cfg: LMArch, shape) -> None:
-    if shape.kind == "train":
-        raise NotImplementedError(
-            f"{cfg.name}:{shape.name}: LM training is not ported yet (ROADMAP Queue 1 item 12)")
-    if shape.kind not in ("prefill", "decode"):
-        raise ValueError(f"unknown LM shape kind {shape.kind!r}")
-
-
 def lm_static_meta(cfg: LMArch, shape) -> dict:
-    """The JAX LM cell's ``static_meta`` of a prefill or decode shape,
-    from the shapes alone (nothing allocated)."""
-    _no_lm_train(cfg, shape)
-    if shape.kind == "prefill":
+    """The JAX LM cell's ``static_meta`` of a train, prefill or decode
+    shape, from the shapes alone (nothing allocated)."""
+    if shape.kind == "train":  # forward and backward: the reference's 3x
+        tokens = shape.global_batch * shape.seq_len
+        flops = 3 * lm_model_flops(cfg, tokens)
+    elif shape.kind == "prefill":
         tokens = shape.global_batch * shape.seq_len
         flops = lm_model_flops(cfg, tokens)
-    else:  # one new token per sequence: 2·N_active a token
+    elif shape.kind == "decode":  # one new token per sequence: 2·N_active a token
         tokens = shape.global_batch
         flops = 2.0 * lm_model_flops(cfg, tokens) / 6.0
+    else:
+        raise ValueError(f"unknown LM shape kind {shape.kind!r}")
     return {"n_params": tf.n_params(cfg), "model_flops": flops, "tokens": tokens,
             "analytic_bytes_global": lm_analytic_bytes(cfg, shape)}
 
@@ -161,6 +207,7 @@ class LMCell:
     model: tf.TransformerLM | None
     static_meta: dict
     shape: object = None
+    optimizer: torch.optim.Optimizer | None = None  #: the train cell's
 
     def empty_cache(self) -> dict[str, torch.Tensor]:
         """A zero cache for the decode shape: k and v bf16 [L, B, S, K, hd]."""
@@ -168,17 +215,40 @@ class LMCell:
             raise ValueError(f"{self.name} is not a runnable decode cell")
         return self.model.empty_cache(self.shape.global_batch, self.shape.seq_len)
 
+    def _check_train(self) -> None:
+        if self.optimizer is None:
+            raise ValueError(f"{self.name} is not a train cell: it has no train state")
+
+    def train_state(self) -> dict:
+        """``{"params": ..., "opt": ...}`` in the JAX package's layout and
+        keys (``interop.lm_params_to_jax``, ``lm_optimizer_state_to_jax``):
+        the live tensors themselves (the step a fresh i32 0-d tensor), which
+        a ``Checkpointer`` copies to the host when it saves."""
+        self._check_train()
+        return {"params": lm_params_to_jax(self.model),
+                "opt": lm_optimizer_state_to_jax(self.optimizer, self.model)}
+
+    def load_train_state(self, state: dict) -> None:
+        """Copy a train state in the JAX package's layout (numpy arrays or
+        tensors, e.g. a restored checkpoint) into the model and the
+        optimizer, in place."""
+        self._check_train()
+        assign_jax_layout(lm_params_to_jax(self.model), state["params"])
+        lm_optimizer_state_from_jax(self.optimizer, self.model, state["opt"])
+
 
 def build_lm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int = 0,
-                  model: tf.TransformerLM | None = None) -> LMCell:
-    """The ``prefill`` or ``decode`` cell of an LM arch on one device
-    (``device=None``: the card, raising without one; ``"meta"``: the meta
-    alone, no model).  The model is drawn on the device from ``seed``,
-    unless ``model`` (built for the same arch on the same device) is
-    passed, so that cells of several shapes share one copy of the
-    weights.  A cell of fewer sequences is a bundle of
-    ``dataclasses.replace(shape, global_batch=...)``.  The ``train``
-    shape raises ``NotImplementedError``."""
+                  model: tf.TransformerLM | None = None, lr: float = 1e-4) -> LMCell:
+    """The ``train``, ``prefill`` or ``decode`` cell of an LM arch on one
+    device (``device=None``: the card, raising without one; ``"meta"``:
+    the meta alone, no model).  The model is drawn on the device from
+    ``seed`` (trainable for the train shape), unless ``model`` (built for
+    the same arch on the same device) is passed, so that cells of several
+    shapes share one copy of the weights; a frozen one is refused for the
+    train shape.  The train cell's optimizer is
+    ``make_optimizer(cfg.optimizer)`` at ``lr`` (the JAX cell's 1e-4),
+    its state zero.  A cell of fewer sequences is a bundle of
+    ``dataclasses.replace(shape, global_batch=...)``."""
     cfg, shape = bundle.arch, bundle.shapes[shape_name]
     if not isinstance(cfg, LMArch):
         raise TypeError(f"not an LM arch: {type(cfg).__name__}")
@@ -187,13 +257,17 @@ def build_lm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int = 
     if device is not None and torch.device(device).type == "meta":
         return LMCell(name=name, fn=None, model=None, static_meta=meta, shape=shape)
     dev = resolve_device(device)
+    train = shape.kind == "train"
     if model is None:
-        model = tf.TransformerLM(cfg, device=dev,
+        model = tf.TransformerLM(cfg, device=dev, trainable=train,
                                  generator=torch.Generator(device=dev).manual_seed(seed))
     elif model.cfg != cfg or model.device.type != dev.type or dev.index not in (
             None, model.device.index):
         raise ValueError(f"the model was built for {model.cfg.name} on {model.device}, "
                          f"not {cfg.name} on {dev}")
+    elif train and not model.trainable:
+        raise ValueError(f"{name}: the model is frozen (a serving model); the train cell "
+                         f"needs one built with trainable=True")
     b, s = shape.global_batch, shape.seq_len
 
     def tokens_of(batch: dict, want: tuple[int, ...]) -> torch.Tensor:
@@ -203,7 +277,17 @@ def build_lm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int = 
                              f"got {t.dtype} {tuple(t.shape)}")
         return t
 
-    if shape.kind == "prefill":
+    optimizer = None
+    if train:
+        optimizer = make_optimizer(cfg.optimizer, model.parameters(), lr)
+
+        def fn(batch):
+            loss, metrics = tf.lm_loss(model, tokens_of(batch, (b, s)))
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+    elif shape.kind == "prefill":
         def fn(batch):
             return model.prefill(tokens_of(batch, (b, s)))
     else:
@@ -212,7 +296,8 @@ def build_lm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int = 
                 raise ValueError(f"{name}: the cache must hold [{b}, {s}] positions, got "
                                  f"{tuple(cache['k'].shape[1:3])}")
             return model.decode_step(cache, tokens_of(batch, (b,)), int(batch["pos"]))
-    return LMCell(name=name, fn=fn, model=model, static_meta=meta, shape=shape)
+    return LMCell(name=name, fn=fn, model=model, static_meta=meta, shape=shape,
+                  optimizer=optimizer)
 
 
 # ------------------------------------------------------------------- DLRM
@@ -513,7 +598,7 @@ def build_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups | None = 
                grid: tuple[int, int, int] = (1, 1, 1), **kwargs):
     """The cell of an (arch × shape) pair, the counterpart of the JAX
     package's ``build_cell``.  LM: :func:`build_lm_cell` (``kwargs``:
-    device — ``"meta"`` for the meta alone —, seed, model).  DLRM:
+    device — ``"meta"`` for the meta alone —, seed, model, lr).  DLRM:
     :func:`build_dlrm_cell` (``kwargs``: device, seed, model).  BC: with ``groups``, the runnable round on that
     grid (:func:`build_bc_cell`; ``kwargs``: device, seed); without, only
     the meta on ``grid`` = (fr, R, C), which takes the place of the JAX

@@ -9,7 +9,8 @@ result is bf16.  GQA reshapes q to [B, S, K, G, hd]: the G query heads
 of a group share one kv head.  Prefill attends each chunk of q_chunk
 queries to every key, masked, as the reference does (no causal block is
 skipped), so the [B, H, q_chunk, S] score block is the largest
-transient.
+transient.  Prefill runs under autograd as the training forward; the
+serving path, without gradients, keeps its in-place ops and buffers.
 """
 from __future__ import annotations
 
@@ -22,6 +23,36 @@ __all__ = ["NEG_INF", "bmm_f32", "causal_attention", "decode_attention"]
 NEG_INF = -1e30
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    if a.is_cuda:
+        if out is None:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32, out=out)
+    return torch.bmm(a.float(), b.float(), out=out)
+
+
+class _BmmF32(torch.autograd.Function):
+    """:func:`bmm_f32` under autograd.  The backward is what ``jax.grad``
+    of the reference's ``preferred_element_type=f32`` einsum gives: the f32
+    cotangent times the other operand upcast to f32, an f32 product,
+    rounded once to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(grad, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), grad).to(b.dtype)
+        return ga, gb
+
+
 def bmm_f32(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """[n, m, k] @ [n, k, p] of bf16 operands with an f32 result,
     accumulated in f32 (the reference's ``preferred_element_type=f32``),
@@ -30,12 +61,13 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None) -
     be one head of the KV cache, the largest tensor of the system); a
     build without that overload raises.  On the CPU, which has no kernel
     for it, the operands are upcast: the products of bf16 values are exact
-    in f32, so this computes the same function."""
-    if a.is_cuda:
-        if out is None:
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        return torch.bmm(a, b, out_dtype=torch.float32, out=out)
-    return torch.bmm(a.float(), b.float(), out=out)
+    in f32, so this computes the same function.  When an operand needs a
+    gradient it runs through :class:`_BmmF32` (no ``out`` then)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if out is not None:
+            raise ValueError("bmm_f32 under autograd writes no out= tensor")
+        return _BmmF32.apply(a, b)
+    return _bmm_f32(a, b, out)
 
 
 def _mask_(scores: torch.Tensor, q0: int, s: int, window: int | None) -> None:
@@ -81,7 +113,11 @@ def causal_attention(
     # one batch index per (sequence, kv head): k as [B·K, hd, S], v as [B·K, S, hd]
     kt = k.permute(0, 2, 3, 1).reshape(b * kh, hd, s)
     vt = v.permute(0, 2, 1, 3).reshape(b * kh, s, hd)
-    out = torch.empty((b, s, kh, g, hd), dtype=q.dtype, device=q.device)
+    # under autograd the chunks are concatenated: a slice write a chunk
+    # would copy the whole output's gradient a chunk in the backward
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    outs = []
+    out = None if grad else torch.empty((b, s, kh, g, hd), dtype=q.dtype, device=q.device)
     for q0 in range(0, s, q_chunk):
         qc = (q[:, q0:q0 + q_chunk].reshape(b, q_chunk, kh, g, hd)
               .permute(0, 2, 3, 1, 4).reshape(b * kh, g * q_chunk, hd))
@@ -92,7 +128,13 @@ def causal_attention(
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         del scores
         o = torch.bmm(probs.view(b * kh, g * q_chunk, s), vt)
-        out[:, q0:q0 + q_chunk] = o.view(b, kh, g, q_chunk, hd).permute(0, 3, 1, 2, 4)
+        o = o.view(b, kh, g, q_chunk, hd).permute(0, 3, 1, 2, 4)
+        if grad:
+            outs.append(o)
+        else:
+            out[:, q0:q0 + q_chunk] = o
+    if grad:
+        out = torch.cat(outs, dim=1)
     return out.reshape(b, s, h, hd)
 
 

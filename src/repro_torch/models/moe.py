@@ -19,6 +19,9 @@ The JAX package's ``models/moe.py`` in torch, step for step:
 All T tokens are routed at once: the capacity depends on T, so chunking
 the tokens would change which assignments drop.  The load-balance
 auxiliary loss E·Σ me·ce (Switch eq. 4) is returned beside the output.
+Under autograd the gradient flows as the reference's does: a dropped
+assignment's row and gate take none, the gates through the router's
+softmax and top-k.
 """
 from __future__ import annotations
 
@@ -101,7 +104,10 @@ def moe_ffn(
 
     gates = gate_vals.to(x.dtype) * keep.view(t, top_k).to(x.dtype)
     rows = y[expert_ids, slot.view(t, top_k)]  # [T, k, d]: the reference's out_rows
-    rows.mul_(gates[..., None])
+    if rows.requires_grad or gates.requires_grad:  # autograd needs rows for the gates' grad
+        rows = rows * gates[..., None]
+    else:
+        rows.mul_(gates[..., None])
     out = rows[:, 0]
     for j in range(1, top_k):  # in k order, in x's dtype
         out = out + rows[:, j]

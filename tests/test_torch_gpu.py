@@ -26,7 +26,13 @@ the score product of bf16 operands with an f32 result within rtol 1e-5
 of the upcast product; a decode step's peak memory within LM_DECODE_MARGIN
 (8 MiB) of the parameters and the cache, far below an f32 copy of one
 layer's cache; the CUDA-graph replay of a decode step bitwise equal to
-the step run op by op.
+the step run op by op.  LM training, card against CPU at the tolerances
+tests/test_torch_lm_train*.py hold against the JAX package, the card on
+the CPU's expert routes (tests/torch_lm_routes.py, which imports no
+JAX): the score product's autograd Function (its f32 cotangent products
+within one bf16 unit plus 1e-5 of the sum of |terms|), lm_loss (1e-2 relative) and every
+gradient (5 % of its largest value), and one train-cell step (μ 5 %,
+second moments 10 %, parameters within 2·lr plus one unit).
 """
 import os
 import subprocess
@@ -1064,3 +1070,130 @@ def test_lm_decode_makes_no_f32_copy_of_the_cache(cuda):
         assert bool(torch.isfinite(logits).all())
         assert extra <= LM_DECODE_MARGIN < layer_f32 // 2, (batch, extra, layer_f32)
         del cache
+
+
+# ------------------------------------------------------------- LM training
+def _pinned(model, routes):
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_lm_routes import port_routes  # imports no JAX
+
+    return port_routes(model, routes)
+
+
+def test_bmm_f32_backward_on_the_card_matches_the_cpu(cuda):
+    """The score product's autograd Function: the card's f32-result product
+    and its f32 cotangent products against the CPU's upcast ones."""
+    resolve_device(cuda)  # TF32 off: the cotangent products are f32 products
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((8, 256, 64), generator=gen).bfloat16()  # [B·K, G·q_chunk, hd]
+    b = torch.randn((8, 64, 512), generator=gen).bfloat16()  # [B·K, hd, S]
+    g = torch.randn((8, 256, 512), generator=gen)
+    grads = []
+    for where in ("cpu", cuda):
+        ta = a.to(where, copy=True).requires_grad_()  # a leaf on each device
+        tb = b.to(where, copy=True).requires_grad_()
+        out = bmm_f32(ta, tb)
+        assert out.dtype == torch.float32 and out.grad_fn is not None
+        out.backward(g.to(where))
+        grads.append((out.detach().cpu(), ta.grad.cpu(), tb.grad.cpu()))
+    (out_c, ga_c, gb_c), (out_g, ga_g, gb_g) = grads
+    torch.testing.assert_close(out_g, out_c, rtol=1e-5, atol=1e-5)
+    assert ga_g.dtype == gb_g.dtype == torch.bfloat16
+    # one bf16 unit of the value, plus 1e-5 of Σ|terms| (f32 sums in another
+    # order; cancellation does not shrink their rounding)
+    scales = (torch.bmm(g.abs(), b.float().abs().transpose(1, 2)),
+              torch.bmm(a.float().abs().transpose(1, 2), g.abs()))
+    for (got, want), scale in zip(((ga_g, ga_c), (gb_g, gb_c)), scales):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2.0**-7 * want.float().abs() + 1e-5 * scale).all())
+
+
+def _lm_grads(model, tokens, routes=None):
+    from repro_torch.models.transformer import lm_loss
+
+    model.zero_grad(set_to_none=True)
+    with _pinned(model, routes) as used:
+        loss, metrics = lm_loss(model, tokens.to(model.device))
+        loss.backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), metrics["aux"].item(), grads, used
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_reduced_lm_loss_backward_on_the_card_matches_the_cpu(cuda, name):
+    """lm_loss and every gradient of a reduced LM (255 tokens: a chunk and a
+    tail, remat on), card against CPU on the CPU's expert routes, at the
+    CPU tests' tolerances against the JAX package: the loss 1e-2
+    relative, each gradient 5 % of its largest value."""
+    resolve_device(cuda)
+    cfg = reduced_lm(get_arch(name).arch, layers=2, d_model=128, vocab=512)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                        trainable=True)
+    card = TransformerLM(cfg, device=cuda, trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 256))
+                              .astype(np.int32))
+    loss_c, aux_c, grads_c, routes = _lm_grads(cpu, tokens)
+    loss_g, aux_g, grads_g, _ = _lm_grads(card, tokens, routes or None)
+    assert abs(loss_g - loss_c) <= 1e-2 * abs(loss_c)
+    assert abs(aux_g - aux_c) <= 1e-2 * max(abs(aux_c), 1e-30) or aux_c == aux_g == 0.0
+    for key, want in grads_c.items():
+        got = grads_g[key]
+        assert got.dtype == want.dtype
+        err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+        assert err <= 5e-2, (key, err.item())
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b"])
+def test_reduced_train_cell_step_on_the_card_matches_the_cpu(cuda, name):
+    """One train-cell step (AdamW / Adafactor) from the same weights on the
+    card and on the CPU, the card on the CPU's routes: the loss 1e-2
+    relative, the optimizer's first moments 5 % and second moments 10 % of
+    their largest value, each parameter within 2·lr plus one unit, and
+    each parameter's update against the CPU's by norms over the leaf
+    (tests/torch_lm_routes.py:update_gap, the CPU tests' bounds)."""
+    from repro_torch.configs import ArchBundle, LMShape
+    from repro_torch.launch.steps import build_lm_cell
+    from torch_lm_routes import UPDATE_TOL_DIR, UPDATE_TOL_NORM, leaves, update_gap
+
+    resolve_device(cuda)
+    cfg = reduced_lm(get_arch(name).arch, layers=2, d_model=128, vocab=512)
+    bundle = ArchBundle(cfg, {"t": LMShape("t", "train", 128, 2)})
+    cpu = build_lm_cell(bundle, "t", device="cpu", seed=0)
+    card = build_lm_cell(bundle, "t", device=cuda, seed=0)
+    assert cpu.optimizer.param_groups[0]["lr"] == 1e-4  # the reference cell's
+    card.load_train_state(cpu.train_state())
+    start = {k: p.detach().double().clone() for k, p in leaves(cpu.train_state()["params"])}
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 128)).astype(np.int32)
+    with _pinned(cpu.model, None) as routes:
+        want = cpu.fn({"tokens": tokens})
+    with _pinned(card.model, routes or None):
+        got = card.fn({"tokens": tokens})
+    assert abs(got["loss"].item() - want["loss"].item()) <= 1e-2 * abs(want["loss"].item())
+    lr = cpu.optimizer.param_groups[0]["lr"]
+    sw, sg = cpu.train_state(), card.train_state()
+    for key, p in [("embed", sw["params"]["embed"]), ("ln_f", sw["params"]["ln_f"]),
+                   *sw["params"]["layers"].items()]:
+        q = sg["params"][key] if key in ("embed", "ln_f") else sg["params"]["layers"][key]
+        unit = 2.0**-7 if p.dtype == torch.bfloat16 else 2.0**-22
+        diff = (q.detach().cpu().double() - p.detach().double()).abs()
+        assert bool((diff <= 2 * lr + unit * p.detach().double().abs()).all()), key
+        base = start[key if key in ("embed", "ln_f") else f"layers/{key}"]
+        gap_dir, gap_norm = update_gap(q.detach().cpu().double().numpy(),
+                                       p.detach().double().numpy(), base.numpy())
+        assert gap_dir <= UPDATE_TOL_DIR and abs(gap_norm) <= UPDATE_TOL_NORM, (
+            key, gap_dir, gap_norm)
+    assert int(sg["opt"]["step"]) == int(sw["opt"]["step"]) == 1
+    for slot in sw["opt"]:
+        if slot == "step":
+            continue
+        tol = 5e-2 if slot == "mu" else 1e-1
+        for key in ("embed", "ln_f"):
+            want_v, got_v = sw["opt"][slot][key], sg["opt"][slot][key].cpu()
+            if want_v.abs().max() > 0:
+                assert (got_v - want_v).abs().max() <= tol * want_v.abs().max(), (slot, key)
+        for key, want_v in sw["opt"][slot]["layers"].items():
+            got_v = sg["opt"][slot]["layers"][key].cpu()
+            if want_v.abs().max() > 0:
+                assert (got_v - want_v).abs().max() <= tol * want_v.abs().max(), (slot, key)

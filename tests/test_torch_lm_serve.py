@@ -200,8 +200,14 @@ def test_lm_cell_meta_matches_jax_without_allocating(name, shape):
 
 
 def test_lm_train_shape_is_the_next_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        build_cell(get_arch("gemma-7b"), "train_4k", device="meta")
+    """The train shape, once the next slice, now builds its cell: the JAX
+    cell's meta on the meta device, and a frozen serving model refused."""
+    want = jax_build_cell(jax_get_arch("gemma-7b"), "train_4k").static_meta
+    cell = build_cell(get_arch("gemma-7b"), "train_4k", device="meta")
+    assert cell.static_meta == want and cell.fn is None
+    _, cfg, _, model, _ = _arch("gemma-7b")
+    with pytest.raises(ValueError, match="frozen"):
+        build_lm_cell(_bundle(cfg, t=("train", S, B)), "t", device="cpu", model=model)
 
 
 def _bundle(cfg, **shapes):
