@@ -7,10 +7,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``.  It exits non-zero without a card, outside a
 checkout of this repository, or when any phase fails; nothing is caught.
 
-Phases (run in the order 1, 2, 9, 16, 17, 18, 3–5, 8, 10–15, 6, 7:
-phases 9, 16, 17 and 18 first, while nothing else holds device memory,
-because their tables, train states and KV caches take 65, 52, 51.5 and
-~57 GB; phases 17 and 18 drive no kernel of ours; phases 8 and 10–15 share
+Phases (run in the order 1, 2, 9, 16, 17, 18, 19, 3–5, 8, 10–15, 6, 7:
+phases 9, 16, 17, 18 and 19 first, while nothing else holds device
+memory, because their tables, train states, KV caches and gathered
+messages take 65, 52, 51.5, ~57 and ~30 GB; phases 17, 18 and 19 drive
+no kernel of ours; phase 19 holds a 1×1 NCCL grid of its own, closed
+before phase 5 opens the next; phases 8 and 10–15 share
 phase 5's NCCL process group, and phase 7's kernel table carries phase
 8's, 10's, 12's and 14's launches, K7's times, which phase 9 takes on
 its tables, phase 16's train launches of K7, and the acc-mode chains
@@ -133,8 +135,8 @@ mode):
      roots against the Dijkstra oracle rescaled by N/k; (b) unit weights
      at Δ = 1 against phase 4's unweighted dense BC (rtol 1e-5 / atol
      1e-5, not bitwise; buckets = levels); (c) road_like_graph(128, 128,
-     seed=1, dyadic) (~420 buckets), one round of 128 roots, against the
-     oracle; (d) road_like_graph(12, 12, seed=1, dyadic) (n = 232, two
+     seed=1, dyadic) (~420 buckets), one round of 64 roots, against the
+     oracle (~0.3 s a root on the host); (d) road_like_graph(12, 12, seed=1, dyadic) (n = 232, two
      rounds of 128; the 24 × 24 graph of PR 25, six rounds and ~5 900
      host readbacks a run, took ~113 s of the phase), exact, h1, on
      dense, fused and fused_bf16 and on the 1×1 grid's fused,
@@ -224,8 +226,8 @@ mode):
      levels, traversed-edge rate (arcs × (s + k) / wall), peak device
      memory beside the footprint the meta prices; (i) the liveness round
      against ``make_round_fn`` on the single-device sparse operator, (ii) a
-     round of ORACLE_ROOTS h0 roots (the residual's hub and round 0's
-     first source, no derived columns) against a float64 scipy oracle,
+     round of ORACLE_ROOTS h0 roots (the residual's hub, then round 0's
+     first sources, no derived columns) against a float64 scipy oracle,
      both at rtol 1e-5 / atol 1e-5, (iii) the static round against the
      liveness round, bit for bit when the depth is <= 12 (the arc sums
      are row sums in a fixed order; else the truncation printed as a
@@ -273,7 +275,7 @@ mode):
      at every published width (1.335 G params, weights from seed 0 on the
      card): serve_loop(batch=4, prompt_len=32768, gen=16); the prefill_32k
      cell at B = 4, cut from 32 (32 × 32 768 tokens need a 51.5 GB cache
-     beside > 80 GB of MoE buffers), median of 3 CUDA-event timings; the
+     beside > 80 GB of MoE buffers), median of 2 CUDA-event timings; the
      decode_32k cell at B = 32, cut from 128 (a 206 GB cache), and
      long_500k uncut (B = 1, 25.8 GB), each 20 steps at the last position
      on a cache of N(0, 1) bf16, the step replayed as a CUDA graph (its
@@ -330,6 +332,36 @@ mode):
      train_4k meta only (8.54 G params at 12 bytes are more than a card
      holds).  Every part prints the card's name and power limit, and the
      phase its wall.
+ 19. GNN training on one card, after phase 18 (less than 1 GiB allocated,
+     checked), no kernel of ours (the JAX GNN path reaches no pallas_call;
+     its segment sums stay torch ops), on a 1×1 NCCL grid: (a) the four
+     GNN archs reduced to 2 layers of width 8, on a Cora-sized
+     sized_rmat_graph (2 708 nodes, 10 556 arcs, 1 433 features, 64
+     padding arcs), parameters drawn on the CPU and copied: the flat
+     path's loss and every gradient on the card against the CPU (loss
+     rtol 1e-5, each gradient within 1e-4 of its leaf's largest |value|:
+     the CPU tests' rtols against the JAX package) and the 2-D path's
+     (f32 payloads) on the grid against the CPU's flat path (loss rtol
+     1e-4, gradients 1e-3: tests/test_dist_gnn2d.py's rtols); (b)
+     the four archs at their published widths (gat-cora 2 × 8 heads × 8,
+     gin-tu 5 × 64, graphcast 16 × 512 with 227 variables, meshgraphnet
+     15 × 128) on full_graph_sm through build_gnn_cell (bf16 expand and
+     fold, AdamW 1e-3): 8 steps each (AdamW's first steps overshoot on
+     graphcast's and meshgraphnet's deep unnormalised stacks), every loss
+     finite and the last below the first, step ms and peak GiB; (c) gin-tu:ogb_products at
+     full width and full scale through build_gnn_cell: a sized_rmat_graph
+     of exactly 2 449 029 vertices and 61 859 140 arcs (R-MAT draws at
+     scale 22 below n, skewed degrees), 100 feature columns, 47 classes,
+     92 788 720 arc slots (a third of them padding); the host set-up's
+     steps timed apart, a warm-up and 5 timed steps (step ms the median of
+     CUDA events, nodes/s, arcs/s, the share of the meta's model_flops at
+     the f32 peak, the shares of two reckoned bytes floors at 3.35 TB/s,
+     peak GiB beside a reckoning), the losses (finite), whether two loss-and-gradient passes from one state give the
+     same bits (index_add is atomic on the card), the padding arcs' cost
+     (one gather-and-sum over every slot against the real arcs alone) and
+     one step under torch.profiler (gathers, index sums, GEMMs,
+     collectives, copies); (d) none of K1–K7 launched.  Every part prints
+     the card's name and power limit, and the phase its wall.
 Each torch.profiler trace opens with 256 spin kernels of ~0.5 ms, which
 its numbers leave out: late in the script a trace loses its first device
 records, and these take the loss (a trace that kept none of them fails).
@@ -2243,6 +2275,7 @@ def autotune_chaos_phase(dev, graph, groups, fused_2d_bc: np.ndarray, smi: str) 
 
 # phase 11: weighted BC (bucketed delta-stepping) at full width
 ROAD_SHAPE = (128, 128)  # (c): n = 26 258, about 420 buckets a round
+ROAD_ROOTS = 64  # (c): one round of them
 DENSE_ROAD_SHAPE = (12, 12)  # (d): n = 232 (2 rounds of 128), where [n, n, s] fits the card
 # the arc-list bucket steps' device ops, by kernel name
 WEIGHTED_SHARES = {"gathers x[arc]": "vectorized_gather_kernel",
@@ -2341,7 +2374,7 @@ def weighted_phase(graph, groups, dense_ref, smi: str, trace_run) -> None:
         wg, engine_kind="sparse", device="cuda", **dict(kw, sample_k=4)), wg.n)
     roots = plan_sampling(eligible_roots(wg), "fixed", None, 4, 0).roots
     held("(a) 4 roots vs the Dijkstra oracle", k4.bc, oracle("(a)", wg, roots))
-    trace_run("[11] (a) weighted sparse", call_a, WEIGHTED_SHARES)
+    trace_run("[11] (a) weighted sparse", call_a, WEIGHTED_SHARES, host_ops=False)
     del single, k4
     torch.cuda.empty_cache()
 
@@ -2354,19 +2387,19 @@ def weighted_phase(graph, groups, dense_ref, smi: str, trace_run) -> None:
           "[11] (b) buckets per round differ from phase 4's levels")
     del unit
 
-    # ---- (c) the long-diameter road regime, one round of 128 roots
+    # ---- (c) the long-diameter road regime, one round of ROAD_ROOTS roots
     rg = road_like_graph(*ROAD_SHAPE, seed=1, weights="dyadic")
     print(f"[11] (c) road_like_graph{ROAD_SHAPE}, seed=1, dyadic: n={rg.n} arcs={rg.num_arcs}, "
           f"auto_delta {auto_delta(rg):g}")
 
     def call_c():
         return betweenness_centrality(rg, engine_kind="sparse", device="cuda",
-                                      **dict(kw, sample_k=MAIN_BATCH))
+                                      **dict(kw, sample_k=ROAD_ROOTS))
 
     road = run("(c) sparse, one device", call_c, rg.n)
-    roots = plan_sampling(eligible_roots(rg), "fixed", None, MAIN_BATCH, 0).roots
+    roots = plan_sampling(eligible_roots(rg), "fixed", None, ROAD_ROOTS, 0).roots
     held("(c) vs the Dijkstra oracle", road.bc, oracle("(c)", rg, roots))
-    trace_run("[11] (c) weighted sparse, road", call_c, WEIGHTED_SHARES)
+    trace_run("[11] (c) weighted sparse, road", call_c, WEIGHTED_SHARES, host_ops=False)
 
     # ---- (d) the dense-family weighted engines, exact, h1
     dg = road_like_graph(*DENSE_ROAD_SHAPE, seed=1, weights="dyadic")
@@ -2385,7 +2418,7 @@ def weighted_phase(graph, groups, dense_ref, smi: str, trace_run) -> None:
 
 # --------------------------------------------------------------------------
 # phase 15: the paper's own configuration, bc-rmat:rmat_s23_ef16
-ORACLE_ROOTS = 2  # (ii): h0 roots of the float64 oracle round
+ORACLE_ROOTS = 1  # (ii): h0 roots of the float64 oracle round (~25 s a root on the host)
 
 
 def brandes_roots_oracle(src: np.ndarray, dst: np.ndarray, n: int, omega: np.ndarray,
@@ -2606,6 +2639,7 @@ LM_TOL_LOGITS, LM_TOL_CACHE, LM_MOE_ROWS = 5e-2, 2e-2, 0.01
 # the logits tolerance of (a), whose two layers' bf16 drift it bounds, held at 28 layers
 LM_CONSIST_P, LM_TOL_CONSIST = 2048, LM_TOL_LOGITS
 LM_DECODE_STEPS = 20
+PREFILL_REPS = 2  # timed prefill_32k calls (~17.6 s each for granite)
 # H100 SXM data sheet: dense BF16 tensor-core peak (1 979 TFLOP/s with 2:4 sparsity)
 PEAK_BF16_DENSE_FLOP_PER_S = 989e12
 LM_SHARES = {"softmax": "SoftMaxForward", "bf16 casts": "bfloat16_copy",
@@ -2782,7 +2816,7 @@ def lm_full_width(dev, smi: str, name: str, serve: tuple[int, int], prefill_batc
                            device=dev, generator=torch.Generator(device=dev).manual_seed(2))
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(3):
+    for _ in range(PREFILL_REPS):
         with counter or contextlib.nullcontext():
             ms, (logits, cache) = events(lambda: cell.fn({"tokens": tokens}))
         times.append(ms)
@@ -2794,13 +2828,14 @@ def lm_full_width(dev, smi: str, name: str, serve: tuple[int, int], prefill_batc
     meta = cell.static_meta
     print(f"{tag} prefill_32k at B = {shape.global_batch} (cut from "
           f"{bundle.shapes['prefill_32k'].global_batch}), S = {shape.seq_len}: {ms:.1f} ms "
-          f"(median of 3: {', '.join(f'{x:.1f}' for x in times)}), {n_tok / ms * 1e3:.0f} tok/s; "
+          f"(median of {PREFILL_REPS}: {', '.join(f'{x:.1f}' for x in times)}), "
+          f"{n_tok / ms * 1e3:.0f} tok/s; "
           f"peak {torch.cuda.max_memory_allocated() / GIB:.2f} GiB against the reckoned "
           f"{meta['analytic_bytes_global'] / GIB:.2f} GiB (the cell's analytic bytes); "
           f"{flops / 1e12:.1f} TFLOP (the meta's 6·N·D: {meta['model_flops'] / 1e12:.1f}) = "
           f"{flops / ms * 1e3 / 1e12:.1f} TFLOP/s, {100 * flops / ms * 1e3 / PEAK_BF16_DENSE_FLOP_PER_S:.2f}"
           f"% of the dense BF16 peak {PEAK_BF16_DENSE_FLOP_PER_S / 1e12:.1f} TFLOP/s"
-          f"{drops(' (the 3 calls of the same tokens)')}")
+          f"{drops(f' (the {PREFILL_REPS} calls of the same tokens)')}")
     del logits
     t = time.perf_counter()
     trace_run(f"{tag} prefill_32k B = {shape.global_batch}", lambda: cell.fn({"tokens": tokens}),
@@ -3279,6 +3314,229 @@ def lm_train_phase(dev, smi: str) -> None:
           f"[{smi}]")
 
 
+# ----------------------------------------------------------------- phase 19
+# GNN training on the card: no kernel of ours (the JAX GNN path reaches no
+# pallas_call; its segment sums are jax.ops.segment_sum, index_add here)
+GNN_ARCHS = ("gat-cora", "gin-tu", "graphcast", "meshgraphnet")
+GNN_SM = "full_graph_sm"  # gat-cora's own Cora shape: 2 708 nodes, 10 556 arcs, 1 433 features
+GNN_REDUCED = dict(n_layers=2, d_hidden=8)
+GNN_PAD_ARCS = 64  # (a)'s flat batch: padding arcs into the sentinel row
+# (b): AdamW's first steps overshoot on the 15-16 layer unnormalised residual
+# stacks (graphcast on the card: 4 554 -> 471 166 -> 6 655 over 3 steps)
+GNN_WIDTH_STEPS = 8
+GNN_OGB_STEPS = 5  # timed, after a warm-up step
+# (a) card against CPU: the CPU tests' rtols against the JAX package, the
+# gradients' as shares of each leaf's largest |value|
+GNN_FLAT_TOL = (1e-5, 1e-4)  # loss rtol, gradient share (tests/test_torch_gnn.py)
+GNN_2D_TOL = (1e-4, 1e-3)  # tests/test_dist_gnn2d.py:_compare's
+GNN_SHARES = {"gathers (index_select)": "gather", "index sums (index_add, atomic)": "indexFunc",
+              "GEMMs": "gemm", "collectives (NCCL)": "nccl", "copies and casts": "copy",
+              "device memcpy": "Memcpy", "fills (zeros)": "FillFunctor",
+              "concatenations (the sentinel row)": "CatArrayBatchedCopy",
+              "elementwise": "elementwise"}
+
+
+def gnn_loss_grads(loss_of, params: dict) -> tuple[float, dict]:
+    """(loss, {name: gradient on the CPU}) of ``loss_of(params)``."""
+    loss = loss_of(params)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), {k: g.detach().cpu() for k, g in zip(params, grads)}
+
+
+def gnn_held(tag: str, got: tuple, want: tuple, tol: tuple) -> str:
+    """Hold ``got`` = (loss, grads) to ``want`` at ``tol`` = (loss rtol,
+    gradient share): every gradient within that share of its leaf's
+    largest |value| (the card's atomic sums add in another order, and a
+    reordered sum errs on the scale of its terms, which cancellation does
+    not shrink).  Returns the largest errors, printed."""
+    loss_rtol, share = tol
+    check(abs(got[0] - want[0]) <= loss_rtol * abs(want[0]),
+          f"{tag}: loss {got[0]!r} against {want[0]!r}")
+    errs = {key: ((got[1][key] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            for key, w in want[1].items()}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= share, f"{tag}: gradient {worst} off by {errs[worst]:.3g} of its "
+          f"largest value (limit {share})")
+    return (f"loss {got[0]:.6f} vs {want[0]:.6f} (rel {abs(got[0] - want[0]) / abs(want[0]):.2e}),"
+            f" largest gradient error {errs[worst]:.2e} of its leaf's largest ({worst})")
+
+
+def gnn_card_vs_cpu(dev, groups, smi: str) -> None:
+    """(a): the four reduced archs, flat and 2-D, card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import full_graph_batch, to_2d_batch
+    from repro_torch.graphs import sized_rmat_graph
+    from repro_torch.models import gnn as gnn_mod
+    from repro_torch.models.gnn2d import gnn2d_local_batch, make_gnn2d_loss_fn
+
+    spec = get_arch("gat-cora").shapes[GNN_SM]
+    graph = sized_rmat_graph(spec.n_nodes, spec.n_edges, seed=0)
+    n, d_feat = graph.n, spec.d_feat
+    for name in GNN_ARCHS:
+        cfg = dataclasses.replace(get_arch(name).arch, **GNN_REDUCED)
+        d_out = gnn_mod.output_dim(cfg, spec)
+        batch = full_graph_batch(cfg, graph, n, graph.num_arcs + GNN_PAD_ARCS, d_feat, d_out,
+                                 spec.n_classes, seed=1)
+        cpu_params = gnn_mod.init_params(cfg, d_feat, d_out, torch.Generator().manual_seed(0))
+        card_params = {k: v.detach().to(dev).requires_grad_(True) for k, v in cpu_params.items()}
+        flat = {k: torch.from_numpy(v) for k, v in batch.items()}
+        flat_card = {k: v.to(dev) for k, v in flat.items()}
+        want = gnn_loss_grads(lambda p: gnn_mod.gnn_loss(cfg, p, flat, "full_graph")[0],
+                              cpu_params)
+        got_flat = gnn_loss_grads(lambda p: gnn_mod.gnn_loss(cfg, p, flat_card, "full_graph")[0],
+                                  card_params)
+        b2d = to_2d_batch(batch, n, 1, 1)
+        loss_fn = make_gnn2d_loss_fn(cfg, groups, "full_graph", chunk=n,
+                                     max_arcs=b2d["src_local"].shape[2])
+        local = gnn2d_local_batch(b2d, groups, dev)
+        got_2d = gnn_loss_grads(lambda p: loss_fn(p, local), card_params)
+        print(f"[19] (a) {name} (L {cfg.n_layers}, d {cfg.d_hidden}, d_out {d_out}) flat on the "
+              f"card vs CPU: {gnn_held(f'[19] (a) {name} flat', got_flat, want, GNN_FLAT_TOL)}")
+        print(f"[19] (a) {name} 2-D on the 1x1 NCCL grid vs CPU flat: "
+              f"{gnn_held(f'[19] (a) {name} 2-D', got_2d, want, GNN_2D_TOL)} [{smi}]")
+
+
+def gnn_published_widths(dev, groups, smi: str) -> None:
+    """(b): the four archs at their published widths on full_graph_sm."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_gnn_cell
+
+    for name in GNN_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        cell = build_gnn_cell(get_arch(name), GNN_SM, groups, device=dev, seed=0)
+        cfg = get_arch(name).arch
+        losses, ms = [], []
+        for _ in range(GNN_WIDTH_STEPS):
+            t_ms, out = events_ms(cell.fn)
+            losses.append(out["loss"].item())
+            ms.append(t_ms)
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"[19] (b) {cell.name}: the loss is not finite or did not fall: {losses}")
+        print(f"[19] (b) {cell.name}: L {cfg.n_layers}, d_hidden {cfg.d_hidden} x {cfg.n_heads} "
+              f"heads, {cell.static_meta['n_params']} params; {cell.setup['graph_n']} nodes, "
+              f"{cell.setup['real_arcs']} arcs in {cell.max_arcs} slots; losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; step ms {', '.join(f'{x:.2f}' for x in ms)}"
+              f" (CUDA events, the first with its allocations); peak "
+              f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB [{smi}]")
+        del cell
+    torch.cuda.empty_cache()
+
+
+def gnn_ogb(dev, groups, smi: str) -> None:
+    """(c): gin-tu:ogb_products at full width and full scale."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_gnn_cell
+    from repro_torch.models.gnn import segment_sum
+
+    bundle = get_arch("gin-tu")
+    cfg, spec = bundle.arch, bundle.shapes["ogb_products"]
+    tag = f"[19] (c) {cfg.name}:{spec.name}"
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    cell = build_gnn_cell(bundle, spec.name, groups, device=dev, seed=0)
+    host_s = time.perf_counter() - t
+    st, meta = cell.setup, cell.static_meta
+    resident = torch.cuda.memory_allocated() - before
+    n, A, d, L = st["graph_n"], cell.max_arcs, cfg.d_hidden, cfg.n_layers
+    real = st["real_arcs"]
+    check(n == spec.n_nodes and abs(st["graph_arcs"] - spec.n_edges) <= 0.01 * spec.n_edges
+          and real == st["graph_arcs"],
+          f"{tag}: the graph has {n} vertices and {st['graph_arcs']} arcs ({real} dealt)")
+    print(f"{tag}: host set-up {host_s:.1f}s — sized_rmat_graph({spec.n_nodes}, {spec.n_edges}) "
+          f"{st['graph_s']:.1f}s ({st['graph_arcs']} arcs, max degree {st['max_degree']}, "
+          f"{st['isolated']} isolated vertices), full_graph_batch {st['batch_s']:.1f}s "
+          f"({spec.d_feat} features, {spec.n_classes} classes), to_2d_batch 1x1 "
+          f"{st['partition_s']:.1f}s ({A} slots, {A - real} padding), to the card "
+          f"{st['device_s']:.1f}s ({resident / GIB:.2f} GiB resident); meta {json.dumps(meta)} "
+          f"[{smi}]")
+    losses, ms = [], []
+    for _ in range(1 + GNN_OGB_STEPS):
+        t_ms, out = events_ms(cell.fn)
+        losses.append(out["loss"].item())
+        ms.append(t_ms)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not finite: {losses}")
+    med = float(np.median(ms[1:]))
+    step_s = med / 1e3
+    # bytes floors a step: 5 layers x 3 passes (forward, recompute, backward),
+    # each moving one [A, d] f32 message block by the two index arrays
+    passes = 3 * L
+    fused = passes * (A * d * 4 + 2 * A * 4)  # the gathered rows read once
+    unfused = passes * (2 * A * d * 4 + 2 * A * 4)  # ... written and read back
+    peak_reckoned = resident + A * d * 4 + (L + 2) * n * d * 4
+    print(f"{tag}: losses {', '.join(f'{x:.5f}' for x in losses)}; step {med:.1f} ms median of "
+          f"{GNN_OGB_STEPS} after a warm-up of {ms[0]:.1f} ms (CUDA events; min "
+          f"{min(ms[1:]):.1f}, max {max(ms[1:]):.1f}); {n / step_s:.4g} nodes/s, "
+          f"{real / step_s:.4g} arcs/s ({A / step_s:.4g} slots/s); model_flops "
+          f"{meta['model_flops']:.4g} = {100 * meta['model_flops'] / step_s / PEAK_F32_FLOP_PER_S:.2f}"
+          f"% of the f32 peak {PEAK_F32_FLOP_PER_S / 1e12:.0f} TFLOP/s (the reference prices a "
+          f"message MLP GIN does not have); bytes floors {fused / 1e9:.1f} GB (gathered rows read "
+          f"once) = {100 * fused / PEAK_BYTES_PER_S / step_s:.1f}% and {unfused / 1e9:.1f} GB (the "
+          f"[A, d] block written and read) = {100 * unfused / PEAK_BYTES_PER_S / step_s:.1f}% of "
+          f"the step at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; peak {peak / GIB:.2f} GiB against a "
+          f"reckoned {peak_reckoned / GIB:.2f} GiB (resident + one [A, d] f32 block + "
+          f"{L + 2} [n, d] states) [{smi}]")
+    first = gnn_loss_grads(lambda p: cell.loss_fn(p, cell.batch), cell.params)
+    second = gnn_loss_grads(lambda p: cell.loss_fn(p, cell.batch), cell.params)
+    same = first[0] == second[0] and all(torch.equal(first[1][k], second[1][k])
+                                         for k in first[1])
+    diff = max(((first[1][k] - second[1][k]).abs().max() / first[1][k].abs().max().clamp_min(
+        1e-30)).item() for k in first[1])
+    print(f"{tag}: two loss-and-gradient passes from one state: bitwise equal {same} (losses "
+          f"{first[0]!r}, {second[0]!r}; largest gradient difference {diff:.2e} of the leaf's "
+          f"largest)")
+    hc = torch.randn((cell.chunk + 1, d), device=dev)
+    src, dst = cell.batch["src_local"], cell.batch["dst_local"]
+    every = cuda_time_ms(lambda: segment_sum(hc.index_select(0, src), dst, cell.chunk + 1))
+    alone = cuda_time_ms(lambda: segment_sum(hc.index_select(0, src[:real]), dst[:real],
+                                             cell.chunk + 1))
+    print(f"{tag}: one gather-and-sum over every slot {every:.2f} ms against {alone:.2f} ms over "
+          f"the {real} real arcs: the {A - real} padding arcs (source 0, the sentinel row) cost "
+          f"{every - alone:.2f} ms a pass, ~{passes * (every - alone):.0f} ms a step")
+    del hc
+    trace_run(f"{tag} one train step", cell.fn, GNN_SHARES, host_ops=False)
+    del cell, first, second
+    torch.cuda.empty_cache()
+
+
+def gnn_phase(dev, smi: str) -> None:
+    """Phase 19: GNN training on one card — (a) the reduced archs card
+    against CPU, (b) the published widths on full_graph_sm, (c)
+    gin-tu:ogb_products at full scale, (d) no kernel of ours (see the
+    module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import GridGroups
+    from repro_torch.kernels import ops
+
+    t19 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    check(live < GIB, f"[19] {live / GIB:.2f} GiB allocated before the GNN phase")
+    print(f"[19] {smi}; {live / GIB:.2f} GiB allocated before")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gnn_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            groups = GridGroups(1, 1, 1)
+            for part, run in (("(a)", gnn_card_vs_cpu), ("(b)", gnn_published_widths),
+                              ("(c)", gnn_ogb)):
+                t = time.perf_counter()
+                run(dev, groups, smi)
+                print(f"[19] {part} done in {time.perf_counter() - t:.1f}s [{smi}]")
+        finally:
+            dist.destroy_process_group()
+    check(dict(ops.LAUNCHES) == launches, f"[19] the GNN path launched a kernel of ours: "
+          f"{ops.LAUNCHES} against {launches} before the phase")
+    print(f"[19] (d) none of K1-K7 launched; GNN training ok in "
+          f"{time.perf_counter() - t19:.1f}s [{smi}]")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no repro_torch package under {SRC}: run from a checkout of the repository")
@@ -3345,6 +3603,10 @@ def main() -> None:
     # --------------------------------------- 18. LM training on the card
     # after phase 17 has freed its caches: granite's train step takes ~57 GiB
     lm_train_phase(dev, smi)
+
+    # --------------------------------------- 19. GNN training on the card
+    # after phase 18 has freed its state: ogb_products' gathered messages take ~24 GB
+    gnn_phase(dev, smi)
 
     # --------------------------------------------------- 3. kernel parity
     t3 = time.perf_counter()

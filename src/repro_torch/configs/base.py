@@ -1,17 +1,17 @@
 """Config dataclasses and shape specs of the architectures the port runs.
 
-A copy of the LM, DLRM and BC parts of the JAX package's
-``configs/base.py`` (``MoESpec``, ``LMArch``, ``LMShape``, ``LM_SHAPES``;
+A copy of the JAX package's ``configs/base.py`` (``MoESpec``, ``LMArch``,
+``LMShape``, ``LM_SHAPES``; ``GNNArch``, ``GNNShape``, ``GNN_SHAPES``;
 ``DLRMArch``, ``DLRMShape``, ``DLRM_SHAPES``; ``BCArch``, ``BCShape``,
 ``BC_SHAPES``), field for field and default for default, so that one
-(arch × shape) pair names the same workload in both packages.  The GNN
-family is not ported yet.
+(arch × shape) pair names the same workload in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["MoESpec", "LMArch", "LMShape", "LM_SHAPES", "DLRMArch", "DLRMShape", "DLRM_SHAPES", "BCArch", "BCShape", "BC_SHAPES"]
+__all__ = ["MoESpec", "LMArch", "LMShape", "LM_SHAPES", "GNNArch", "GNNShape", "GNN_SHAPES",
+           "DLRMArch", "DLRMShape", "DLRM_SHAPES", "BCArch", "BCShape", "BC_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +59,54 @@ LM_SHAPES = (
     LMShape("prefill_32k", "prefill", 32768, 32),
     LMShape("decode_32k", "decode", 32768, 128),
     LMShape("long_500k", "decode", 524288, 1),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNArch:
+    name: str
+    kind: str  # "graphcast" | "gat" | "gin" | "meshgraphnet"
+    n_layers: int
+    d_hidden: int
+    n_heads: int = 1
+    aggregator: str = "sum"  # "sum" | "attn" | "mean"
+    mlp_layers: int = 2
+    learnable_eps: bool = False  # GIN-ε
+    mesh_refinement: int = 6  # graphcast multimesh level (metadata)
+    n_vars: int = 227  # graphcast in/out channels
+
+    @property
+    def family(self) -> str:
+        return "gnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    name: str
+    kind: str  # "full_graph" | "minibatch" | "batched_graphs"
+    n_nodes: int
+    n_edges: int
+    d_feat: int
+    n_classes: int = 47
+    batch_nodes: int = 0  # minibatch target count
+    fanout: tuple[int, ...] = ()
+    n_graphs: int = 0  # batched_graphs
+
+
+GNN_SHAPES = (
+    GNNShape("full_graph_sm", "full_graph", 2_708, 10_556, 1_433, n_classes=7),
+    GNNShape(
+        "minibatch_lg",
+        "minibatch",
+        232_965,
+        114_615_892,
+        602,
+        n_classes=41,
+        batch_nodes=1_024,
+        fanout=(15, 10),
+    ),
+    GNNShape("ogb_products", "full_graph", 2_449_029, 61_859_140, 100, n_classes=47),
+    GNNShape("molecule", "batched_graphs", 30, 64, 64, n_classes=2, n_graphs=128),
 )
 
 

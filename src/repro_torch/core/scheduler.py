@@ -117,7 +117,9 @@ def _bfs_levels(csr: tuple[np.ndarray, np.ndarray], n: int, root: int):
             break
         offsets = np.repeat(starts - np.cumsum(counts) + counts, counts)
         cand = nbr[offsets + np.arange(total)]
-        cand = np.unique(cand[depth[cand] < 0])
+        cand = cand[depth[cand] < 0]
+        cand.sort()  # distinct by sort: some numpy versions' np.unique hashes, ~20x slower
+        cand = cand[np.concatenate(([True], cand[1:] != cand[:-1]))] if cand.size else cand
         if cand.size == 0:
             break
         d += 1

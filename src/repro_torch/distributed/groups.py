@@ -22,6 +22,16 @@ the collectives rely on:
                 keeps replicas in lockstep under a ring schedule
                 (``sync_axes``).
 
+The GNN's 2-D path (models/gnn2d.py) runs the expand and the fold under
+autograd: :func:`all_gather_grad` and :func:`reduce_scatter_grad` are each
+other's transpose, :func:`sum_shared` sums a value each member uses in
+its own way (its backward sums too), and the loss's convention is that
+every member computes the loss alike from :func:`sum_loss` terms and
+backpropagates its own share, the replicated parameters'
+:func:`replicated` summing their gradients over the grid.  Every call
+goes through :func:`all_gather`, :func:`reduce_scatter` and
+:func:`all_reduce`, so the work counter sees the backward's too.
+
 The ring schedules replace the expand and the fold with point-to-point
 hops (:func:`ring_hop`, JAX's ``ppermute`` with device s sending to
 s + 1): over the column group rank (f, i, j) sends to ((i + 1) mod R)
@@ -48,6 +58,7 @@ from ..device import resolve_device
 from ..roofline import counter
 
 __all__ = ["GridGroups", "device_for_rank", "all_gather", "reduce_scatter", "all_reduce",
+           "all_gather_grad", "reduce_scatter_grad", "sum_shared", "sum_loss", "replicated",
            "ring_hop", "run_gloo"]
 
 
@@ -77,6 +88,97 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
         counter.ACTIVE.collective("all-reduce", x.nbytes, group)
     dist.all_reduce(x, op=op, group=group)
     return x
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.group), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.group), None
+
+
+class _SumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+class _SumLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+def all_gather_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_gather` under autograd: the backward reduce-scatters the
+    cotangent (each member's block summed over every member's copy)."""
+    return _AllGather.apply(x, group)
+
+
+def reduce_scatter_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`reduce_scatter` under autograd: the backward all-gathers the
+    cotangent.  Both directions move the dtype they are given, so a
+    bf16 payload (cast, collective, cast back) has a bf16 transpose."""
+    return _ReduceScatter.apply(x, group)
+
+
+def sum_shared(x: torch.Tensor, group) -> torch.Tensor:
+    """The members' sum of ``x`` (a new tensor) under autograd, for a sum
+    that each member then uses in its own way (GAT's softmax
+    denominator): the backward sums the members' cotangents."""
+    return _SumShared.apply(x, group)
+
+
+def sum_loss(x: torch.Tensor, group) -> torch.Tensor:
+    """The members' sum of ``x`` (a new tensor) under autograd, for the
+    terms of a loss that every member then computes alike and seeds with
+    1: the backward hands each member its own cotangent, so each member
+    backpropagates the loss through its own share only (summing would
+    count the one loss once per member)."""
+    return _SumLoss.apply(x, group)
+
+
+def replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (a parameter every member holds alike) under autograd: the
+    forward is the identity, the backward sums the members' cotangents,
+    so that with :func:`sum_loss` every member's gradient is the whole
+    loss's gradient (the transpose of a replicated input)."""
+    return _Replicated.apply(x, group)
 
 
 def ring_hop(tensors, send_to: int, recv_from: int, group) -> tuple[list, list]:

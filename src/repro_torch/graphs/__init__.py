@@ -19,6 +19,8 @@ from .generators import (
     path_graph,
     rmat_graph,
     road_like_graph,
+    sized_mesh_graph,
+    sized_rmat_graph,
     skewed_depth_graph,
     star_graph,
     suburb_graph,
@@ -34,6 +36,8 @@ __all__ = [
     "partition_2d",
     "partition_arcs_2d",
     "rmat_graph",
+    "sized_rmat_graph",
+    "sized_mesh_graph",
     "path_graph",
     "cycle_graph",
     "star_graph",

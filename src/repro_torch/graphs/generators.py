@@ -19,6 +19,8 @@ equality masks agree with the float64 Dijkstra oracle).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from .graph import Graph
@@ -27,7 +29,10 @@ __all__ = [
     "WEIGHT_MODES",
     "sample_weights",
     "weighted_copy",
+    "rmat_ids",
     "rmat_graph",
+    "sized_rmat_graph",
+    "sized_mesh_graph",
     "path_graph",
     "cycle_graph",
     "star_graph",
@@ -64,25 +69,10 @@ def weighted_copy(graph: Graph, weights: str = "dyadic", seed: int = 0) -> Graph
     return Graph.from_edges(graph.n, edges, weights=w)
 
 
-def rmat_graph(
-    scale: int,
-    edge_factor: int,
-    seed: int = 0,
-    a: float = 0.57,
-    b: float = 0.19,
-    c: float = 0.19,
-    weights: str = "none",
-) -> Graph:
-    """R-MAT generator (Chakrabarti et al.), paper parameters by default.
-
-    n = 2**scale vertices, m = edge_factor * n undirected edge samples
-    (duplicates / self-loops dropped, as in Graph500 practice).
-    ``weights`` is a :data:`WEIGHT_MODES` mode; duplicate samples keep the
-    first draw's weight.
-    """
-    n = 1 << scale
-    m = edge_factor * n
-    rng = np.random.default_rng(seed)
+def rmat_ids(rng: np.random.Generator, scale: int, m: int, a: float = 0.57, b: float = 0.19,
+             c: float = 0.19) -> tuple[np.ndarray, np.ndarray]:
+    """(src, dst) of ``m`` R-MAT edge draws over 2**scale ids, unsigned, not
+    permuted: low ids carry the heavy degrees."""
     # quadrant q = [r >= a] + [r >= a+b] + [r >= a+b+c] of each draw (a | b
     # over c | d): the source bit is q >= 2, the destination bit q odd —
     # the JAX package's bits, drawn from the same stream, in a few
@@ -107,7 +97,101 @@ def rmat_graph(
         np.bitwise_and(q, 1, out=bits)
         bits <<= word(bit)
         dst |= bits
-    del r, q, hit, bits
+    return src, dst
+
+
+def sized_rmat_graph(n: int, n_arcs: int, seed: int = 0) -> Graph:
+    """An R-MAT graph of exactly ``n`` vertices and ``n_arcs`` arcs (even):
+    R-MAT draws over 2**ceil(log2 n) ids, the pairs with both ends below n
+    kept (skewed degrees), self loops and duplicates dropped, drawn again
+    until there are n_arcs / 2 distinct pairs, then n_arcs / 2 of them
+    chosen at random and the ids permuted, so that degree is not
+    correlated with id.  The synthetic stand-in for a published graph of
+    that size (the GNN shapes' ``n_nodes`` and ``n_edges``)."""
+    if n_arcs % 2 or n_arcs < 0 or n_arcs > n * (n - 1):
+        raise ValueError(f"n_arcs must be even and at most n·(n−1), got {n_arcs} for n = {n}")
+    scale = max(1, (n - 1).bit_length())
+    want = n_arcs // 2
+    rng = np.random.default_rng(seed)
+    keys = np.zeros(0, np.int64)
+    draws = want + want // 2 + 64
+    while keys.size < want:
+        src, dst = rmat_ids(rng, scale, draws)
+        keep = (src < n) & (dst < n) & (src != dst)
+        lo = np.minimum(src[keep], dst[keep]).astype(np.int64)
+        hi = np.maximum(src[keep], dst[keep]).astype(np.int64)
+        del src, dst, keep
+        keys = np.concatenate([keys, lo * n + hi])
+        del lo, hi
+        # distinct keys by an in-place sort (some numpy versions' np.unique
+        # hashes, ~20x slower on these 10^7-10^8 keys)
+        keys.sort()
+        first = np.ones(keys.size, dtype=np.bool_)
+        np.not_equal(keys[1:], keys[:-1], out=first[1:])
+        keys = keys[first]
+        del first
+        draws = 2 * (want - keys.size) + 64
+    keys = keys[rng.permutation(keys.size)[:want]]
+    perm = rng.permutation(n)
+    u, v = np.divmod(keys, n)
+    del keys
+    return Graph.from_edges(n, np.stack([perm[u], perm[v]], axis=1))
+
+
+def sized_mesh_graph(n: int, n_arcs: int, seed: int = 0) -> Graph:
+    """A mesh-like graph of exactly ``n`` vertices and ``n_arcs`` arcs
+    (even): vertex i sits at (i mod w, i div w) of a lattice w = ceil(√n)
+    wide and is joined to its lattice neighbours at the displacements of
+    least length first (no wrap across a row), until there are at least
+    n_arcs / 2 candidate edges; n_arcs / 2 of them are kept at random.
+    Degrees stay within twice the displacements used (4 at Cora's 3.9
+    arcs a vertex): the stand-in for the meshes GraphCast and
+    MeshGraphNet pass messages on, where an R-MAT graph's hubs would
+    make their unnormalised sums overflow f32."""
+    if n_arcs % 2 or n_arcs < 0 or n_arcs > n * (n - 1):
+        raise ValueError(f"n_arcs must be even and at most n·(n−1), got {n_arcs} for n = {n}")
+    want = n_arcs // 2
+    w = max(1, math.isqrt(max(n - 1, 0)) + 1)
+    i = np.arange(n, dtype=np.int64)
+    x = i % w
+    us, vs, total = [], [], 0
+    r2 = 0
+    while total < want:  # every pair is some displacement: n_arcs <= n·(n−1) ends it
+        r2 += 1
+        for dy in range(math.isqrt(r2) + 1):
+            dx = math.isqrt(r2 - dy * dy)
+            if dx * dx + dy * dy != r2:
+                continue
+            for sx in sorted({dx, -dx}) if dy > 0 else ([dx] if dx > 0 else []):
+                keep = (x + sx >= 0) & (x + sx < w) & (i + sx + dy * w < n)
+                us.append(i[keep])
+                vs.append(i[keep] + sx + dy * w)
+                total += us[-1].size
+    u, v = np.concatenate(us), np.concatenate(vs)
+    pick = np.sort(np.random.default_rng(seed).permutation(u.size)[:want])
+    return Graph.from_edges(n, np.stack([u[pick], v[pick]], axis=1))
+
+
+def rmat_graph(
+    scale: int,
+    edge_factor: int,
+    seed: int = 0,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    weights: str = "none",
+) -> Graph:
+    """R-MAT generator (Chakrabarti et al.), paper parameters by default.
+
+    n = 2**scale vertices, m = edge_factor * n undirected edge samples
+    (duplicates / self-loops dropped, as in Graph500 practice).
+    ``weights`` is a :data:`WEIGHT_MODES` mode; duplicate samples keep the
+    first draw's weight.
+    """
+    n = 1 << scale
+    m = edge_factor * n
+    rng = np.random.default_rng(seed)
+    src, dst = rmat_ids(rng, scale, m, a, b, c)
     # permute vertex ids so degree is not correlated with id
     perm = rng.permutation(n)
     w = sample_weights(rng, m, weights)

@@ -155,6 +155,16 @@ class Graph:
         ends = np.searchsorted(src, np.arange(self.n), side="right")
         return [(dst[s:e], w[s:e]) for s, e in zip(starts, ends)]
 
+    def csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ptr int64 [n+1], col_idx int32 [m2]) CSR view: the arcs in
+        a stable order by source (the neighbour sampler's table)."""
+        order = np.argsort(self.src, kind="stable")
+        col = self.dst[order]
+        counts = np.bincount(self.src, minlength=self.n)
+        row_ptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_ptr[1:])
+        return row_ptr, col.astype(np.int32)
+
     def connected_components(self) -> np.ndarray:
         """int64 [n] component label per vertex (host-side union-find)."""
         parent = np.arange(self.n, dtype=np.int64)

@@ -643,6 +643,27 @@ class TwoDPartition:
         return slots
 
 
+def _partition_one_cell(src, dst, n: int, arc_pad_multiple: int,
+                        max_arcs: int | None) -> TwoDPartition:
+    """:func:`partition_arcs_2d` on a 1 × 1 grid, the same arrays without
+    the general path's passes: the cell holds every arc in input order,
+    its local indices the global ones (chunk = n)."""
+    m = int(np.size(src))
+    if max_arcs is None:
+        max_arcs = max(m, 1)
+        max_arcs += (-max_arcs) % arc_pad_multiple
+    elif m > max_arcs:
+        raise ValueError(f"max_arcs={max_arcs} < worst cell {m}")
+    out_src = np.zeros((1, 1, max_arcs), dtype=np.int32)
+    out_dst = np.full((1, 1, max_arcs), n, dtype=np.int32)
+    out_perm = np.full((1, 1, max_arcs), -1, dtype=np.int64)
+    out_src[0, 0, :m] = src
+    out_dst[0, 0, :m] = dst
+    out_perm[0, 0, :m] = np.arange(m)
+    return TwoDPartition(R=1, C=1, n=n, chunk=n, src_local=out_src, dst_local=out_dst,
+                         arc_counts=np.full((1, 1), m, dtype=np.int64), arc_perm=out_perm)
+
+
 def partition_2d(graph: Graph, R: int, C: int, arc_pad_multiple: int = 8) -> TwoDPartition:
     """Partition ``graph`` over an R×C grid (see module docstring)."""
     return partition_arcs_2d(
@@ -661,6 +682,8 @@ def partition_arcs_2d(
 ) -> TwoDPartition:
     """2-D partition of an arbitrary (possibly asymmetric) arc list."""
     chunk = -(-n // (R * C))  # ceil
+    if R * C == 1:
+        return _partition_one_cell(src, dst, n, arc_pad_multiple, max_arcs)
     src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
 
     src_chunk = src // chunk

@@ -48,6 +48,15 @@ parameters themselves, no copy; a bf16 one reads as numpy through
 ``.view(torch.int16)``).  :func:`lm_optimizer_state_to_jax` /
 :func:`lm_optimizer_state_from_jax` do for an LM optimizer's state what
 the DLRM functions do, keyed like that tree.
+
+The GNN's parameters: :func:`gnn_params_from_jax` takes the JAX package's
+GNN tree (``enc_w``, ``dec_b``, …, ``layers`` of leaves stacked on L) and
+gives the port's flat dict (``models/gnn.py``: the same leaves under
+dotted names, ``layers.w1``), bit for bit; :func:`gnn_params_to_jax`
+nests a flat dict back into that tree (the tensors themselves, no copy).
+:func:`gnn_optimizer_state_to_jax` / :func:`gnn_optimizer_state_from_jax`
+carry an optimizer's state of those parameters in the reference's
+layout, built from the same pieces as the DLRM and LM ones.
 """
 from __future__ import annotations
 
@@ -76,6 +85,10 @@ __all__ = [
     "lm_params_to_jax",
     "lm_optimizer_state_to_jax",
     "lm_optimizer_state_from_jax",
+    "gnn_params_from_jax",
+    "gnn_params_to_jax",
+    "gnn_optimizer_state_to_jax",
+    "gnn_optimizer_state_from_jax",
 ]
 
 
@@ -365,5 +378,57 @@ def lm_optimizer_state_from_jax(opt, model, tree) -> None:
     for p in model.parameters():
         opt.state[p]["step"] = step
     views = lm_optimizer_state_to_jax(opt, model)
+    assign_jax_layout({slot: views[slot] for slot in _slots(opt)},
+                      {slot: tree[slot] for slot in _slots(opt)})
+
+
+def gnn_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The port's GNN parameters (``{name: f32 CPU tensor}``, dotted names)
+    from the JAX package's GNN tree (numpy arrays, or anything
+    ``np.asarray`` reads), bit for bit."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update({f"{key}.{k}": v for k, v in gnn_params_from_jax(value).items()})
+            continue
+        t = _from_numpy(value)
+        if t.dtype != torch.float32:
+            raise ValueError(f"{key} must be float32, got {t.dtype}")
+        out[key] = t
+    return out
+
+
+def gnn_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+    """The JAX package's GNN tree of a flat ``{dotted name: tensor}`` dict
+    (the tensors themselves, no copy)."""
+    tree: dict = {}
+    for name, t in params.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return tree
+
+
+def gnn_optimizer_state_to_jax(opt, params: Mapping[str, torch.Tensor]) -> dict:
+    """The reference's optimizer state of the GNN parameters ``params``
+    (``{"step": i32 0-d, <field>: tree as gnn_params_to_jax}``), each leaf
+    the optimizer's own state tensor (the GNN keeps the reference's
+    layout: nothing transposed or swapped)."""
+    tree = {"step": _one_step(opt, params.values())}
+    for slot in _slots(opt):
+        tree[slot] = gnn_params_to_jax({k: opt.state[p][slot] for k, p in params.items()})
+    return tree
+
+
+def gnn_optimizer_state_from_jax(opt, params: Mapping[str, torch.Tensor], tree) -> None:
+    """Copy the reference's optimizer state ``tree`` of GNN parameters (as
+    :func:`gnn_optimizer_state_to_jax` lays it out) into ``opt``, in
+    place; every parameter takes its ``step``."""
+    step = int(np.asarray(tree["step"]))
+    for p in params.values():
+        opt.state[p]["step"] = step
+    views = gnn_optimizer_state_to_jax(opt, params)
     assign_jax_layout({slot: views[slot] for slot in _slots(opt)},
                       {slot: tree[slot] for slot in _slots(opt)})

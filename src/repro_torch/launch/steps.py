@@ -1,7 +1,7 @@
 """Cell programs of the port: (arch × shape) -> a callable.
 
-The counterpart of the JAX package's ``launch/steps.py`` for the archs
-the port has: the LMs' serving shapes (``_build_lm_cell`` there), DLRM
+The counterpart of the JAX package's ``launch/steps.py``: the LMs
+(``_build_lm_cell`` there), the GNNs (``_build_gnn_cell``), DLRM
 (``_build_dlrm_cell``) and the paper's own BC workload
 (``_build_bc_cell``); :func:`build_cell` dispatches on the arch.
 
@@ -57,6 +57,22 @@ callable runs one round on inputs sources i32 [fr, s] and derived i32
 round on placeholder arrays; this one runs it.  ``static_meta`` is
 computed from the shapes and the grid alone (:func:`bc_static_meta`), so
 a shape no card holds still has its meta.
+
+A GNN cell is one train step of the shape's graph on a caller's grid,
+through the 2-D decomposed message passing (``models/gnn2d.py``, the JAX
+cell's path): the graph made on the host from a seed at the shape's vertex and arc
+counts (``graphs.sized_rmat_graph``, skewed degrees, for GAT and GIN;
+``graphs.sized_mesh_graph``, bounded degrees, for the mesh GNNs
+graphcast and meshgraphnet, whose unnormalised sums over 15–16 layers
+overflow f32 at an R-MAT hub — the reference's arithmetic; the molecule
+shape's disjoint union; the minibatch shape's sampled block),
+its flat batch (``data/graphs.py``) dealt onto the grid by
+``to_2d_batch``, the rank's part and the parameters on the device, and
+``adamw(1e-3)`` over them.  Its callable takes one step (the rank's
+part of a 2-D batch, the cell's own by default) and returns the loss.
+``static_meta`` (``n_params``, ``model_flops``, ``n_nodes``,
+``n_edges``) is the JAX cell's, from the shapes alone
+(:func:`gnn_static_meta`).
 """
 from __future__ import annotations
 
@@ -71,15 +87,17 @@ import torch
 
 from ..autotune import AUTOTUNE_MODES, CostCache, graph_key
 from ..checkpoint.checkpointer import DEFAULT_GENERATIONS
-from ..configs.base import BCArch, BCShape, DLRMArch, DLRMShape, LMArch
+from ..configs.base import BCArch, BCShape, DLRMArch, DLRMShape, GNNArch, LMArch
 from ..configs.registry import ArchBundle
 from ..core.distributed import distributed_graph_arrays, make_distributed_round_fn
 from ..core.driver import DEFAULT_MAX_RETRIES, DEFAULT_RETRY_BACKOFF_S
 from ..core.scheduler import Schedule, build_schedule
 from ..device import resolve_device
 from ..distributed.chaos import FAULT_KINDS
+from ..data.graphs import full_graph_batch, minibatch_batch, molecule_batch, synth_features, to_2d_batch
+from ..data.sampler import NeighborSampler
 from ..distributed.groups import GridGroups, device_for_rank
-from ..graphs.generators import rmat_graph
+from ..graphs.generators import rmat_graph, sized_mesh_graph, sized_rmat_graph
 from ..graphs.graph import Graph
 from ..graphs.partition import TwoDPartition, default_tile_dim, partition_2d
 from ..interop import (
@@ -91,15 +109,19 @@ from ..interop import (
     optimizer_state_from_jax,
     optimizer_state_to_jax,
 )
+from ..models import gnn as gnn_mod
 from ..models import transformer as tf
 from ..models.dlrm import DLRM, dlrm_loss, interaction_dims, retrieval_scores
+from ..models.gnn2d import gnn2d_local_batch, make_gnn2d_loss_fn
 from ..optim import adafactor, adamw
 from ..roofline.model import device_hbm_footprint
 
 __all__ = ["LMCell", "build_lm_cell", "lm_model_flops", "lm_analytic_bytes", "lm_static_meta",
            "DLRMCell", "build_dlrm_cell", "dlrm_model_flops", "dlrm_n_params", "pad_mult",
            "make_optimizer",
-           "RETRIEVAL_TOP_K", "BCCell", "build_bc_cell", "bc_static_meta", "build_cell"]
+           "RETRIEVAL_TOP_K", "BCCell", "build_bc_cell", "bc_static_meta", "GNNCell",
+           "build_gnn_cell", "gnn_cell_batch", "gnn_workload", "gnn_static_meta", "gnn_layout",
+           "build_cell"]
 
 RETRIEVAL_TOP_K = 100
 DEV_MULT = 512  # the JAX cells pad the candidate count to this multiple
@@ -446,6 +468,163 @@ def build_dlrm_cell(bundle: ArchBundle, shape_name: str, device=None, seed: int 
     )
 
 
+# -------------------------------------------------------------------- GNN
+def gnn_workload(shape) -> tuple[int, int]:
+    """(nodes, arcs) of one step of a GNN shape: the sampled block's for a
+    minibatch shape, all the graphs' for a batched one."""
+    if shape.kind == "minibatch":
+        t = shape.batch_nodes
+        n_nodes, n_edges, frontier = t, 0, t
+        for f in shape.fanout:
+            n_edges += frontier * f
+            frontier *= f
+            n_nodes += frontier
+    else:
+        n_nodes = shape.n_nodes * (shape.n_graphs or 1)
+        n_edges = shape.n_edges * (shape.n_graphs or 1)
+    return n_nodes, n_edges
+
+
+def gnn_layout(shape, R: int, C: int) -> tuple[int, int]:
+    """(chunk, max_arcs) of a GNN shape on an R × C grid, the JAX cell's:
+    ceil(nodes / p) and 1.5 · arcs / p + 8 arc slots (imbalance headroom)
+    rounded up to a multiple of 8."""
+    n_nodes, n_edges = gnn_workload(shape)
+    p = R * C
+    max_arcs = int(1.5 * n_edges / p) + 8
+    return -(-n_nodes // p), max_arcs + (-max_arcs) % 8
+
+
+def gnn_static_meta(cfg: GNNArch, shape) -> dict:
+    """The JAX GNN cell's ``static_meta``, from the shapes alone: the
+    parameter count and the model FLOP of a step — a message MLP (2d→d,
+    d→d) per arc and an update MLP per node a layer, plus the encoder,
+    3× for forward and backward (GIN has no message MLP: the count is the
+    reference's, not GIN's work)."""
+    d_out = gnn_mod.output_dim(cfg, shape)
+    n_nodes, n_edges = gnn_workload(shape)
+    d = gnn_mod.hidden_dim(cfg)
+    per_layer = 2 * n_edges * (2 * d) * d + 2 * n_edges * d * d
+    per_layer += 2 * n_nodes * (2 * d) * d + 2 * n_nodes * d * d
+    return {
+        "n_params": gnn_mod.n_params(cfg, shape.d_feat, d_out),
+        "model_flops": 3.0 * (cfg.n_layers * per_layer + 2 * n_nodes * shape.d_feat * d),
+        "n_nodes": n_nodes,
+        "n_edges": n_edges,
+    }
+
+
+@dataclasses.dataclass
+class GNNCell:
+    """One GNN train step of a shape on a grid: ``fn(batch=None)`` takes an
+    AdamW step on the rank's part of a 2-D batch (the cell's own when
+    None) and returns ``{"loss": f32 0-d}``, the loss before the step.
+    Without a grid (meta only) everything but the meta is None."""
+
+    name: str
+    fn: Callable | None
+    static_meta: dict
+    params: dict | None = None  #: {dotted name: tensor}, models/gnn.py's layout
+    optimizer: torch.optim.Optimizer | None = None
+    batch: dict | None = None  #: the rank's part of the cell's 2-D batch, on the device
+    loss_fn: Callable | None = None  #: loss_fn(params, batch), make_gnn2d_loss_fn's
+    chunk: int = 0
+    max_arcs: int = 0
+    setup: dict = dataclasses.field(default_factory=dict)  #: host seconds and sizes
+
+
+#: the GNN kinds that pass messages on meshes (bounded degree): their cells'
+#: graphs are ``sized_mesh_graph``, the others' ``sized_rmat_graph``
+MESH_KINDS = ("graphcast", "meshgraphnet")
+
+
+def gnn_cell_batch(cfg: GNNArch, shape, seed: int = 0, setup: dict | None = None) -> dict:
+    """The GNN cell's flat batch of ``shape`` (models/gnn.py's format,
+    numpy, padded to :func:`gnn_workload`) from ``seed``; ``setup``, when
+    given, takes the host seconds and the graph's sizes."""
+    setup = {} if setup is None else setup
+    n_nodes, n_edges = gnn_workload(shape)
+    d_out = gnn_mod.output_dim(cfg, shape)
+    t = time.perf_counter()
+    if shape.kind == "batched_graphs":
+        batch = molecule_batch(cfg, shape.n_graphs, shape.n_nodes, shape.n_edges, n_nodes,
+                               n_edges, shape.d_feat, d_out, shape.n_classes, seed=seed)
+        setup["graph_s"] = 0.0
+        setup["batch_s"] = time.perf_counter() - t
+        return batch
+    make = sized_mesh_graph if cfg.kind in MESH_KINDS else sized_rmat_graph
+    graph = make(shape.n_nodes, shape.n_edges, seed=seed)
+    setup["graph_s"] = time.perf_counter() - t
+    setup["graph_n"], setup["graph_arcs"] = graph.n, graph.num_arcs
+    degrees = graph.degrees()
+    setup["max_degree"], setup["isolated"] = int(degrees.max()), int((degrees == 0).sum())
+    del degrees
+    t = time.perf_counter()
+    if shape.kind == "minibatch":
+        features = synth_features(graph.n, shape.d_feat, seed)
+        sampler = NeighborSampler(graph, shape.fanout, seed=seed)
+        targets = np.random.default_rng(seed).choice(graph.n, shape.batch_nodes, replace=False)
+        batch = minibatch_batch(cfg, graph, features, sampler, targets, n_nodes, n_edges,
+                                shape.n_classes, seed=seed)
+    else:
+        batch = full_graph_batch(cfg, graph, n_nodes, n_edges, shape.d_feat, d_out,
+                                 shape.n_classes, seed=seed)
+    setup["batch_s"] = time.perf_counter() - t
+    return batch
+
+
+def build_gnn_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups, *, device=None,
+                   seed: int = 0) -> GNNCell:
+    """The GNN train cell of ``shape_name`` on the caller's R × C grid
+    (fr = 1; every rank calls it, as every rank builds the groups): the
+    shape's flat batch from ``seed`` on the host, ``to_2d_batch`` onto the
+    grid at the JAX cell's layout (:func:`gnn_layout`), the rank's part
+    on ``device`` (None: the card; ``"cpu"`` for gloo ranks; index arrays
+    int32, the dtype ``index_select`` / ``index_add`` take), the
+    parameters drawn there from a generator seeded with ``seed`` (equal
+    on every rank of one device type), bf16 expand and fold payloads and
+    ``adamw(1e-3)``, as the JAX cell.  ``setup`` records the host seconds
+    of each step apart (``graph_s``, ``batch_s``, ``partition_s``,
+    ``device_s``) and the sizes."""
+    cfg, shape = bundle.arch, bundle.shapes[shape_name]
+    if not isinstance(cfg, GNNArch):
+        raise TypeError(f"not a GNN arch: {type(cfg).__name__}")
+    if groups.fr != 1:
+        raise ValueError(f"a GNN cell runs on an R x C grid, not {groups.fr} replicas")
+    dev = device_for_rank(device)
+    chunk, max_arcs = gnn_layout(shape, groups.R, groups.C)
+    setup = {}
+    batch = gnn_cell_batch(cfg, shape, seed, setup)
+    t = time.perf_counter()
+    b2d = to_2d_batch(batch, batch["node_feat"].shape[0], groups.R, groups.C, max_arcs=max_arcs)
+    del batch
+    setup["partition_s"] = time.perf_counter() - t
+    setup["real_arcs"] = int((b2d["dst_local"] < groups.C * chunk).sum())
+    t = time.perf_counter()
+    local = gnn2d_local_batch(b2d, groups, dev)
+    del b2d
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = gnn_mod.init_params(cfg, shape.d_feat, gnn_mod.output_dim(cfg, shape), gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    setup["device_s"] = time.perf_counter() - t
+    optimizer = adamw(params.values(), 1e-3)
+    loss_fn = make_gnn2d_loss_fn(cfg, groups, shape.kind, chunk=chunk, max_arcs=max_arcs,
+                                 n_graphs=shape.n_graphs or 0, gather_dtype=torch.bfloat16,
+                                 fold_dtype=torch.bfloat16)
+
+    def fn(batch: dict | None = None) -> dict:
+        loss = loss_fn(params, local if batch is None else batch)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
+
+    return GNNCell(name=f"{cfg.name}:{shape.name}", fn=fn,
+                   static_meta=gnn_static_meta(cfg, shape), params=params, optimizer=optimizer,
+                   batch=local, loss_fn=loss_fn, chunk=chunk, max_arcs=max_arcs, setup=setup)
+
+
 # --------------------------------------------------------------------- BC
 #: the engines whose per-device footprint a BC cell's meta prices: the
 #: port's names of the JAX cell's "sparse", "pallas" and "pallas_sparse"
@@ -602,7 +781,10 @@ def build_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups | None = 
     :func:`build_dlrm_cell` (``kwargs``: device, seed, model).  BC: with ``groups``, the runnable round on that
     grid (:func:`build_bc_cell`; ``kwargs``: device, seed); without, only
     the meta on ``grid`` = (fr, R, C), which takes the place of the JAX
-    mesh (:func:`bc_static_meta`; no graph is made)."""
+    mesh (:func:`bc_static_meta`; no graph is made).  GNN: with ``groups``,
+    the runnable train step on that grid (:func:`build_gnn_cell`;
+    ``kwargs``: device, seed); without, only the meta
+    (:func:`gnn_static_meta`, which the grid does not change)."""
     arch = bundle.arch
     if isinstance(arch, LMArch):
         return build_lm_cell(bundle, shape_name, **kwargs)
@@ -614,4 +796,10 @@ def build_cell(bundle: ArchBundle, shape_name: str, groups: GridGroups | None = 
         shape = bundle.shapes[shape_name]
         return BCCell(name=f"{arch.name}:{shape.name}", fn=None,
                       static_meta=bc_static_meta(arch, shape, *grid), fr=grid[0])
+    if isinstance(arch, GNNArch):
+        if groups is not None:
+            return build_gnn_cell(bundle, shape_name, groups, **kwargs)
+        shape = bundle.shapes[shape_name]
+        return GNNCell(name=f"{arch.name}:{shape.name}", fn=None,
+                       static_meta=gnn_static_meta(arch, shape))
     raise TypeError(f"no cell for arch {type(arch).__name__}")

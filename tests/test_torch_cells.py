@@ -72,8 +72,9 @@ def test_bc_configs_match_jax_field_by_field():
         f.name for f in dataclasses.fields(jbase.BCArch)]
     assert pconfigs.BCArch("x", 1, 2) == pconfigs.BCArch("x", 1, 2, 16, "h3", 24)
     assert pconfigs.list_archs() == [
-        "bc-rmat", "codeqwen1.5-7b", "deepseek-coder-33b", "dlrm-rm2", "gemma-7b",
-        "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
+        "bc-rmat", "codeqwen1.5-7b", "deepseek-coder-33b", "dlrm-rm2", "gat-cora", "gemma-7b",
+        "gin-tu", "granite-moe-1b-a400m", "graphcast", "llama4-maverick-400b-a17b",
+        "meshgraphnet"]
 
 
 # ------------------------------------------------------------- static meta

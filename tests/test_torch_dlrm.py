@@ -225,8 +225,9 @@ def test_cells_of_several_shapes_share_one_model():
 
 def test_config_copies_match_jax_field_by_field():
     assert list_archs() == [
-        "bc-rmat", "codeqwen1.5-7b", "deepseek-coder-33b", "dlrm-rm2", "gemma-7b",
-        "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
+        "bc-rmat", "codeqwen1.5-7b", "deepseek-coder-33b", "dlrm-rm2", "gat-cora", "gemma-7b",
+        "gin-tu", "granite-moe-1b-a400m", "graphcast", "llama4-maverick-400b-a17b",
+        "meshgraphnet"]
     got, want = get_arch("dlrm-rm2"), jax_get_arch("dlrm-rm2")
     assert dataclasses.asdict(got.arch) == dataclasses.asdict(want.arch)
     assert got.arch.rows_per_table == 10_485_760 and got.arch.hot_size == 1

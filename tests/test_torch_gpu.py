@@ -32,7 +32,14 @@ the CPU's expert routes (tests/torch_lm_routes.py, which imports no
 JAX): the score product's autograd Function (its f32 cotangent products
 within one bf16 unit plus 1e-5 of the sum of |terms|), lm_loss (1e-2 relative) and every
 gradient (5 % of its largest value), and one train-cell step (μ 5 %,
-second moments 10 %, parameters within 2·lr plus one unit).
+second moments 10 %, parameters within 2·lr plus one unit).  The GNN
+path (no kernel of ours), card against CPU at the tolerances the CPU
+tests hold against the JAX package: the flat loss rtol 1e-5 and every
+gradient rtol 1e-4 / atol 1e-6 (tests/test_torch_gnn.py), the 2-D path on
+the 1×1 NCCL grid against the CPU's flat path at loss rtol 1e-4,
+gradients rtol 1e-3 / atol 1e-5 (tests/test_dist_gnn2d.py); gin-tu's
+train cell at its published width on full_graph_sm against the CPU's
+flat loss of the same parameters within 1e-2 (bf16 expand and fold).
 """
 import os
 import subprocess
@@ -1197,3 +1204,103 @@ def test_reduced_train_cell_step_on_the_card_matches_the_cpu(cuda, name):
             got_v = sg["opt"][slot]["layers"][key].cpu()
             if want_v.abs().max() > 0:
                 assert (got_v - want_v).abs().max() <= tol * want_v.abs().max(), (slot, key)
+
+
+# ------------------------------------------------------------------- GNN
+GNN_CASES = {"gat-cora": "full", "gin-tu": "full", "graphcast": "full", "meshgraphnet": "full",
+             "gin-tu-molecule": "molecule", "gat-cora-minibatch": "minibatch"}
+
+
+def _gnn_case(case):
+    """(reduced cfg, flat batch, shape kind) of tests/test_dist_gnn2d.py's cases."""
+    import dataclasses
+
+    from repro_torch.data import (
+        NeighborSampler,
+        block_budget,
+        full_graph_batch,
+        minibatch_batch,
+        molecule_batch,
+    )
+
+    kind = GNN_CASES[case]
+    name = case.rsplit("-", 1)[0] if kind != "full" else case
+    cfg = dataclasses.replace(get_arch(name).arch, n_layers=2, d_hidden=8, n_vars=5)
+    if kind == "molecule":
+        return cfg, molecule_batch(cfg, n_graphs=6, nodes_per=8, edges_per=16, n_nodes_pad=64,
+                                   n_edges_pad=128, d_feat=10, d_out=2, n_classes=2,
+                                   seed=2), "batched_graphs", 2, 6
+    if kind == "minibatch":
+        g = pg.gnp_graph(120, 0.08, seed=5)
+        feats = np.random.default_rng(0).standard_normal((120, 12)).astype(np.float32)
+        n_blk, e_blk = block_budget(8, (4, 3))
+        return cfg, minibatch_batch(cfg, g, feats, NeighborSampler(g, (4, 3), seed=1),
+                                    np.arange(8), n_blk + 8, e_blk + 8,
+                                    n_classes=5), "minibatch", 5, 0
+    d_out = 5 if cfg.kind == "graphcast" else (3 if cfg.kind == "meshgraphnet" else 7)
+    return cfg, full_graph_batch(cfg, pg.gnp_graph(40, 0.15, seed=3), 48, 256, 12, d_out,
+                                 n_classes=7, seed=1), "full_graph", d_out, 0
+
+
+def _gnn_loss_grads(loss_of, params):
+    loss = loss_of(params)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), {k: g.detach().cpu() for k, g in zip(params, grads)}
+
+
+def _gnn_close(got, want, loss_rtol, rtol, atol):
+    assert abs(got[0] - want[0]) <= loss_rtol * abs(want[0]), (got[0], want[0])
+    for key, w in want[1].items():
+        torch.testing.assert_close(got[1][key], w, rtol=rtol, atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("case", sorted(GNN_CASES))
+def test_reduced_gnn_on_the_card_matches_the_cpu(nccl_1x1, case):
+    """The flat path on the card and the 2-D path on the 1x1 NCCL grid
+    (f32 payloads), from the CPU's parameters and batch, against the CPU's
+    flat loss and gradients."""
+    from repro_torch.data import to_2d_batch
+    from repro_torch.models import gnn as gnn_mod
+    from repro_torch.models.gnn2d import gnn2d_local_batch, make_gnn2d_loss_fn
+
+    dev = torch.device("cuda")
+    cfg, batch, kind, d_out, n_graphs = _gnn_case(case)
+    d_feat = batch["node_feat"].shape[1]
+    params = gnn_mod.init_params(cfg, d_feat, d_out, torch.Generator().manual_seed(0))
+    card = {k: v.detach().to(dev).requires_grad_(True) for k, v in params.items()}
+    flat = {k: torch.from_numpy(v) for k, v in batch.items()}
+    flat_card = {k: v.to(dev) for k, v in flat.items()}
+    want = _gnn_loss_grads(lambda p: gnn_mod.gnn_loss(cfg, p, flat, kind)[0], params)
+    got = _gnn_loss_grads(lambda p: gnn_mod.gnn_loss(cfg, p, flat_card, kind)[0], card)
+    _gnn_close(got, want, 1e-5, 1e-4, 1e-6)
+    n = batch["node_feat"].shape[0]
+    b2d = to_2d_batch(batch, n, 1, 1)
+    loss_fn = make_gnn2d_loss_fn(cfg, nccl_1x1, kind, chunk=n, max_arcs=b2d["src_local"].shape[2],
+                                 n_graphs=n_graphs)
+    local = gnn2d_local_batch(b2d, nccl_1x1, dev)
+    _gnn_close(_gnn_loss_grads(lambda p: loss_fn(p, local), card), want, 1e-4, 1e-3, 1e-5)
+
+
+def test_gin_train_cell_at_published_width_on_the_card(nccl_1x1):
+    """gin-tu (5 x 64) on full_graph_sm through build_gnn_cell on the 1x1
+    NCCL grid: the first step's loss within 1e-2 of the CPU's flat loss
+    of the same parameters and graph, three steps' losses finite and
+    falling, and no kernel of ours launched."""
+    from repro_torch.launch.steps import build_gnn_cell, gnn_cell_batch
+    from repro_torch.models import gnn as gnn_mod
+
+    bundle = get_arch("gin-tu")
+    shape = bundle.shapes["full_graph_sm"]
+    launches = dict(ops.LAUNCHES)
+    cell = build_gnn_cell(bundle, shape.name, nccl_1x1, seed=0)
+    assert cell.batch["node_feat"].is_cuda and cell.batch["src_local"].dtype == torch.int32
+    params = {k: v.detach().cpu() for k, v in cell.params.items()}
+    flat = gnn_cell_batch(bundle.arch, shape, seed=0)
+    with torch.no_grad():
+        want = gnn_mod.gnn_loss(bundle.arch, params, {k: torch.from_numpy(v)
+                                                      for k, v in flat.items()},
+                                "full_graph")[0].item()
+    losses = [cell.fn()["loss"].item() for _ in range(3)]
+    assert abs(losses[0] - want) <= 1e-2 * abs(want), (losses[0], want)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert dict(ops.LAUNCHES) == launches
