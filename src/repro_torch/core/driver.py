@@ -47,6 +47,7 @@ from ..distributed.fault_tolerance import (
     plan_elastic_remesh,
     schedule_fingerprint,
 )
+from .. import tracing
 from . import engine
 from .heuristics.one_degree import OneDegreeReduction, leaf_correction
 from ..kernels.ops import bucket_index
@@ -158,55 +159,58 @@ def traversal_round(
     not run) and its own bc-sum claim ``Σ bc_local``, computed before the
     block leaves the round.
     """
-    integrity = normalize_integrity(integrity)
-    if getattr(op, "weighted", False):
-        return _weighted_round(op, sources, derived, omega, num_levels=num_levels,
-                               integrity=integrity)
-    checksum = integrity == "checksum"
-    row_ids = op.row_ids()
+    with tracing.span("bc.round"):
+        integrity = normalize_integrity(integrity)
+        if getattr(op, "weighted", False):
+            return _weighted_round(op, sources, derived, omega, num_levels=num_levels,
+                                   integrity=integrity)
+        checksum = integrity == "checksum"
+        row_ids = op.row_ids()
 
-    # ---------------------------------------------------------- forward
-    src_onehot = (
-        (row_ids[:, None] == sources[None, :]) & (sources[None, :] >= 0)
-    ).to(torch.float32)
-    fwd = engine.forward_counting(op, src_onehot, num_levels=num_levels, checksum=checksum)
+        # ---------------------------------------------------------- forward
+        src_onehot = (
+            (row_ids[:, None] == sources[None, :]) & (sources[None, :] >= 0)
+        ).to(torch.float32)
+        fwd = engine.forward_counting(op, src_onehot, num_levels=num_levels, checksum=checksum)
 
-    # ------------------------------------------- derived 2-degree columns
-    sigma_c, depth_c = derive_two_degree_columns(
-        fwd.sigma, fwd.depth, derived, row_ids=row_ids
-    )
-    sigma_all = torch.cat([fwd.sigma, sigma_c], dim=1)
-    depth_all = torch.cat([fwd.depth, depth_c], dim=1)
+        # ------------------------------------------- derived 2-degree columns
+        sigma_c, depth_c = derive_two_degree_columns(
+            fwd.sigma, fwd.depth, derived, row_ids=row_ids
+        )
+        sigma_all = torch.cat([fwd.sigma, sigma_c], dim=1)
+        depth_all = torch.cat([fwd.depth, depth_c], dim=1)
 
-    # ---------------------------------------------------------- backward
-    # decomposed max: grid first (this replica's own depth, the round's
-    # levels), then the replica-lockstep extension for the loop bound (a
-    # no-op on every ported schedule); one readback per round
-    grid_max = op.reduce_max_grid(depth_all.max())
-    max_depth = int(op.reduce_max_sync(grid_max))
-    bwd = engine.backward_accumulation(
-        op, sigma_all, depth_all, omega, max_depth, num_levels=num_levels, checksum=checksum
-    )
-    delta, bwd_err = bwd if checksum else (bwd, None)
+        # ---------------------------------------------------------- backward
+        # decomposed max: grid first (this replica's own depth, the round's
+        # levels), then the replica-lockstep extension for the loop bound (a
+        # no-op on every ported schedule); one readback per round
+        grid_max = op.reduce_max_grid(depth_all.max())
+        with tracing.span("bc.readback"):
+            max_depth = int(op.reduce_max_sync(grid_max))
+        bwd = engine.backward_accumulation(
+            op, sigma_all, depth_all, omega, max_depth, num_levels=num_levels, checksum=checksum
+        )
+        delta, bwd_err = bwd if checksum else (bwd, None)
 
-    # --------------------------------------------------------- BC + n_s
-    roots = torch.cat([sources, derived[:, 0]])
-    mult = torch.where(roots >= 0, op.root_omega(roots, omega) + 1.0, 0.0)
-    root_onehot = row_ids[:, None] == roots[None, :]
-    bc_local = torch.where(root_onehot, 0.0, delta * mult[None, :]).sum(dim=1)
+        # --------------------------------------------------------- BC + n_s
+        roots = torch.cat([sources, derived[:, 0]])
+        mult = torch.where(roots >= 0, op.root_omega(roots, omega) + 1.0, 0.0)
+        root_onehot = row_ids[:, None] == roots[None, :]
+        bc_local = torch.where(root_onehot, 0.0, delta * mult[None, :]).sum(dim=1)
 
-    # per-column component size  n_s = Σ_{d ≥ 0} (1 + ω)   (paper §3.4.1)
-    ns = op.reduce_sum(((depth_all >= 0) * (1.0 + omega)[:, None]).sum(dim=0))
-    levels = int(grid_max) + 1
-    if integrity == "off":
-        return bc_local, ns, roots, levels
-    claim = op.reduce_sum(bc_local.sum())
-    if checksum:
-        err = op.reduce_max_grid(torch.maximum(fwd.check_err, bwd_err))
-    else:
-        err = torch.zeros((), dtype=torch.float32, device=bc_local.device)
-    integ = torch.stack([err.to(torch.float32), claim.to(torch.float32)])
-    return bc_local, ns, roots, levels, integ
+        # per-column component size  n_s = Σ_{d ≥ 0} (1 + ω)   (paper §3.4.1)
+        ns = op.reduce_sum(((depth_all >= 0) * (1.0 + omega)[:, None]).sum(dim=0))
+        with tracing.span("bc.readback"):
+            levels = int(grid_max) + 1
+        if integrity == "off":
+            return bc_local, ns, roots, levels
+        claim = op.reduce_sum(bc_local.sum())
+        if checksum:
+            err = op.reduce_max_grid(torch.maximum(fwd.check_err, bwd_err))
+        else:
+            err = torch.zeros((), dtype=torch.float32, device=bc_local.device)
+        integ = torch.stack([err.to(torch.float32), claim.to(torch.float32)])
+        return bc_local, ns, roots, levels, integ
 
 
 def _weighted_round(op, sources, derived, omega, *, num_levels: int | None,
@@ -761,7 +765,8 @@ class BCDriver:
         §3.3)."""
         if bc_acc is None:
             return self._bc0.copy()
-        return self._bc0 + bc_acc.cpu().numpy().astype(np.float64).sum(axis=0)[: self.n]
+        with tracing.span("bc.readback"):
+            return self._bc0 + bc_acc.cpu().numpy().astype(np.float64).sum(axis=0)[: self.n]
 
     def _finalize(self, bc_acc, ns_by_root) -> np.ndarray:
         bc = self._collect_bc(bc_acc)
@@ -804,28 +809,30 @@ class BCDriver:
                                  self._fingerprint, stats=self._stats_state())
 
         for sources, derived, live in self._blocks():
-            t_blk = self._clock()
-            bc_blk, ns, roots, levels, _ = self._dispatch_block(sources, derived)
-            if block_times is not None:
-                block_times.append(self._block_wall(t_blk))
-            bc_acc = bc_blk if bc_acc is None else bc_acc.add_(bc_blk)
-            roots_np = roots.cpu().numpy()
-            ns_np = ns.cpu().numpy().astype(np.float64)
-            levels_np = _host(levels)
-            for lane, rid in live:
-                for root, nv in zip(roots_np[lane], ns_np[lane]):
-                    if root >= 0:
-                        ns_by_root[int(root)] = float(nv)
-                # commit once the block's contribution exists: a crash
-                # before this point re-deals the round
-                if self.ledger is not None:
-                    self.ledger.try_commit(rid)
-                committed.append(rid)
-                rounds_run += 1
-                round_levels.append(int(levels_np[lane]))
-                fwd, bwd = self._columns(rid)
-                fwd_cols += fwd
-                bwd_cols += bwd
+            with tracing.span("bc.block"):
+                t_blk = self._clock()
+                bc_blk, ns, roots, levels, _ = self._dispatch_block(sources, derived)
+                if block_times is not None:
+                    block_times.append(self._block_wall(t_blk))
+                bc_acc = bc_blk if bc_acc is None else bc_acc.add_(bc_blk)
+                with tracing.span("bc.readback"):
+                    roots_np = roots.cpu().numpy()
+                    ns_np = ns.cpu().numpy().astype(np.float64)
+                    levels_np = _host(levels)
+                for lane, rid in live:
+                    for root, nv in zip(roots_np[lane], ns_np[lane]):
+                        if root >= 0:
+                            ns_by_root[int(root)] = float(nv)
+                    # commit once the block's contribution exists: a crash
+                    # before this point re-deals the round
+                    if self.ledger is not None:
+                        self.ledger.try_commit(rid)
+                    committed.append(rid)
+                    rounds_run += 1
+                    round_levels.append(int(levels_np[lane]))
+                    fwd, bwd = self._columns(rid)
+                    fwd_cols += fwd
+                    bwd_cols += bwd
             blocks_done += 1
             blocks_since_snapshot += 1
             if self.checkpoint is not None and blocks_since_snapshot >= self.checkpoint_every:

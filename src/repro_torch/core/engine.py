@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .operators import as_operator
 
 __all__ = [
@@ -67,7 +68,8 @@ def readback(value: torch.Tensor) -> list | float | int | bool:
     """``value`` on the host (``tolist``: a number, or a list of them),
     counted as one readback of the weighted round."""
     BUCKET_TRIPS["readbacks"] += 1
-    return value.tolist()
+    with tracing.span("bc.readback"):
+        return value.tolist()
 
 
 class ForwardState(NamedTuple):
@@ -112,14 +114,22 @@ def forward_counting(
         cap = op.level_cap()
         lvl, alive = 1, True
         while alive and lvl <= cap:
-            sigma, depth, local_alive, err = level(lvl, sigma, depth, err)
-            alive = bool(op.reduce_any(local_alive))
+            with tracing.span("bc.level.forward"):
+                sigma, depth, local_alive, err = level(lvl, sigma, depth, err)
+                with tracing.span("bc.readback"):
+                    alive = bool(op.reduce_any(local_alive))
             lvl += 1
         max_depth = lvl - 2  # last level that discovered anything
+        steps = lvl - 1
     else:
         for k in range(num_levels):
-            sigma, depth, _, err = level(k + 1, sigma, depth, err)
-        max_depth = int(op.reduce_max(depth.max())) if depth.numel() else 0
+            with tracing.span("bc.level.forward"):
+                sigma, depth, _, err = level(k + 1, sigma, depth, err)
+        with tracing.span("bc.readback"):
+            max_depth = int(op.reduce_max(depth.max())) if depth.numel() else 0
+        steps = num_levels
+    if tracing.on():
+        tracing.count_levels(steps, max_depth, depth, 0)
     return ForwardState(sigma=sigma, depth=depth, max_depth=max_depth,
                         check_err=err if checksum else None)
 
@@ -153,11 +163,14 @@ def backward_accumulation(
     err = torch.zeros((), dtype=torch.float32, device=sigma.device)
     top = (num_levels if num_levels is not None else max_depth) - 1
     for lvl in range(top, 0, -1):
-        if checksum:
-            delta, lerr = op.backward_level_checked(lvl, sigma, depth, omega, delta)
-            err = torch.maximum(err, lerr)
-        else:
-            delta = op.backward_level(lvl, sigma, depth, omega, delta)
+        with tracing.span("bc.level.backward"):
+            if checksum:
+                delta, lerr = op.backward_level_checked(lvl, sigma, depth, omega, delta)
+                err = torch.maximum(err, lerr)
+            else:
+                delta = op.backward_level(lvl, sigma, depth, omega, delta)
+    if tracing.on():
+        tracing.count_levels(max(top, 0), max_depth - 1, depth, 1)
     return (delta, err) if checksum else delta
 
 

@@ -20,6 +20,7 @@ import logging
 
 import numpy as np
 
+from .. import tracing
 from ..graphs.graph import Graph
 from ..kernels.level_gemm import COLUMN_TILES
 from .heuristics.one_degree import OneDegreeReduction, one_degree_reduce
@@ -244,121 +245,124 @@ def build_schedule(
     if derived_per_round is None:
         derived_per_round = max(1, batch_size // 2)
 
-    prep = one_degree_reduce(graph, exhaustive=exhaustive) if use_h1 else None
-    residual = prep.residual if prep is not None else graph
-    omega = prep.omega if prep is not None else np.zeros(graph.n, dtype=np.float64)
+    with tracing.phase("bc.schedule.one_degree"):
+        prep = one_degree_reduce(graph, exhaustive=exhaustive) if use_h1 else None
+        residual = prep.residual if prep is not None else graph
+        omega = prep.omega if prep is not None else np.zeros(graph.n, dtype=np.float64)
 
-    res_deg = residual.degrees()
-    eligible = res_deg >= 1  # traversal-worthy sources
-    if roots is not None:
-        root_ids = np.asarray(roots, np.int64)
-        if root_ids.size and (root_ids.min() < 0 or root_ids.max() >= graph.n):
-            raise ValueError(
-                f"root subset contains out-of-range vertex ids (n = {graph.n})"
-            )
-        keep = np.zeros(graph.n, bool)
-        keep[root_ids] = True
-        eligible &= keep
-    num_leaf_skipped = int(prep.num_removed) if prep is not None else 0
+    with tracing.phase("bc.schedule.two_degree"):
+        res_deg = residual.degrees()
+        eligible = res_deg >= 1  # traversal-worthy sources
+        if roots is not None:
+            root_ids = np.asarray(roots, np.int64)
+            if root_ids.size and (root_ids.min() < 0 or root_ids.max() >= graph.n):
+                raise ValueError(
+                    f"root subset contains out-of-range vertex ids (n = {graph.n})"
+                )
+            keep = np.zeros(graph.n, bool)
+            keep[root_ids] = True
+            eligible &= keep
+        num_leaf_skipped = int(prep.num_removed) if prep is not None else 0
 
-    # residual-isolated vertices with removed leaves: analytic component
-    # size n = 1 + omega (star centers, K2 leaves) — no round needed.
-    removed_mask = prep.removed if prep is not None else np.zeros(graph.n, bool)
-    iso_omega = np.nonzero((res_deg == 0) & (omega > 0) & ~removed_mask)[0]
-    analytic = np.stack(
-        [iso_omega, 1 + omega[iso_omega]], axis=1
-    ).astype(np.float64) if iso_omega.size else np.zeros((0, 2), np.float64)
+        # residual-isolated vertices with removed leaves: analytic component
+        # size n = 1 + omega (star centers, K2 leaves) — no round needed.
+        removed_mask = prep.removed if prep is not None else np.zeros(graph.n, bool)
+        iso_omega = np.nonzero((res_deg == 0) & (omega > 0) & ~removed_mask)[0]
+        analytic = np.stack(
+            [iso_omega, 1 + omega[iso_omega]], axis=1
+        ).astype(np.float64) if iso_omega.size else np.zeros((0, 2), np.float64)
 
-    triples: list[tuple[int, int, int]] = []
-    if use_h2:
-        triples = claim_two_degree(res_deg, residual.adjacency_lists(), eligible)
-    derived_set = {c for c, _, _ in triples}
+        triples: list[tuple[int, int, int]] = []
+        if use_h2:
+            triples = claim_two_degree(res_deg, residual.adjacency_lists(), eligible)
+        derived_set = {c for c, _, _ in triples}
 
-    rounds: list[Round] = []
-    cur_src: list[int] = []
-    cur_pos: dict[int, int] = {}
-    cur_der: list[tuple[int, int, int]] = []
-    consumed: set[int] = set()
-    demoted: list[int] = []
+    with tracing.phase("bc.schedule.pack"):
+        rounds: list[Round] = []
+        cur_src: list[int] = []
+        cur_pos: dict[int, int] = {}
+        cur_der: list[tuple[int, int, int]] = []
+        consumed: set[int] = set()
+        demoted: list[int] = []
 
-    def flush():
-        nonlocal cur_src, cur_pos, cur_der
-        if cur_src or cur_der:
-            rounds.append(_finish_round(cur_src, cur_der, batch_size, derived_per_round))
-        cur_src, cur_pos, cur_der = [], {}, []
+        def flush():
+            nonlocal cur_src, cur_pos, cur_der
+            if cur_src or cur_der:
+                rounds.append(_finish_round(cur_src, cur_der, batch_size, derived_per_round))
+            cur_src, cur_pos, cur_der = [], {}, []
 
-    # 1) place triples (sorted so shared-neighbor triples cluster)
-    for c, a, b in sorted(triples, key=lambda t: (t[1], t[2])):
-        if batch_size < 2:
-            demoted.append(c)  # a triple needs two co-resident sources
-            continue
-        if a in consumed and a not in cur_pos or b in consumed and b not in cur_pos:
-            demoted.append(c)  # neighbor already ran in a closed round
-            continue
-        need = [v for v in (a, b) if v not in cur_pos]
-        if len(cur_src) + len(need) > batch_size or len(cur_der) >= derived_per_round:
-            flush()
-            need = [v for v in (a, b) if v not in cur_pos]
-            if a in consumed or b in consumed:
-                demoted.append(c)
+        # 1) place triples (sorted so shared-neighbor triples cluster)
+        for c, a, b in sorted(triples, key=lambda t: (t[1], t[2])):
+            if batch_size < 2:
+                demoted.append(c)  # a triple needs two co-resident sources
                 continue
-        for v in need:
+            if a in consumed and a not in cur_pos or b in consumed and b not in cur_pos:
+                demoted.append(c)  # neighbor already ran in a closed round
+                continue
+            need = [v for v in (a, b) if v not in cur_pos]
+            if len(cur_src) + len(need) > batch_size or len(cur_der) >= derived_per_round:
+                flush()
+                need = [v for v in (a, b) if v not in cur_pos]
+                if a in consumed or b in consumed:
+                    demoted.append(c)
+                    continue
+            for v in need:
+                cur_pos[v] = len(cur_src)
+                cur_src.append(v)
+                consumed.add(v)
+            cur_der.append((c, cur_pos[a], cur_pos[b]))
+
+        # 2) fill with the remaining explicit sources — vertex-id order, or
+        # deepest-first under "eccentricity"
+        ecc = (
+            estimate_eccentricities(residual, num_samples=ecc_samples, seed=ecc_seed)
+            if root_order == "eccentricity"
+            else None
+        )
+        explicit_rest = [
+            int(v)
+            for v in np.nonzero(eligible)[0]
+            if v not in consumed and v not in derived_set
+        ] + demoted
+        if ecc is not None:
+            explicit_rest.sort(key=lambda v: (-int(ecc[v]), v))
+        for v in explicit_rest:
+            if len(cur_src) >= batch_size:
+                flush()
             cur_pos[v] = len(cur_src)
             cur_src.append(v)
             consumed.add(v)
-        cur_der.append((c, cur_pos[a], cur_pos[b]))
+        flush()
 
-    # 2) fill with the remaining explicit sources — vertex-id order, or
-    # deepest-first under "eccentricity"
-    ecc = (
-        estimate_eccentricities(residual, num_samples=ecc_samples, seed=ecc_seed)
-        if root_order == "eccentricity"
-        else None
-    )
-    explicit_rest = [
-        int(v)
-        for v in np.nonzero(eligible)[0]
-        if v not in consumed and v not in derived_set
-    ] + demoted
-    if ecc is not None:
-        explicit_rest.sort(key=lambda v: (-int(ecc[v]), v))
-    for v in explicit_rest:
-        if len(cur_src) >= batch_size:
-            flush()
-        cur_pos[v] = len(cur_src)
-        cur_src.append(v)
-        consumed.add(v)
-    flush()
-
-    num_derived = sum(int((r.derived[:, 0] >= 0).sum()) for r in rounds)
-    num_explicit = sum(int((r.sources >= 0).sum()) for r in rounds)
-    round_depths = None
-    if ecc is not None:
-        round_depths = np.array(
-            [
-                max(
-                    (
-                        int(ecc[v])
-                        for v in np.concatenate((r.sources, r.derived[:, 0]))
-                        if v >= 0
-                    ),
-                    default=0,
-                )
-                for r in rounds
-            ],
-            np.int64,
+        num_derived = sum(int((r.derived[:, 0] >= 0).sum()) for r in rounds)
+        num_explicit = sum(int((r.sources >= 0).sum()) for r in rounds)
+        round_depths = None
+        if ecc is not None:
+            round_depths = np.array(
+                [
+                    max(
+                        (
+                            int(ecc[v])
+                            for v in np.concatenate((r.sources, r.derived[:, 0]))
+                            if v >= 0
+                        ),
+                        default=0,
+                    )
+                    for r in rounds
+                ],
+                np.int64,
+            )
+        schedule = Schedule(
+            rounds=rounds,
+            batch_size=batch_size,
+            derived_per_round=derived_per_round,
+            num_explicit=num_explicit,
+            num_derived=num_derived,
+            num_leaf_skipped=num_leaf_skipped,
+            num_isolated_omega=int(iso_omega.size),
+            analytic_corrections=analytic,
+            round_depths=round_depths,
         )
-    schedule = Schedule(
-        rounds=rounds,
-        batch_size=batch_size,
-        derived_per_round=derived_per_round,
-        num_explicit=num_explicit,
-        num_derived=num_derived,
-        num_leaf_skipped=num_leaf_skipped,
-        num_isolated_omega=int(iso_omega.size),
-        analytic_corrections=analytic,
-        round_depths=round_depths,
-    )
     return schedule, prep, residual, omega
 
 

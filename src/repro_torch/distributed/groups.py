@@ -54,6 +54,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..device import resolve_device
 from ..roofline import counter
 
@@ -68,7 +69,8 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     if counter.ACTIVE is not None:
         counter.ACTIVE.collective("all-gather", x.nbytes, group)
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=group)
+    with tracing.span("bc.collective.all_gather"):
+        dist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
@@ -78,7 +80,8 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     if counter.ACTIVE is not None:
         counter.ACTIVE.collective("reduce-scatter", x.nbytes, group)
     out = x.new_empty((x.shape[0] // dist.get_world_size(group),) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, group=group)
+    with tracing.span("bc.collective.reduce_scatter"):
+        dist.reduce_scatter_tensor(out, x, group=group)
     return out
 
 
@@ -86,7 +89,8 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """``x`` reduced with ``op`` over the members, in place; returns ``x``."""
     if counter.ACTIVE is not None:
         counter.ACTIVE.collective("all-reduce", x.nbytes, group)
-    dist.all_reduce(x, op=op, group=group)
+    with tracing.span("bc.collective.all_reduce"):
+        dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -196,7 +200,8 @@ def ring_hop(tensors, send_to: int, recv_from: int, group) -> tuple[list, list]:
     bufs = [torch.empty_like(t) for t in tensors]
     ops = [dist.P2POp(dist.isend, t, send_to, group) for t in tensors]
     ops += [dist.P2POp(dist.irecv, b, recv_from, group) for b in bufs]
-    return bufs, dist.batch_isend_irecv(ops)
+    with tracing.span("bc.collective.ring_hop"):
+        return bufs, dist.batch_isend_irecv(ops)
 
 
 def device_for_rank(device: str | torch.device | None = None) -> torch.device:

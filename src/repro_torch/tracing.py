@@ -1,0 +1,110 @@
+"""Spans and counters inside the BC round loop, for a profiler's trace.
+
+Tracing is on exactly while a ``torch.profiler`` records; there is no
+other switch.  Every hook checks :func:`on` first and, when it is off,
+does nothing else: it enters no ``record_function``, allocates nothing,
+launches no kernel and reads nothing back.  When it is on, each span is a
+``torch.profiler.record_function``, so it sits in the same trace as the
+device's activities, on their clock, and every idle gap of the device
+falls inside the spans the host had open.
+
+Spans:
+
+* ``bc.block``: one dispatch block of ``BCDriver``'s static loop, from
+  the dispatch to the block's accumulation and commit;
+* ``bc.round``: one ``traversal_round``;
+* ``bc.level.forward`` / ``bc.level.backward``: one level step of the
+  engine's loops (the operator call and the liveness readback);
+* ``bc.readback``: a device-to-host read of the round loop;
+* ``bc.collective.<kind>``: ``all_gather``, ``reduce_scatter``,
+  ``all_reduce`` and ``ring_hop`` of ``distributed/groups.py``;
+* ``bc.schedule.one_degree`` / ``.two_degree`` / ``.pack``: the phases of
+  ``build_schedule``.  These keep their host seconds whether tracing is
+  on or not (:func:`seconds`): set-up runs before a profiler starts.
+
+Counters, recorded only while on (:func:`counts`): ``level_steps``,
+``empty_level_steps`` (steps in which no column can change),
+``live_columns`` (column-steps that can change their column: forward step
+ℓ for a column with a vertex at depth ℓ, backward step ℓ for one with a
+vertex at depth ℓ + 1) and ``operand_columns`` (the columns the steps
+ran, live or not).  They start from zero at the first record under a
+profiler session after :func:`on` last saw no profiler running.
+
+Run BC under ``torch.profiler.profile`` and call :func:`counts` and
+:func:`seconds` afterwards; ``bench/metrics/`` reads them.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+__all__ = ["on", "span", "phase", "count_levels", "counts", "seconds"]
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+#: whether the last :func:`on` saw no profiler running: the next record
+#: under a profiler then starts the counters from zero
+_saw_off = True
+_steps = {"level_steps": 0, "empty_level_steps": 0, "operand_columns": 0}
+_live: torch.Tensor | None = None  # i64 0-d on the round's device
+_seconds: dict[str, float] = {}
+
+
+def on() -> bool:
+    """Whether a profiler records now (the one check every hook makes)."""
+    global _saw_off, _live
+    if _profiler_enabled():
+        if _saw_off:
+            _saw_off = False
+            _steps.update(dict.fromkeys(_steps, 0))
+            _live = None
+        return True
+    _saw_off = True
+    return False
+
+
+def span(name: str):
+    """``record_function(name)`` while on, else a shared null context."""
+    return torch.profiler.record_function(name) if on() else _OFF
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """A set-up span whose host seconds :func:`seconds` keeps, on or off."""
+    t = time.perf_counter()
+    with span(name):
+        yield
+    _seconds[name] = time.perf_counter() - t
+
+
+def count_levels(steps: int, live_steps: int, depth: torch.Tensor, shift: int) -> None:
+    """Count one loop's ``steps`` level steps over the columns of
+    ``depth`` (i32 [rows, columns]), of which ``live_steps`` (from the
+    host ints the loop holds) can change a column.  A column whose deepest
+    vertex is at D is live in min(D − shift, steps) of them (none if
+    negative): ``shift`` 0 for the forward loop, 1 for the backward.
+    Only while :func:`on`; the live columns are summed on the device."""
+    global _live
+    _steps["level_steps"] += steps
+    _steps["empty_level_steps"] += steps - min(max(live_steps, 0), steps)
+    _steps["operand_columns"] += steps * depth.shape[1]
+    if steps and depth.numel():
+        live = (depth.amax(dim=0) - shift).clamp(0, steps).sum()
+        _live = live if _live is None else _live + live
+
+
+def counts() -> dict[str, int]:
+    """The counters of the latest profiler session ({} if none recorded),
+    with one synchronisation for the live columns."""
+    on()
+    if not _steps["level_steps"]:
+        return {}
+    return dict(_steps, live_columns=0 if _live is None else int(_live))
+
+
+def seconds() -> dict[str, float]:
+    """Host seconds of the latest call of each :func:`phase`, by name."""
+    return dict(_seconds)
