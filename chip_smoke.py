@@ -15,9 +15,9 @@ no kernel of ours; phase 19 holds a 1×1 NCCL grid of its own, closed
 before phase 5 opens the next; phases 8 and 10–15 share
 phase 5's NCCL process group, and phase 7's kernel table carries phase
 8's, 10's, 12's and 14's launches, K7's times, which phase 9 takes on
-its tables, phase 16's train launches of K7, and the acc-mode chains
-that phase 12 (b) times; a kernel's launches count its plain and its acc
-mode):
+its tables, phase 16's train launches of K7, the acc-mode chains
+that phase 12 (b) times, and the arc product's rows, which phase 15
+times; a kernel's launches count its plain and its acc mode):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build K1–K7 from kernels/csrc with nvcc, one process per source
      (ptxas report, build seconds);
@@ -218,7 +218,8 @@ mode):
      23, EF 16: n = 8 388 608, ~256 M arcs after the 1-degree pass; batch
      16 + 8 derived columns, h3, max_levels 12), through the cell
      (``launch/steps.py:build_cell``) on the 1×1 NCCL grid, sparse engine
-     (no kernel): the host seconds of R-MAT generation (seed 1), of the
+     (the arc product's kernel, once a level product, and no other): the
+     host seconds of R-MAT generation (seed 1), of the
      h3 schedule, of the partition and of the device copy, each apart;
      round 0 of the schedule at the static 12 levels (once plain, once
      under the work counter: ``roofline_terms(hw=H100)``, memory_s / wall
@@ -231,7 +232,10 @@ mode):
      both at rtol 1e-5 / atol 1e-5, (iii) the static round against the
      liveness round, bit for bit when the depth is <= 12 (the arc sums
      are row sums in a fixed order; else the truncation printed as a
-     finding); the memory guard refusing
+     finding); the arc product alone on the round's arcs at s = 16 and 24
+     (bit-equal to its torch version; kernel, plain and torch.sparse.mm
+     times and the bytes bound: phase 7's arc_product rows); the memory
+     guard refusing
      fused and fused_sparse with the priced GiB; rmat_s25_ef16's meta, no
      graph made.
  16. DLRM training on one card, after phase 9 has freed its tables (less
@@ -370,6 +374,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
@@ -2463,7 +2468,84 @@ def brandes_roots_oracle(src: np.ndarray, dst: np.ndarray, n: int, omega: np.nda
     return contrib.sum(axis=1), lvl + 1
 
 
-def rmat_cell_phase(dev, groups, smi: str) -> None:
+def arc_product_entries(cell, dev, smi: str) -> dict[int, dict]:
+    """Phase 15's rows of the kernel table by width, their launches left
+    to the rounds (:func:`rmat_cell_phase`): the arc product on the s23
+    cell's arcs, by destination with their work list, at the round's
+    forward (s = 16) and backward (s = 24) widths: the kernel bit-equal to
+    its torch version, its time beside that version's and torch.sparse.mm's
+    (CSR, f32: the library's SpMM of the same product, which the port never
+    calls), and the bytes bound (the index, x and out once), beside the
+    bytes of every arc's operand row read once."""
+    from repro_torch.core import operators
+    from repro_torch.core.distributed import distributed_graph_arrays
+    from repro_torch.kernels import ops
+
+    part = cell.partition
+    rows, kdim = part.C * part.chunk, part.R * part.chunk
+    src, dst = distributed_graph_arrays(part, "sparse", 0, 0, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    src, _, _, lengths = operators._by_destination(src, dst, None, rows)
+    del dst
+    torch.cuda.synchronize()
+    t_sort = time.perf_counter()
+    src, pieces, counts, plan = operators._arc_operands(src, lengths, rows)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter()
+    real = int(lengths[:rows].sum())
+    print(f"[15] arc product: {real} arcs into {rows} rows by destination {t_sort - t:.3f}s, "
+          f"pieces and work list {t_plan - t_sort:.3f}s ({plan.long_ptr.numel() - 1} long rows "
+          f"in {plan.n_long_seg} pieces, {plan.seg.shape[0]} segments, "
+          f"{plan.nbytes() / 1e9:.3f} GB)")
+    csr = torch.sparse_csr_tensor(torch.cat([lengths.new_zeros(1), lengths[:rows].cumsum(0)]),
+                                  src[:real].long(), torch.ones(real, device=dev),
+                                  size=(rows, kdim))
+    entries = {}
+    for s in (16, 24):
+        x = torch.rand((kdim, s), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(s))
+
+        def kernel():
+            return operators._arc_product(x, src, pieces, counts, rows, plan)
+
+        ops.reset_launches()
+        got = kernel()
+        want = operators._arc_sum(x, src, pieces, counts, rows)
+        err = float((got - want).abs().max())
+        check(err == 0.0 and torch.equal(got, want) and ops.LAUNCHES["arc_product"] == 1,
+              f"[15] arc product s={s}: the kernel differs from its torch version by {err}")
+        ms = cuda_time_ms(kernel, reps=20)
+        plain_ms = cuda_time_ms(lambda: operators._arc_sum(x, src, pieces, counts, rows), reps=3)
+        lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, x), reps=20)
+        nbytes = x.nbytes + plan.src.nbytes + got.nbytes
+        row_bytes = real * s * 4 + plan.src.nbytes + got.nbytes
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows_ms = row_bytes / PEAK_BYTES_PER_S * 1e3
+        entries[s] = {
+            "name": f"arc_product[R-MAT 23 residual, {real} arcs, s={s}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/arc_product.cu",
+            "replaces": "none (the JAX package leaves it to XLA's gather and segment_sum)",
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": lib_ms,
+        }
+        print(f"[15] arc product s={s}: bit-equal to its torch version; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, torch.sparse.mm (CSR) {lib_ms:.3f} ms, bound "
+              f"{bound:.4f} ms (bytes {nbytes / 1e9:.3f} GB: index, x and out once), "
+              f"{100 * bound / ms:.1f}% of bound; every arc's row read once {rows_ms:.3f} ms "
+              f"({row_bytes / 1e9:.2f} GB), {100 * rows_ms / ms:.1f}% of that ({smi})")
+        del x, got, want
+    del src, pieces, counts, plan, csr, lengths
+    torch.cuda.empty_cache()
+    return entries
+
+
+def rmat_cell_phase(dev, groups, smi: str) -> list[dict]:
     """Phase 15: bc-rmat:rmat_s23_ef16 (the paper's strong-scaling R-MAT,
     n = 2^23, EF 16, batch 16, h3, max_levels 12) through the cell on the
     1×1 NCCL grid, sparse engine: the host set-up's steps timed apart; the
@@ -2473,8 +2555,12 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
     (i) the liveness round against the single-device sparse round
     (``make_round_fn``), (ii) a round of ORACLE_ROOTS h0 roots against the
     float64 oracle, (iii) the static against the liveness round, bit for
-    bit when the depth is ≤ 12; the guard
-    refusing fused and fused_sparse; s25's meta (no graph made)."""
+    bit when the depth is ≤ 12; the arc product alone on the same arcs
+    (:func:`arc_product_entries`); the guard refusing fused and
+    fused_sparse; s25's meta (no graph made).  Every round launches the
+    arc product once a level product and nothing else.  Returns the arc
+    product's rows of the kernel table, each with the launches at its
+    width in this phase's rounds (the kernel's own timing not counted)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.bc import make_operator, make_round_fn
     from repro_torch.core.distributed import check_device_memory
@@ -2483,6 +2569,22 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
     from repro_torch.roofline import H100, WorkCounter, roofline_terms
 
     t15 = time.perf_counter()
+    arc_widths = collections.Counter()  # the rounds' arc product launches, by width
+
+    @contextlib.contextmanager
+    def count_arc_widths():
+        launch = ops.arc_product
+
+        def counted(x, plan, rows):
+            out = launch(x, plan, rows)
+            arc_widths[x.shape[1]] += 1
+            return out
+
+        ops.arc_product = counted
+        try:
+            yield
+        finally:
+            ops.arc_product = launch
     bundle = get_arch("bc-rmat")
     cfg, shape = bundle.arch, "rmat_s23_ef16"
     spec = bundle.shapes[shape]
@@ -2517,10 +2619,7 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
         ops.reset_launches()
         wc = WorkCounter()
         t = time.perf_counter()
-        if count:
-            with wc:
-                out = cell.fn(sources, derived, num_levels=num_levels)
-        else:
+        with count_arc_widths(), wc if count else contextlib.nullcontext():
             out = cell.fn(sources, derived, num_levels=num_levels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -2529,8 +2628,14 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
         levels = int(out[3][0])
         check(bc.shape == (n,) and bool(torch.isfinite(bc).all()),
               f"[15] {tag}: BC must be finite of shape ({n},)")
-        check(sum(ops.LAUNCHES.values()) == 0, f"[15] {tag}: the sparse round launched a kernel")
-        print(f"[15] {tag}: wall {wall:.3f}s, levels {levels}, traversed-edge rate (residual "
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        products = launched.get("arc_product", 0)
+        check(set(launched) == {"arc_product"}
+              and (num_levels is None or products == 2 * num_levels - 1),
+              f"[15] {tag}: the sparse round launched {launched}, not the arc product once a "
+              f"level product")
+        print(f"[15] {tag}: wall {wall:.3f}s, levels {levels}, {products} arc products, "
+              f"traversed-edge rate (residual "
               f"arcs × {width} / wall) {arcs * width / wall / 1e9:.3f} G/s, peak device memory of "
               f"the round {peak / GIB:.2f} GiB above {live / GIB:.2f} GiB live (priced footprint "
               f"{meta['hbm_footprint_bytes']['sparse'] / GIB:.2f} GiB) ({smi})")
@@ -2553,16 +2658,18 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
           f"{wall_s:.3f}s")
     print(f"[15] peak device memory: resident {resident / GIB:.2f} GiB + static round "
           f"{peak_s / GIB:.2f} / liveness {peak_l / GIB:.2f} GiB, against the priced "
-          f"{meta['hbm_footprint_bytes']['sparse'] / GIB:.2f} GiB (the arc product's f64 "
-          f"[arcs, {-(-s_k // 4)}] messages of a column pass, {arcs * -(-s_k // 4) * 8 / GIB:.2f} "
-          f"GiB at s + k = {s_k}, are not priced)")
+          f"{meta['hbm_footprint_bytes']['sparse'] / GIB:.2f} GiB (the arc product's work "
+          f"lists and f64 scratch are not priced; its kernel holds no [arcs, s] messages)")
+    entries = arc_product_entries(cell, dev, smi)
 
     # (i) the liveness round against the single-device sparse round
     omega_t = torch.from_numpy(cell.omega.astype(np.float32)).to(dev)
     op = make_operator(cell.residual, "sparse", dev)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    one = make_round_fn(op, omega_t)(torch.from_numpy(src).to(dev), torch.from_numpy(der).to(dev))
+    with count_arc_widths():
+        one = make_round_fn(op, omega_t)(torch.from_numpy(src).to(dev),
+                                         torch.from_numpy(der).to(dev))
     torch.cuda.synchronize()
     wall_1 = time.perf_counter() - t
     ok, err = close(live[0][0, :n], one[0][0], 1e-5, 1e-5)
@@ -2623,6 +2730,11 @@ def rmat_cell_phase(dev, groups, smi: str) -> None:
     s25 = build_cell(bundle, "rmat_s25_ef16")
     print(f"[15] {s25.name} meta (1x1, no graph made): {json.dumps(s25.static_meta)}")
     print(f"[15] bc-rmat phase ok in {time.perf_counter() - t15:.1f}s ({smi})")
+    print(f"[15] the rounds' arc product launches by width: {dict(sorted(arc_widths.items()))}")
+    for s, entry in entries.items():
+        entry["launches"] = arc_widths[s]
+        check(entry["launches"] > 0, f"[15] no round launched the arc product at s={s}")
+    return list(entries.values())
 
 
 # ----------------------------------------------------------------- phase 17
@@ -3953,6 +4065,8 @@ def main() -> None:
                 for kname in ("frontier_spmm_partial", "dependency_spmm_partial"):
                     n_k = kernel_launches(launches_2d[engine], kname)
                     check((n_k > 0) == fused, f"2-D {engine}: {kname} launches {n_k}")
+                n_arc = launches_2d[engine]["arc_product"]
+                check((n_arc > 0) != fused, f"2-D {engine}: arc_product launches {n_arc}")
                 del res
                 torch.cuda.empty_cache()
             trace5 = trace_run("[5] 2-D 1x1 fused", lambda: run_2d("fused"), {
@@ -4072,7 +4186,7 @@ def main() -> None:
             launches_14 = autotune_chaos_phase(dev, graph, groups, fused_2d_bc, smi)
 
             # -------- 15. the paper's own configuration at R-MAT scale 23
-            rmat_cell_phase(dev, groups, smi)
+            arc_entries = rmat_cell_phase(dev, groups, smi)
         finally:
             dist.destroy_process_group()
 
@@ -4394,6 +4508,7 @@ def main() -> None:
             print(f"[7] {hit[0]['name']}: + {n} launches in phase 14")
     print(f"[7] phase 14's launches at configurations with no row of their own: {other_14}")
     entries.extend(k7_entries)  # timed in phase 9, on its tables
+    entries.extend(arc_entries)  # timed in phase 15, on the s23 cell's arcs
     print(f"[7] clocks.sm, clocks.max.sm, power.draw, temperature: {gpu_clocks()}")
     print(f"[7] total {time.perf_counter() - t_all:.1f}s")
 

@@ -58,6 +58,7 @@ import torch.distributed as dist
 
 from ..distributed.groups import GridGroups, all_gather, all_reduce, reduce_scatter, ring_hop
 from ..kernels import ops
+from ..kernels.arc_product import ArcPlan, arc_plan
 from ..roofline import counter
 
 __all__ = [
@@ -112,7 +113,7 @@ def normalize_overlap(policy: str | None) -> str:
 _ARC_ACC = torch.float64
 #: arcs a row's first-level partial sum spans at most (:func:`_arc_pieces`)
 _ARC_PIECE = 256
-#: bytes of widened messages one pass of :func:`_arc_product` may hold;
+#: bytes of widened messages one pass of :func:`_arc_sum` may hold;
 #: a wider product sums its columns in four passes
 _ARC_PASS_BYTES = 1 << 30
 
@@ -135,30 +136,32 @@ def _arc_pieces(lengths: torch.Tensor, size: int | None = None):
     return (lengths[row] - k * size).clamp(0, size), counts
 
 
-def _arc_product(x: torch.Tensor, src: torch.Tensor, pieces: torch.Tensor | None,
-                 counts: torch.Tensor, rows: int) -> torch.Tensor:
-    """``A @ x`` over an arc list sorted by destination (``src`` of
-    :func:`_by_destination`, ``pieces`` / ``counts`` of
-    :func:`_arc_pieces` over its ``lengths``, whose last, sentinel row is
-    dropped): [rows, ...] in ``x``'s dtype, row v the sum of ``x[src]``
-    over the arcs into v.  One gather at ``x``'s width (a random read per
-    arc, whatever its width: the gather's cost), then the sums in
-    :data:`_ARC_ACC`, in a fixed order (each piece's arcs in arc order,
-    then each row's pieces, by :func:`_segment_sum`, no atomics), rounded
-    once: the same inputs give the same bits, and an f32 sum over a hub's
-    arcs, which drifts by about u·√degree (on an H100 at R-MAT scale 23,
-    degrees ~10^5, an atomic f32 ``index_add_`` left a round's BC 1.85e-5
-    off the float64 oracle, past the 1e-5 the BC is held to), leaves one
-    rounding.  Where the widened messages would pass
-    :data:`_ARC_PASS_BYTES`, the columns are widened and summed in four
-    passes, each holding half the gather's bytes.  The gather and the
-    sums report their FLOP and bytes to an active
-    :class:`~repro_torch.roofline.counter.WorkCounter` at ``x``'s width,
-    the work of the function whatever width accumulates it."""
-    x2 = x.reshape(x.shape[0], -1)
+def _arc_operands(src: torch.Tensor, lengths: torch.Tensor, rows: int) -> tuple:
+    """:func:`_arc_product`'s operands over arcs sorted by destination
+    (``src`` and ``lengths`` of :func:`_by_destination`): ``(src, pieces,
+    counts, plan)``.  On the card ``plan`` is the kernel's work list
+    (:func:`~repro_torch.kernels.arc_product.arc_plan`) and ``src`` its
+    int32 index, the only copy kept.  On the CPU, whose torch version
+    needs no work list, ``plan`` is None."""
+    pieces, counts = _arc_pieces(lengths)
+    if src.device.type != "cuda":
+        return src, pieces, counts, None
+    plan = arc_plan(src, pieces, counts, rows)
+    return plan.src, pieces, counts, plan
+
+
+def _arc_sum(x2: torch.Tensor, src: torch.Tensor, pieces: torch.Tensor | None,
+             counts: torch.Tensor, rows: int) -> torch.Tensor:
+    """The arc product's torch version (the CPU's, and the card tests'
+    reference): gather the messages ``x2[src]`` [arcs, s] at once, widen
+    them to :data:`_ARC_ACC` and sum each piece's, then each row's pieces,
+    by :func:`_segment_sum`, rounded once into [rows, s].  Where the
+    widened messages would pass :data:`_ARC_PASS_BYTES`, the columns are
+    widened and summed in four passes, each holding half the gather's
+    bytes."""
     width = x2.shape[1]
     msgs = x2.index_select(0, src)
-    out = x.new_empty((rows, width))
+    out = x2.new_empty((rows, width))
     wide = msgs.numel() * torch.finfo(_ARC_ACC).bits // 8 > _ARC_PASS_BYTES
     step = max(1, -(-width // 4)) if wide else max(1, width)
     for c in range(0, width, step):
@@ -166,10 +169,47 @@ def _arc_product(x: torch.Tensor, src: torch.Tensor, pieces: torch.Tensor | None
         if pieces is not None:
             part = torch.segment_reduce(part, "sum", lengths=pieces, axis=0)
         out[:, c:c + step] = _segment_sum(part, counts, rows)
+    return out
+
+
+def _arc_product(x: torch.Tensor, src: torch.Tensor, pieces: torch.Tensor | None,
+                 counts: torch.Tensor, rows: int, plan: ArcPlan | None = None) -> torch.Tensor:
+    """``A @ x`` over an arc list sorted by destination (``src`` of
+    :func:`_by_destination`, ``pieces`` / ``counts`` of
+    :func:`_arc_pieces` over its ``lengths``, whose last, sentinel row is
+    dropped, and ``plan`` their work list, :func:`_arc_operands`):
+    [rows, ...] in ``x``'s dtype, row v the sum of ``x[src]`` over the
+    arcs into v.  The sums run in :data:`_ARC_ACC`, in a fixed order (each
+    piece's arcs in arc order, then each row's pieces, no atomics), rounded
+    once: the same inputs give the same bits, and an f32 sum over a hub's
+    arcs, which drifts by about u·√degree (on an H100 at R-MAT scale 23,
+    degrees ~10^5, an atomic f32 ``index_add_`` left a round's BC 1.85e-5
+    off the float64 oracle, past the 1e-5 the BC is held to), leaves one
+    rounding.
+
+    On the card the hand kernel sums them
+    (:func:`repro_torch.kernels.ops.arc_product`, one launch a call,
+    ``plan`` required): it reads each arc's operand row once into f64
+    registers, with no [arcs, s] messages.  On the CPU the torch version
+    :func:`_arc_sum` does, which gathers the messages first.  Either way
+    the gather and the sums report their FLOP and bytes to an active
+    :class:`~repro_torch.roofline.counter.WorkCounter` as the torch
+    version's, at ``x``'s width and with an int64 index: the work of the
+    function, whatever width accumulates it and whatever holds the
+    messages or the index."""
+    x2 = x.reshape(x.shape[0], -1)
+    width = x2.shape[1]
+    if x2.device.type == "cuda":
+        out = ops.arc_product(x2, plan, rows)
+    else:
+        out = _arc_sum(x2, src, pieces, counts, rows)
     if counter.ACTIVE is not None:
-        counter.ACTIVE.add("arc_gather", 0.0, counter.gather_bytes(x, src))
-        counter.ACTIVE.add("arc_sum", counter.sparse_flops(src.numel(), width),
-                           counter.segment_sum_bytes(msgs.nbytes, counts, out))
+        arcs = src.numel()
+        msg_bytes = arcs * width * x2.element_size()
+        index = torch.empty(arcs, dtype=torch.int64, device="meta")  # the torch version's
+        counter.ACTIVE.add("arc_gather", 0.0, counter.gather_bytes(x, index))
+        counter.ACTIVE.add("arc_sum", counter.sparse_flops(arcs, width),
+                           counter.segment_sum_bytes(msg_bytes, counts, out))
     return out.reshape((rows,) + tuple(x.shape[1:]))
 
 
@@ -335,14 +375,14 @@ class SparseOperator(TraversalOperator):
     """
 
     def __init__(self, src: torch.Tensor, dst: torch.Tensor, n: int):
-        self.src, _, _, lengths = _by_destination(src, dst, None, n)
-        self.pieces, self.counts = _arc_pieces(lengths)
+        src, _, _, lengths = _by_destination(src, dst, None, n)
+        self.src, self.pieces, self.counts, self.plan = _arc_operands(src, lengths, n)
         self.n_rows = n
         self.device = src.device
 
     def apply(self, x):
         x_pad = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))], dim=0)
-        return _arc_product(x_pad, self.src, self.pieces, self.counts, self.n_rows)
+        return _arc_product(x_pad, self.src, self.pieces, self.counts, self.n_rows, self.plan)
 
 
 class FusedDenseOperator(TraversalOperator):
@@ -478,19 +518,21 @@ class DistributedOperator(TraversalOperator):
     def _fold(self, partial: torch.Tensor) -> torch.Tensor:
         return reduce_scatter(partial, self.groups.row)
 
-    def _arcs_by_destination(self, slot: int | None = None) -> tuple[torch.Tensor, ...]:
-        """(src, pieces, counts) of the barrier arcs (``slot`` None) or of
-        ring slot ``slot``, reordered by destination at first use
-        (:func:`_arc_product`'s operands)."""
+    def _product(self, x: torch.Tensor, slot: int | None = None) -> torch.Tensor:
+        """:func:`_arc_product` over the barrier arcs (``slot`` None) or
+        ring slot ``slot``, whose operands (:func:`_arc_operands`) are
+        reordered by destination at first use."""
+        rows = self.C * self.chunk
         if slot not in self._by_dst:
             src, dst = ((self.src_local, self.dst_local) if slot is None
                         else (self.ring_src_local[slot], self.ring_dst_local[slot]))
-            src, _, _, lengths = _by_destination(src, dst, None, self.C * self.chunk)
-            self._by_dst[slot] = (src, *_arc_pieces(lengths))
-        return self._by_dst[slot]
+            src, _, _, lengths = _by_destination(src, dst, None, rows)
+            self._by_dst[slot] = _arc_operands(src, lengths, rows)
+        src, pieces, counts, plan = self._by_dst[slot]
+        return _arc_product(x, src, pieces, counts, rows, plan)
 
     def _local(self, x_col: torch.Tensor) -> torch.Tensor:
-        return _arc_product(x_col, *self._arcs_by_destination(), self.C * self.chunk)
+        return self._product(x_col)
 
     # ------------------------------------------------- ring schedules
     def _column_hop(self, tensors) -> tuple[list, list]:
@@ -527,7 +569,7 @@ class DistributedOperator(TraversalOperator):
         rows = self.C * self.chunk
 
         def step(r, hand, acc):
-            return acc.add_(_arc_product(hand[0], *self._arcs_by_destination(r), rows))
+            return acc.add_(self._product(hand[0], r))
 
         acc = x_owned.new_zeros((rows,) + tuple(x_owned.shape[1:]))
         return self._ring_steps((x_owned,), step, acc)

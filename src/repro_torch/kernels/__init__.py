@@ -8,12 +8,15 @@
   blocked_spmm.py     K5/K6 launchers (csrc/sparse_spmm.cu) and the tiles'
                       nonzero index the kernels read
   segment_bag.py      K7 launcher (csrc/segment_bag.cu), the DLRM EmbeddingBag
+  arc_product.py      the arc product's launcher (csrc/arc_product.cu) and the
+                      work list it reads
   _build.py           nvcc build at first use + ctypes loading
 
 Importing this package builds nothing and needs no card.
 """
 from .ops import (
     LAUNCHES,
+    arc_product,
     checksum_append,
     checksum_residual,
     dependency_spmm,
@@ -34,6 +37,7 @@ __all__ = [
     "frontier_spmm_sparse",
     "dependency_spmm_sparse",
     "segment_bag",
+    "arc_product",
     "checksum_append",
     "checksum_residual",
     "LAUNCHES",

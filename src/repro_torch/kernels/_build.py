@@ -49,6 +49,9 @@ _FRONTIER_SPARSE_ARGS = [_P] * 10 + [_I] * 7 + [_P]
 _DEPENDENCY_SPARSE_ARGS = [_P] * 12 + [_I] * 7 + [_P]
 # (table, idx, weights or NULL, out, num_bags, L, D, device, stream)
 _SEGMENT_BAG_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _P]
+# (x, src, seg, long_ptr, out, partials, kdim, s, n_seg, n_long_seg, n_long_rows,
+#  device, stream)
+_ARC_PRODUCT_ARGS = [_P] * 6 + [_I] * 6 + [_P]
 SIGNATURES = {
     "frontier_spmm_f32": _FRONTIER_ARGS,
     "frontier_spmm_bf16": _FRONTIER_ARGS,
@@ -62,6 +65,7 @@ SIGNATURES = {
     "dependency_sparse_f32": _DEPENDENCY_SPARSE_ARGS,
     "segment_bag_f32": _SEGMENT_BAG_ARGS,
     "segment_bag_bf16": _SEGMENT_BAG_ARGS,
+    "arc_product_f32": _ARC_PRODUCT_ARGS,
     "level_gemm_shared_bytes": [_I, _I],  # (bs, bf16)
 }
 

@@ -10,6 +10,9 @@ combine); K5/K6 (:func:`frontier_spmm_sparse`,
 :func:`dependency_spmm_sparse`) are the same partials over the block's
 stored BCSR tiles only, summed on the card over the tiles' nonzero
 index.  K7 (:func:`segment_bag`) is the DLRM lookup's gather-reduce.
+:func:`arc_product` is the sparse engine's ``A @ x`` over a
+destination-sorted arc list, summed in f64 in a fixed order; it replaces
+no TPU kernel (see kernels/arc_product.py).
 :func:`checksum_append` / :func:`checksum_residual` are the ABFT lane's
 torch ops (no kernel), which the checked level steps put around K3/K4;
 :func:`bucket_index` is the weighted traversal's bucket id (a torch op:
@@ -18,13 +21,15 @@ the weighted path runs no kernel, in the JAX package or here).
 Each wrapper checks its operands (device, dtype, shape, contiguity) and
 raises on anything the kernel does not take.  Then:
 
-* tensors on the CPU go to the plain PyTorch version (kernels/ref.py);
+* tensors on the CPU go to the plain PyTorch version (kernels/ref.py;
+  the arc product's is its torch version, ``core/operators.py:_arc_sum``);
 * tensors on a CUDA device go to the hand-written kernel, which either
   launches or raises — there is no fallback.
 
 While a :class:`~repro_torch.roofline.counter.WorkCounter` is active,
 every wrapper reports its call's FLOP and bytes (the counter's formulas,
-from the operands' shapes, on either device).
+from the operands' shapes, on either device); :func:`arc_product`'s caller,
+``core/operators.py:_arc_product``, reports the arc product's.
 
 :data:`LAUNCHES` counts kernel launches per wrapper (plain ints, bumped
 only where a kernel was launched), so a run can show that its main path
@@ -39,6 +44,7 @@ import torch
 
 from ..roofline import counter
 from . import ref
+from .arc_product import ArcPlan, arc_product_cuda
 from .blocked_spmm import NonzeroIndex, dependency_sparse_cuda, frontier_sparse_cuda, layout_key
 from .dependency_spmm import dependency_partial_cuda, dependency_spmm_cuda
 from .frontier_spmm import frontier_partial_cuda, frontier_spmm_cuda
@@ -54,6 +60,7 @@ __all__ = [
     "segment_bag",
     "segment_bag_table_grad",
     "SegmentBag",
+    "arc_product",
     "checksum_append",
     "checksum_residual",
     "bucket_index",
@@ -77,6 +84,7 @@ LAUNCHES = {
     "frontier_spmm_sparse_acc": 0,
     "dependency_spmm_sparse_acc": 0,
     "segment_bag": 0,
+    "arc_product": 0,
 }
 
 ADJACENCY_DTYPES = (torch.float32, torch.bfloat16)
@@ -469,6 +477,57 @@ def _segment_bag(table, indices, weights):
         return torch.zeros((indices.shape[0], table.shape[1]), device=table.device)
     out = segment_bag_cuda(table, indices, weights)
     LAUNCHES["segment_bag"] += 1
+    return out
+
+
+def arc_product(x: torch.Tensor, plan: ArcPlan | None, rows: int) -> torch.Tensor:
+    """The arc product: returns f32 [rows, s], row v the sum of ``x[src]``
+    over the arcs into v, taken in float64 in a fixed order and rounded
+    once, with x f32 [k, s] and ``plan`` the arcs' work list
+    (:func:`~repro_torch.kernels.arc_product.arc_plan`, built for these
+    ``rows``; required on either device).  Its plain version, which CPU
+    tensors take, is the torch version ``core/operators.py:_arc_sum`` over
+    the plan's arcs and pieces: the same bits.  The caller reports the
+    work to an active counter (``core/operators.py:_arc_product``)."""
+    name = "arc_product"
+    if plan is None:
+        raise ValueError(f"{name}: the kernel reads the arcs' work list; pass "
+                         f"plan=arc_plan(src, pieces, counts, rows)")
+    if not isinstance(plan, ArcPlan):
+        raise TypeError(f"{name}: plan must be an ArcPlan, got {type(plan).__name__}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] >= 2**31:
+        raise ValueError(f"{name}: x must be [k, s] with k < 2^31, got {tuple(x.shape)}")
+    if plan.rows != rows:
+        raise ValueError(f"{name}: plan was built for {plan.rows} rows, not {rows}")
+    for key, t in zip(("src", "seg", "long_ptr"), plan.arrays):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: plan.{key} must be int32, got {t.dtype}")
+    num_long = plan.long_ptr.numel() - 1
+    if (plan.src.dim() != 1 or plan.long_ptr.dim() != 1 or num_long < 0
+            or tuple(plan.seg.shape) != (rows - num_long + plan.n_long_seg, 3)):
+        raise ValueError(
+            f"{name}: plan must hold a 1-D src, long_ptr with a leading 0 and a segment for "
+            f"each short row and each long row's piece (rows={rows}), got src "
+            f"{tuple(plan.src.shape)}, seg {tuple(plan.seg.shape)}, long_ptr "
+            f"{tuple(plan.long_ptr.shape)}"
+        )
+    tensors = [x, *plan.arrays]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if rows == 0 or x.shape[1] == 0:
+        return torch.zeros((rows, x.shape[1]), device=x.device)
+    if x.device.type == "cpu":
+        from ..core.operators import _arc_sum  # imported here: core imports this module
+
+        return _arc_sum(x, plan.src, plan.pieces, plan.counts, rows)
+    out = arc_product_cuda(x, plan)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -17,7 +17,8 @@ while a :class:`WorkCounter` is active (``with WorkCounter() as c:``),
 * every product of a level step reports its FLOP and bytes from its
   operands' shapes: the kernel wrappers of ``kernels/ops.py`` (K1–K7;
   on the CPU their plain versions, the same work) and the arc-list
-  operators' gather and row sums (``core/operators.py:_arc_product``).
+  operators' gather and row sums (``core/operators.py:_arc_product``: the
+  hand kernel on the card, the torch passes on the CPU, counted alike).
 
 :meth:`WorkCounter.terms` gives ``{"flops", "bytes", "collectives"}``
 per device, which :func:`repro_torch.roofline.model.roofline_terms`
@@ -26,8 +27,9 @@ prices.  The byte and FLOP formulas below are also the kernel table's
 work: each input read once, each output written once.  The arc-list
 products count as the HLO parser counts a gather and a scatter: their
 operands and outputs, so the [arcs, s] message tensor between the two
-counts twice; all at the operand's width (f32), whatever width the
-product accumulates in.  The elementwise epilogues of the level steps (masks,
+counts twice (the card's kernel holds no such tensor, but counts alike);
+all at the operand's width (f32), whatever width the product accumulates
+in.  The elementwise epilogues of the level steps (masks,
 σ/δ updates) are not counted.
 
 Inactive, the hooks cost one ``ACTIVE is not None`` check per call.

@@ -56,6 +56,7 @@ from repro_torch.core import bc as pbc
 from repro_torch.core import brandes_reference
 from repro_torch.core.distributed import distributed_betweenness_centrality
 from repro_torch.core.driver import BCDriver
+from repro_torch.core import operators
 from repro_torch.core.operators import (
     DistributedWeightedDenseOperator,
     DistributedWeightedOperator,
@@ -124,6 +125,7 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     monkeypatch.setattr(ref, "frontier_sparse_ref", refuse)
     monkeypatch.setattr(ref, "dependency_sparse_ref", refuse)
     monkeypatch.setattr(ref, "segment_bag_ref", refuse)
+    monkeypatch.setattr(operators, "_arc_sum", refuse)
     A, sigma, depth, delta, omega = _state(64, 8, 1, 2, torch.float32, cuda)
     tiles, rows, cols = _tile_list(5, 4, 8, 16, 0, cuda)
     ops.reset_launches()
@@ -135,13 +137,15 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(cuda, monkeypatch
     ops.frontier_spmm_sparse(tiles, rows, cols, sigma, depth, 2, m=40, index=index)
     ops.dependency_spmm_sparse(tiles, rows, cols, sigma, depth, delta, omega, 1, m=40, index=index)
     ops.segment_bag(sigma, torch.zeros((3, 2), dtype=torch.int32, device=cuda))
+    n, _, _, _, plan = _arc_case("pieces", cuda)
+    ops.arc_product(_arc_operand(n, 8, 0, cuda), plan, n)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"frontier_spmm": 1, "dependency_spmm": 1,
                             "frontier_spmm_partial": 1, "dependency_spmm_partial": 1,
                             "frontier_spmm_sparse": 1, "dependency_spmm_sparse": 1,
                             "frontier_spmm_partial_acc": 0, "dependency_spmm_partial_acc": 0,
                             "frontier_spmm_sparse_acc": 0, "dependency_spmm_sparse_acc": 0,
-                            "segment_bag": 1}
+                            "segment_bag": 1, "arc_product": 1}
 
 
 def test_sparse_wrappers_on_the_card_need_the_tiles_own_index(cuda):
@@ -725,6 +729,176 @@ def test_ring_slab_and_slot_chain_equals_the_barrier_partial(cuda):
     for kname in ("frontier_spmm_partial", "dependency_spmm_partial", "frontier_spmm_sparse",
                   "dependency_spmm_sparse"):
         assert ops.LAUNCHES[kname] == 1 and ops.LAUNCHES[kname + "_acc"] == R
+
+
+#: the arc product's widths: the s23 cell's forward and backward (16, 24),
+#: with the checksum lane (17, 25), a split backward's half (12), and 1, 40
+ARC_WIDTHS = [1, 12, 16, 17, 24, 25, 40]
+
+
+def _arc_case(layout, device):
+    """(n, src, pieces, counts, plan) of an R-MAT arc list sorted by
+    destination (``_arc_operands``' on the card: ``src`` the plan's int32
+    index), with empty rows and padding arcs n → n into the sentinel
+    row: scale 12 has 79 rows longer than a piece ("pieces"), scale 10 at
+    edge factor 2 none, nor a sentinel row past one piece ("no-pieces")."""
+    graph, pad = {"pieces": (pg.rmat_graph(12, 16, seed=1), 600),
+                  "no-pieces": (pg.rmat_graph(10, 2, seed=1), 100)}[layout]
+    n = graph.n
+    src, dst = (torch.cat([torch.from_numpy(a).long(), torch.full((pad,), n)]).to(device)
+                for a in (graph.src, graph.dst))
+    src, _, _, lengths = operators._by_destination(src, dst, None, n)
+    src, pieces, counts, plan = operators._arc_operands(src, lengths, n)
+    assert (pieces is None) == (layout == "no-pieces") and plan is not None
+    assert src is plan.src and src.dtype == torch.int32
+    return n, src, pieces, counts, plan
+
+
+def _arc_operand(rows, s, seed, device):
+    """f32 [rows + 1, s], the sentinel row zero: half the entries ±2^60,
+    half of order 2^-10 .. 2^10, so that which small terms a float64 sum
+    keeps while the big ones cancel, and so its f32 bits, depend on its
+    order."""
+    rng = np.random.default_rng(seed)
+    small = rng.standard_normal((rows + 1, s)) * 2.0 ** rng.integers(-10, 11, (rows + 1, s))
+    big = rng.choice([-(2.0**60), 2.0**60], (rows + 1, s))
+    x = np.where(rng.random((rows + 1, s)) < 0.5, big, small)
+    x[rows] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def _torch_arc_product(x, src, pieces, counts, rows, plan=None):
+    """``operators._arc_product`` as the torch version computes it on any
+    device (the plan ignored): the card tests' reference."""
+    out = operators._arc_sum(x.reshape(x.shape[0], -1), src, pieces, counts, rows)
+    return out.reshape((rows,) + tuple(x.shape[1:]))
+
+
+@pytest.mark.parametrize("layout", ["pieces", "no-pieces"])
+def test_arc_product_kernel_equals_the_torch_version_bitwise(cuda, layout, monkeypatch):
+    """At every width the card's callers use, the kernel's rows equal the
+    torch version's on the same card tensors bit for bit (in one pass and
+    in four column passes), and the CPU's; two launches give the same
+    bits, and each call launches once."""
+    n, src, pieces, counts, plan = _arc_case(layout, cuda)
+    for s in ARC_WIDTHS:
+        x = _arc_operand(n, s, s, cuda)
+        ops.reset_launches()
+        got = operators._arc_product(x, src, pieces, counts, n, plan)
+        again = operators._arc_product(x, src, pieces, counts, n, plan)
+        assert ops.LAUNCHES["arc_product"] == 2
+        want = operators._arc_sum(x, src, pieces, counts, n)
+        monkeypatch.setattr(operators, "_ARC_PASS_BYTES", 0)
+        passes = operators._arc_sum(x, src, pieces, counts, n)
+        monkeypatch.undo()
+        torch.cuda.synchronize()
+        assert got.shape == (n, s) and torch.equal(got, want), s
+        assert torch.equal(again, got) and torch.equal(passes, want), s
+        cpu = operators._arc_sum(x.cpu(), src.cpu(), *(None if t is None else t.cpu()
+                                                        for t in (pieces, counts)), n)
+        assert torch.equal(got.cpu(), cpu), s
+
+
+def test_arc_product_kernel_holds_no_arcs_by_width_transient(cuda):
+    """A call on 4 Mi arcs at s = 24 grows the card's allocation by its
+    output, its f64 scratch and 64 MiB at most: the torch version's
+    [arcs, 24] messages alone are 384 MiB."""
+    n, arcs, s = 1 << 16, 1 << 22, 24
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    dst = torch.randint(0, n, (arcs,), device=cuda, generator=gen)
+    dst[:5000] = 7  # a row of 20 pieces
+    src = torch.randint(0, n, (arcs,), device=cuda, generator=gen)
+    src, _, _, lengths = operators._by_destination(src, dst, None, n)
+    src, pieces, counts, plan = operators._arc_operands(src, lengths, n)
+    x = torch.randn((n, s), device=cuda, generator=gen)
+    operators._arc_product(x, src, pieces, counts, n, plan)  # the library's first load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = operators._arc_product(x, src, pieces, counts, n, plan)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert plan.n_long_seg >= 20 and arcs * s * 4 > 4 * (64 << 20)
+    assert grown <= out.nbytes + plan.n_long_seg * s * 8 + (64 << 20), grown
+
+
+def test_arc_product_on_the_card_refuses_what_the_kernel_does_not_take(cuda):
+    n, src, pieces, counts, plan = _arc_case("pieces", cuda)
+    x = _arc_operand(n, 16, 0, cuda)
+    ops.reset_launches()
+    with pytest.raises(TypeError, match="float32"):
+        ops.arc_product(x.double(), plan, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.arc_product(_arc_operand(n, 32, 0, cuda)[:, ::2], plan, n)
+    with pytest.raises(ValueError, match="one device"):
+        ops.arc_product(x.cpu(), plan, n)
+    with pytest.raises(ValueError, match="work list"):  # no plan: no torch version on the card
+        operators._arc_product(x, src, pieces, counts, n)
+    assert ops.LAUNCHES["arc_product"] == 0
+
+
+@pytest.mark.parametrize("mode", ["barrier", "split", "ring", "checksum"])
+def test_2d_sparse_operator_through_the_arc_kernel_equals_the_torch_version(nccl_1x1, mode,
+                                                                            monkeypatch):
+    """The 1×1 grid's sparse operator at the s23 cell's widths: the barrier
+    schedule, the split backward's halves, the expand+fold ring (the
+    kernel's rows added into the ring's accumulator) and the checksum
+    lane's s + 1, each bit-equal to the torch version."""
+    from repro_torch.core.distributed import distributed_graph_arrays, make_distributed_operator
+    from repro_torch.graphs.partition import partition_2d
+
+    part = partition_2d(pg.rmat_graph(12, 16, seed=1), 1, 1)
+    overlap = "expand+fold" if mode == "ring" else "none"
+    args = distributed_graph_arrays(part, "sparse", 0, 0, torch.device("cuda"), overlap=overlap)
+
+    def run():
+        op = make_distributed_operator("sparse", args, chunk=part.chunk, groups=nccl_1x1,
+                                       split_backward=mode == "split", overlap=overlap)
+        outs = []
+        for s in (16, 24):
+            x = _arc_operand(part.chunk - 1, s, s, torch.device("cuda"))
+            if mode == "checksum":
+                x = ops.checksum_append(x)
+            outs.append(op.apply_backward(x) if mode == "split" else op.apply(x))
+        torch.cuda.synchronize()
+        return outs
+
+    ops.reset_launches()
+    got = run()
+    assert ops.LAUNCHES["arc_product"] == (4 if mode == "split" else 2)
+    monkeypatch.setattr(operators, "_arc_product", _torch_arc_product)
+    for g, w in zip(got, run()):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["one-device", "1x1", "1x1-checksum", "1x1-expand+fold"])
+def test_sparse_bc_through_the_arc_kernel_equals_the_torch_version(nccl_1x1, case, monkeypatch):
+    """Whole sparse BC runs, one device and the 1×1 NCCL grid (barrier,
+    checksum lane, ring), launch the kernel and give the torch version's
+    BC bit for bit."""
+    g = pg.rmat_graph(10, 8, seed=1)
+
+    def run():
+        kw = dict(batch_size=32, heuristics="h3", engine_kind="sparse")
+        if case == "one-device":
+            res = pbc.betweenness_centrality(g, **kw)
+        else:
+            extra = {"1x1": {}, "1x1-checksum": dict(integrity="checksum"),
+                     "1x1-expand+fold": dict(overlap="expand+fold")}[case]
+            res = distributed_betweenness_centrality(g, nccl_1x1, full_result=True, **kw,
+                                                     **extra)
+        return res.bc, res.round_levels
+
+    ops.reset_launches()
+    got, levels = run()
+    assert ops.LAUNCHES["arc_product"] > 0
+    monkeypatch.setattr(operators, "_arc_product", _torch_arc_product)
+    ops.reset_launches()
+    want, want_levels = run()
+    assert ops.LAUNCHES["arc_product"] == 0
+    assert levels == want_levels
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, brandes_reference(g), rtol=1e-5, atol=1e-5)
 
 
 def _bucket_hooks_on_the_card(monkeypatch) -> list:
