@@ -1,17 +1,37 @@
-"""What a path module (``bench/paths/<name>.py``) hands the harness, and
-the benchmark's counter of the level steps the program dispatches."""
+"""What a path module (``bench/paths/<name>.py``) hands the harness, the
+schedule every path builds through the program, and the benchmark's
+counter of the level steps the program dispatches."""
 from __future__ import annotations
 
 import dataclasses
 import functools
 from typing import Callable
 
-__all__ = ["Cell", "LevelSteps"]
+__all__ = ["Cell", "LevelSteps", "program_schedule"]
 
 #: the operator methods each of which is one level step of the engine's
 #: loops (``core/engine.py`` calls one of them a level)
 LEVEL_METHODS = ("forward_level", "backward_level", "forward_level_checked",
                  "backward_level_checked")
+
+
+def program_schedule(cfg: dict, graph):
+    """``(build_schedule's four results, plan)`` for the configuration, as
+    ``core/bc.py:betweenness_centrality`` plans them: under a
+    ``"sampling"`` of the configuration, the program's own fixed sample of
+    its eligible roots (``serving/sampling.py:plan_sampling``) first, and
+    that ``SamplePlan``, whose rescale the window's answer goes through;
+    the plan is None for an exact run."""
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.serving.sampling import eligible_roots, plan_sampling
+
+    plan = None
+    sampling = cfg.get("sampling")
+    if sampling is not None:
+        plan = plan_sampling(eligible_roots(graph), sampling["mode"], sample_k=sampling["k"],
+                             seed=sampling["seed"])
+    return build_schedule(graph, batch_size=cfg["batch_size"], heuristics=cfg["heuristics"],
+                          roots=None if plan is None else plan.roots), plan
 
 
 class LevelSteps:
@@ -54,10 +74,13 @@ class Cell:
     dispatch; ``schedule`` the program's schedule of every round;
     ``steps`` counts the level steps the operator dispatches; ``info``
     the sizes the path set up (for its tests); ``close`` frees what the
-    path set up (a process group, the counter)."""
+    path set up (a process group, the counter); ``plan`` the program's
+    ``SamplePlan`` of a sampled configuration (:func:`program_schedule`),
+    None when the run is exact."""
 
     round_fn: Callable
     schedule: object
     steps: LevelSteps
     info: dict = dataclasses.field(default_factory=dict)
     close: Callable[[], None] = lambda: None
+    plan: object = None

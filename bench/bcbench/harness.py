@@ -8,7 +8,10 @@ per-layer metric is a file of its own, found by name:
 
 * ``BENCHMARK.json`` (the checkout's root): cells and metrics;
 * ``bench/configs/<config>.json``: the graph, the path, the program's
-  settings and the comparison's limits;
+  settings (``heuristics``; an optional ``sampling``, ``{"mode": "fixed",
+  "k": k, "seed": s}``, absent or null for an exact run), the
+  comparison's limits and the sizes the bench tests run it at
+  (``test_sizes``);
 * ``bench/traffic/<traffic>.json``: the mix :mod:`bcbench.traffic` reads;
 * ``bench/paths/<path>.py``: ``build(cfg, graph, device, span) -> Cell``;
 * ``bench/metrics/<metric>.py``: ``read(ctx) -> float | None``.
@@ -39,16 +42,21 @@ from types import SimpleNamespace
 import numpy as np
 
 from . import reference, rmat, traffic
+from .cell import program_schedule
 from .trace import WINDOW_SPAN, from_profiler
 
 __all__ = ["run", "main", "control", "judge", "gteps", "Outputs", "FORBIDDEN_MODULES",
-           "forbidden_modules"]
+           "forbidden_modules", "load_cell", "check_config"]
 
 ROOT = Path(__file__).resolve().parents[2]
 #: top-level module names that may not be loaded in a run (compared whole:
 #: the port's package name begins with the JAX package's)
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "repro")
 GIB = float(1 << 30)
+#: the heuristics the reference checks, and those of them that apply the
+#: 1-degree reduction (its one pass; h1t / h3t run it to a fixed point)
+CHECKED_HEURISTICS = ("h0", "h1", "h2", "h3")
+REDUCING_HEURISTICS = ("h1", "h3")
 
 
 def forbidden_modules(names=None) -> list[str]:
@@ -70,18 +78,43 @@ def _load_module(path: Path, name: str):
 def _merge(base: dict, over: dict) -> dict:
     out = dict(base)
     for key, value in over.items():
-        out[key] = _merge(out[key], value) if isinstance(value, dict) and key in out else value
+        both = isinstance(value, dict) and isinstance(out.get(key), dict)
+        out[key] = _merge(out[key], value) if both else value
     return out
 
 
-def load_cell(root: Path, workload: str) -> tuple[dict, dict, dict, dict]:
-    """(manifest, workload entry, configuration, traffic mix) by name."""
+def check_config(cfg: dict) -> None:
+    """Refuse a configuration the reference cannot hold the program to."""
+    heuristics = cfg["heuristics"]
+    if heuristics not in CHECKED_HEURISTICS:
+        raise ValueError(
+            f"heuristics {heuristics!r}: the reference checks {CHECKED_HEURISTICS}; its one-pass "
+            "1-degree reduction cannot check the exhaustive one of h1t / h3t")
+    sampling = cfg.get("sampling")
+    if sampling is None:
+        return
+    if heuristics != "h0":
+        raise ValueError(
+            f"sampling under heuristics {heuristics!r}: the program samples roots only under "
+            "'h0' (the 1-/2-degree corrections are not per-root additive)")
+    if not isinstance(sampling, dict) or sampling.get("mode") != "fixed" or set(sampling) != {
+            "mode", "k", "seed"}:
+        raise ValueError(
+            f"sampling {sampling!r}: the benchmark runs {{'mode': 'fixed', 'k': <int>, "
+            "'seed': <int>}} (the window runs no stop rule)")
+
+
+def load_cell(root: Path, workload: str,
+              overrides: dict | None = None) -> tuple[dict, dict, dict, dict]:
+    """(manifest, workload entry, configuration, traffic mix) by name, the
+    configuration with ``overrides`` merged in and checked."""
     manifest = json.loads((root / "BENCHMARK.json").read_text())
     entry = next((w for w in manifest["workloads"] if w["name"] == workload), None)
     if entry is None:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
     conf = next(c for c in manifest["configs"] if c["name"] == entry["config"])
-    cfg = json.loads((root / conf["file"]).read_text())
+    cfg = _merge(json.loads((root / conf["file"]).read_text()), overrides or {})
+    check_config(cfg)
     mix = json.loads((root / "bench" / "traffic" / f"{entry['traffic']}.json").read_text())
     return manifest, entry, cfg, mix
 
@@ -158,7 +191,8 @@ def judge(prog: Outputs, ref: Outputs, plan_errors: int, limits: dict) -> tuple[
     """The compared numbers, each with its limit, and the rounds that
     failed a per-round check.
 
-    * ``bc_err``: max over vertices of |bc − bc_ref| / max(|bc_ref|, 1);
+    * ``bc_err``: max over vertices of |bc − bc_ref| / max(|bc_ref|, 1),
+      of the answer (a sampled configuration's estimator, :func:`rescale`);
     * ``ns_errors``: columns whose component size differs (exact);
     * ``levels_errors``: rounds whose depth differs (exact);
     * ``plan_errors``: schedule faults (:func:`reference.coverage_errors`,
@@ -189,23 +223,57 @@ def judge(prog: Outputs, ref: Outputs, plan_errors: int, limits: dict) -> tuple[
     return checks, failed
 
 
-def plan_check(dec, schedule, completed: list[int]) -> int:
-    """Schedule faults: its coverage of the eligible roots and the plan of
-    every distinct round the window ran."""
-    all_roots = np.concatenate(
+def decompose(cfg: dict, graph) -> reference.Decomposition:
+    """The reference's residual graph under the configuration's heuristics."""
+    return reference.decompose(graph.n, graph.src, graph.dst,
+                               reduce=cfg["heuristics"] in REDUCING_HEURISTICS)
+
+
+def want_roots(dec, cfg: dict) -> np.ndarray:
+    """The roots the configuration's schedule must have, each once: the
+    reference's own draw of a sample, or every eligible vertex."""
+    eligible = np.flatnonzero(dec.eligible)
+    sampling = cfg.get("sampling")
+    if sampling is None:
+        return eligible
+    return reference.sample_roots(eligible, sampling["k"], sampling["seed"])
+
+
+def schedule_roots(schedule) -> np.ndarray:
+    """The root of every live column of every round of the schedule."""
+    return np.concatenate(
         [reference.round_roots(r.sources, r.derived) for r in schedule.rounds]
         or [np.zeros(0, np.int64)])
-    errors = reference.coverage_errors(dec, all_roots)
+
+
+def plan_check(dec, schedule, roots: np.ndarray, want: np.ndarray, completed: list[int]) -> int:
+    """Schedule faults: its roots (``roots``, :func:`schedule_roots`) against
+    the ones it must have (``want``, :func:`want_roots`) and the plan of
+    every distinct round the window ran."""
+    errors = reference.coverage_errors(dec, roots, want)
     for idx in sorted(set(completed)):
         rnd = schedule.rounds[idx]
         errors += reference.check_round(dec, rnd.sources, rnd.derived)
     return errors
 
 
+def rescale(cfg: dict, dec, out: Outputs) -> Outputs:
+    """A sampled configuration's estimator from a side's sums, worked out
+    by the reference: BC_hat = N / k · Σ, with N the eligible vertices and
+    k the roots of the window's rounds, repeats counted (as the program's
+    ``apply_sampling_rescale`` divides by the roots it accumulated).  An
+    exact configuration's sums are its answer."""
+    if cfg.get("sampling") is None:
+        return out
+    k = sum(r.size for r in out.roots)
+    return dataclasses.replace(out, bc=out.bc * (int(dec.eligible.sum()) / k) if k else out.bc)
+
+
 def gteps(edges: int, r_total: float, rounds: int, n_rounds: int, seconds: float) -> float:
     """``bc_gteps``: paper Eq. 7, m · r / t, with r = rounds · r_total /
     n_rounds the input vertices the window's rounds account for when every
-    round of the exact schedule is credited its share."""
+    round of the schedule is credited its share of ``r_total``, what the
+    whole schedule's roots account for (:meth:`reference.Decomposition.credit`)."""
     return edges * r_total * rounds / n_rounds / seconds / 1e9
 
 
@@ -226,22 +294,20 @@ def control(workload: str, seeds, rounds: int, *, device: str = "cuda",
     out not correct."""
     import torch
 
-    from repro_torch.core.scheduler import build_schedule
-
-    _, _, cfg, mix = load_cell(ROOT, workload)
-    cfg = _merge(cfg, overrides or {})
+    _, _, cfg, mix = load_cell(ROOT, workload, overrides)
     dev = torch.device(device)
     graph = _graph(cfg, ROOT / "bench" / ".cache" / "graph" if dev.type == "cuda" else None)
-    schedule = build_schedule(graph, batch_size=cfg["batch_size"],
-                              heuristics=cfg["heuristics"])[0]
-    dec = reference.decompose(graph.n, graph.src, graph.dst)
+    schedule = program_schedule(cfg, graph)[0][0]
+    dec = decompose(cfg, graph)
+    roots, want = schedule_roots(schedule), want_roots(dec, cfg)
     out = []
     for seed in seeds:
         one_pass = traffic.round_order(len(schedule.rounds), mix, seed)
         completed = [one_pass[i % len(one_pass)] for i in range(rounds)]
-        ref = reference_outputs(dec, schedule, completed, dev, torch.float64)
-        low = reference_outputs(dec, schedule, completed, dev, torch.bfloat16)
-        checks, _ = judge(low, ref, plan_check(dec, schedule, completed), cfg["limits"])
+        ref = rescale(cfg, dec, reference_outputs(dec, schedule, completed, dev, torch.float64))
+        low = rescale(cfg, dec, reference_outputs(dec, schedule, completed, dev, torch.bfloat16))
+        checks, _ = judge(low, ref, plan_check(dec, schedule, roots, want, completed),
+                          cfg["limits"])
         out.append({"seed": seed, "rounds": rounds,
                     "correct": all(c["value"] <= c["limit"] for c in checks.values()),
                     "checks": checks})
@@ -279,16 +345,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
 
+    from repro_torch.core.bc import apply_sampling_rescale
     from repro_torch.core.driver import BCDriver
 
-    manifest, entry, cfg, cell_mix = load_cell(ROOT, workload)
-    cfg = _merge(cfg, overrides or {})
+    manifest, entry, cfg, cell_mix = load_cell(ROOT, workload, overrides)
     mix = cell_mix if mix is None else mix
     dev = torch.device(device)
     spans = Spans()
     with spans("graph"):
         graph = _graph(cfg, ROOT / "bench" / ".cache" / "graph" if dev.type == "cuda" else None)
-    n, src, dst = graph.n, graph.src, graph.dst
+    n = graph.n
     path = _load_module(ROOT / "bench" / "paths" / f"{cfg['path']}.py",
                         f"bench_path_{cfg['path']}")
     cell = path.build(cfg, graph, dev, spans)
@@ -330,6 +396,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
                 cell.steps.count = 0
                 t0 = time.perf_counter()
                 result = driver.run()
+                if cell.plan is not None:
+                    result = apply_sampling_rescale(result, cell.plan)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 window_s = time.perf_counter() - t0
@@ -360,9 +428,12 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
 
     # ------------------------------------------------------ the reference
     t_ref = time.perf_counter()
-    dec = reference.decompose(n, src, dst)
-    ref = reference_outputs(dec, schedule, completed, dev, torch.float64)
-    checks, failed = judge(prog, ref, plan_check(dec, schedule, completed), cfg["limits"])
+    dec = decompose(cfg, graph)
+    ref = rescale(cfg, dec, reference_outputs(dec, schedule, completed, dev, torch.float64))
+    roots = schedule_roots(schedule)
+    checks, failed = judge(prog, ref, plan_check(dec, schedule, roots, want_roots(dec, cfg),
+                                                 completed), cfg["limits"])
+    credit = dec.credit(roots)
     t_ref = time.perf_counter() - t_ref
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
@@ -385,7 +456,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
                 metrics[m["name"]] = {"value": value, "unit": units[m["name"]]}
     else:
         end_to_end = {
-            "bc_gteps": gteps(graph.num_edges, dec.r_total, k, len(schedule.rounds), window_s),
+            "bc_gteps": gteps(graph.num_edges, float(credit), k, len(schedule.rounds), window_s),
             "peak_gib": peak / GIB,
             "setup_s": setup_s,
         }
@@ -405,8 +476,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     log(f"{workload}: seed {seed}, {len(completed)} rounds in {window_s:.3f} s "
         f"({len(set(completed))} distinct of {len(schedule.rounds)}, levels "
         f"{min(prog.levels, default=0)}-{max(prog.levels, default=0)}; m {graph.num_edges}, "
-        f"r_total {dec.r_total:.0f}, residual arcs {dec.residual_arcs}; {level_steps} level "
-        f"steps), set-up {setup_s:.3f} s "
+        f"credited R {credit} (eligible Σ(1 + ω) {dec.r_total:.0f}), residual arcs "
+        f"{dec.residual_arcs}; {level_steps} level steps), set-up {setup_s:.3f} s "
         f"({steps}), "
         f"peak {peak / GIB:.3f} GiB, {kind}; the reference {t_ref:.3f} s")
     out["checks"] = checks

@@ -2,11 +2,13 @@
 (numpy and plain PyTorch; it imports nothing of the program).
 
 :func:`decompose` works the 1-degree reduction out again from the input
-arcs (paper §3.4.1, one pass): every vertex of degree 1 leaves the
-graph, and its neighbour v counts it in ω(v).  The residual graph keeps
-the arcs between the others; a vertex with a residual arc is *eligible*
-and must be the root of exactly one column of the schedule, explicit or
-derived from a 2-degree triple (§3.4.2).
+arcs (paper §3.4.1, one pass), where the heuristics include it: every
+vertex of degree 1 leaves the graph, and its neighbour v counts it in
+ω(v).  The residual graph keeps the arcs between the others (without the
+reduction: every arc, ω = 0); a vertex with a residual arc is *eligible*.
+An exact schedule has every eligible vertex as the root of exactly one
+column, explicit or derived from a 2-degree triple (§3.4.2); a sampled
+one has exactly the roots of :func:`sample_roots`.
 
 :class:`Brandes` runs the columns of a round as direct breadth-first
 searches on the residual graph, level by level, each level a CSR product:
@@ -30,8 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Decomposition", "decompose", "round_roots", "check_round", "coverage_errors",
-           "Brandes", "RoundRef"]
+__all__ = ["Decomposition", "decompose", "sample_roots", "round_roots", "check_round",
+           "coverage_errors", "Brandes", "RoundRef"]
 
 
 @dataclasses.dataclass
@@ -53,17 +55,38 @@ class Decomposition:
         for: Σ over eligible roots of 1 + ω."""
         return float((1.0 + self.omega[self.eligible]).sum())
 
+    def credit(self, roots: np.ndarray) -> int:
+        """Vertices whose source contributions the columns rooted at
+        ``roots`` account for: Σ over them of 1 + ω, in int64 (ids past n
+        count for nothing; the plan check counts them)."""
+        roots = roots[roots < self.n]
+        return int(roots.size) + int(self.omega[roots].astype(np.int64).sum())
 
-def decompose(n: int, src: np.ndarray, dst: np.ndarray) -> Decomposition:
-    """The one-pass 1-degree reduction of a symmetric arc list."""
-    deg = np.bincount(src, minlength=n)
-    leaf = deg == 1
-    omega = np.bincount(dst[leaf[src]], minlength=n).astype(np.float64)
-    keep = ~(leaf[src] | leaf[dst])
-    res_src, res_dst = src[keep], dst[keep]
+
+def decompose(n: int, src: np.ndarray, dst: np.ndarray, reduce: bool = True) -> Decomposition:
+    """The one-pass 1-degree reduction of a symmetric arc list, or, with
+    ``reduce`` False, the whole graph as the residual one."""
+    if reduce:
+        deg = np.bincount(src, minlength=n)
+        leaf = deg == 1
+        omega = np.bincount(dst[leaf[src]], minlength=n).astype(np.float64)
+        keep = ~(leaf[src] | leaf[dst])
+        res_src, res_dst = src[keep], dst[keep]
+    else:
+        omega = np.zeros(n, np.float64)
+        res_src, res_dst = src, dst
     res_deg = np.bincount(res_src, minlength=n)
     return Decomposition(n=n, omega=omega, res_src=res_src, res_dst=res_dst, res_deg=res_deg,
                          eligible=res_deg >= 1)
+
+
+def sample_roots(eligible_ids: np.ndarray, k: int, seed: int) -> np.ndarray:
+    """The roots of a fixed sample of k (Brandes & Pich 2007): the first k
+    entries of a permutation of the eligible ids drawn from ``seed``,
+    sorted.  A frozen copy of the definition the program's plan follows,
+    drawn here without it."""
+    ids = np.asarray(eligible_ids, np.int64)
+    return np.sort(np.random.default_rng(seed).permutation(ids)[:k])
 
 
 def round_roots(sources: np.ndarray, derived: np.ndarray) -> np.ndarray:
@@ -93,11 +116,11 @@ def check_round(dec: Decomposition, sources: np.ndarray, derived: np.ndarray) ->
     return errors
 
 
-def coverage_errors(dec: Decomposition, all_roots: np.ndarray) -> int:
-    """How far the schedule's roots are from every eligible vertex exactly
-    once: roots missing, repeated or not eligible."""
+def coverage_errors(dec: Decomposition, all_roots: np.ndarray, want_roots: np.ndarray) -> int:
+    """How far the schedule's roots are from each of ``want_roots`` exactly
+    once: roots missing, repeated or not wanted."""
     counts = np.bincount(all_roots, minlength=dec.n) if all_roots.size else np.zeros(dec.n, int)
-    want = dec.eligible.astype(np.int64)
+    want = np.bincount(want_roots, minlength=dec.n)
     return int(np.abs(counts[: dec.n] - want).sum()) + int((all_roots >= dec.n).sum())
 
 

@@ -1,6 +1,6 @@
 """The 2-D path on a one-process grid: the calls ``launch/steps.py``'s
 ``build_bc_cell`` makes, in its order, on the benchmark's graph (the
-h3 schedule, ``partition_2d``, the rank's arc arrays and ω on the
+configuration's schedule, ``partition_2d``, the rank's arc arrays and ω on the
 device, ``make_distributed_round_fn`` at the configuration's static
 level bound), over NCCL on the card and gloo on the CPU.  The round
 function builds its operator anew each round, so the level steps are
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bcbench.cell import Cell, LevelSteps
+from bcbench.cell import Cell, LevelSteps, program_schedule
 
 
 def _operator_class(engine: str):
@@ -30,7 +30,6 @@ def build(cfg: dict, graph, device: torch.device, span) -> Cell:
     import torch.distributed as dist
 
     from repro_torch.core.distributed import distributed_graph_arrays, make_distributed_round_fn
-    from repro_torch.core.scheduler import build_schedule
     from repro_torch.distributed.groups import GridGroups
     from repro_torch.device import resolve_device
     from repro_torch.graphs.partition import partition_2d
@@ -48,8 +47,7 @@ def build(cfg: dict, graph, device: torch.device, span) -> Cell:
         groups = GridGroups(1, R, C)
     try:
         with span("schedule"):
-            schedule, _, residual, omega = build_schedule(
-                graph, batch_size=cfg["batch_size"], heuristics=cfg["heuristics"])
+            (schedule, _, residual, omega), plan = program_schedule(cfg, graph)
         with span("partition"):
             part = partition_2d(residual, R, C)
             graph_args = distributed_graph_arrays(part, cfg["engine"], groups.i, groups.j, dev)
@@ -75,4 +73,4 @@ def build(cfg: dict, graph, device: torch.device, span) -> Cell:
     return Cell(round_fn=fn, schedule=schedule, steps=steps,
                 info={"residual_arcs": residual.num_arcs, "n_pad": part.n_pad,
                       "chunk": part.chunk},
-                close=close)
+                close=close, plan=plan)

@@ -20,18 +20,20 @@ ROOT = BENCH.parent
 sys.path.insert(0, str(BENCH))
 sys.path.insert(0, str(ROOT / "src"))
 
-from bcbench import harness, roofline, traffic  # noqa: E402
+from bcbench import harness, reference, roofline, traffic  # noqa: E402
+from bcbench.cell import program_schedule  # noqa: E402
 from bcbench.trace import Trace, _collective, from_profiler, idle_gaps, union_seconds  # noqa: E402
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-#: small sizes of each configuration for the CPU
-SMALL = {"bc-rmat-s17-fused": {"scale": 8, "batch_size": 16},
-         "bc-rmat-s23": {"scale": 9}}
+#: a fixed sample of 32 roots under h0, on a configuration that runs exact
+SAMPLED = {"heuristics": "h0", "sampling": {"mode": "fixed", "k": 32, "seed": 3}}
+#: what a copy of the benchmark leaves out
+COPY_IGNORE = shutil.ignore_patterns(".cache", "__pycache__")
 
 
 def small(workload: str) -> dict:
-    entry = next(w for w in MANIFEST["workloads"] if w["name"] == workload)
-    return SMALL[entry["config"]]
+    """The configuration's small sizes for the CPU (its ``test_sizes``)."""
+    return harness.load_cell(ROOT, workload)[2]["test_sizes"]["cpu"]
 
 
 WORKLOADS = [w["name"] for w in MANIFEST["workloads"]]
@@ -156,6 +158,42 @@ def test_levels_per_round_counts_the_engines_level_steps(workload):
     want = ({2 * cfg["max_levels"] - 1} if cfg["max_levels"] is not None
             else {2 * (levels - 1), 2 * (levels - 1) - 1})
     assert out["metrics"]["levels_per_round"]["value"] in want
+
+
+@pytest.mark.parametrize("variant", ["as_configured", "h0_exact", "sampled"])
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_credit_is_what_the_schedules_own_roots_account_for(workload, variant):
+    # exact: Σ over the eligible roots of 1 + ω, to the bit (under h0 every
+    # ω is 0, so one a root); a sample of k under h0: k
+    extra = {"as_configured": {}, "h0_exact": {"heuristics": "h0", "sampling": None},
+             "sampled": SAMPLED}[variant]
+    cfg = harness.load_cell(ROOT, workload, dict(small(workload), **extra))[2]
+    graph = harness._graph(cfg, None)
+    (schedule, *_), plan = program_schedule(cfg, graph)
+    dec = harness.decompose(cfg, graph)
+    roots = harness.schedule_roots(schedule)
+    assert harness.plan_check(dec, schedule, roots, harness.want_roots(dec, cfg), []) == 0
+    credit = dec.credit(roots)
+    assert isinstance(credit, int)
+    sampling = cfg.get("sampling")
+    if sampling is None:
+        assert plan is None
+        assert float(credit) == dec.r_total and credit >= int(dec.eligible.sum())
+        if cfg["heuristics"] not in harness.REDUCING_HEURISTICS:
+            assert credit == int(dec.eligible.sum())
+    else:
+        assert credit == sampling["k"] < dec.r_total
+        assert plan.scale == int(dec.eligible.sum()) / sampling["k"]
+
+
+def test_the_reference_sample_is_the_programs_plan():
+    from repro_torch.serving.sampling import plan_sampling
+
+    eligible = np.flatnonzero(np.random.default_rng(4).random(3000) < 0.7)
+    for k, seed in ((1, 0), (32, 3), (512, 2**31 + 5), (eligible.size - 1, 9)):
+        want = plan_sampling(eligible, "fixed", sample_k=k, seed=seed).roots
+        got = reference.sample_roots(eligible, k, seed)
+        assert got.dtype == np.int64 and np.array_equal(got, want)
 
 
 def test_gteps_is_edges_times_credited_vertices_over_seconds():
@@ -345,8 +383,7 @@ def test_main_refuses_without_a_card(capsys):
 
 
 def test_refuses_in_a_checkout_without_the_program(tmp_path):
-    shutil.copytree(BENCH, tmp_path / "bench", ignore=shutil.ignore_patterns(".cache",
-                                                                           "__pycache__"))
+    shutil.copytree(BENCH, tmp_path / "bench", ignore=COPY_IGNORE)
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
@@ -354,3 +391,70 @@ def test_refuses_in_a_checkout_without_the_program(tmp_path):
          "--seconds", "1", "--trace", "0"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+def _changed_files(before: Path, after: Path) -> list[str]:
+    """The files of ``before`` that ``after`` lacks or holds otherwise (as
+    ``git diff`` of the two trees would list them), caches left out."""
+    changed = []
+    for path in sorted(before.rglob("*")):
+        rel = path.relative_to(before)
+        if path.is_dir() or {".cache", "__pycache__"} & set(rel.parts):
+            continue
+        twin = after / rel
+        if not twin.is_file() or twin.read_bytes() != path.read_bytes():
+            changed.append(rel.as_posix())
+    return changed
+
+
+def test_a_configuration_joins_the_benchmark_as_data_alone(tmp_path):
+    # an h0 configuration, sampled and exact, added to a copy of the
+    # benchmark by new files and manifest entries alone runs correct, and
+    # every bench test parametrised over the manifest runs it
+    copy = tmp_path / "checkout"
+    shutil.copytree(BENCH, copy / "bench", ignore=COPY_IGNORE)
+    base = json.loads((BENCH / "configs" / "bc-rmat-s17-fused.json").read_text())
+    (copy / "bench" / "traffic" / "sample32.json").write_text(json.dumps({"pool_rounds": 2}))
+    manifest = json.loads(json.dumps(MANIFEST))
+    added = {"bc-rmat-s17.sampled": ("bc-rmat-s17-sampled", SAMPLED["sampling"], 32),
+             "bc-rmat-s17.h0": ("bc-rmat-s17-h0", None, None)}
+    for workload, (name, sampling, _) in added.items():
+        cfg = dict(base, name=name, scale=8, batch_size=16, heuristics="h0", sampling=sampling)
+        (copy / "bench" / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+        manifest["configs"].append(dict(manifest["configs"][0], name=name,
+                                        file=f"bench/configs/{name}.json"))
+        manifest["workloads"].append({"name": workload, "config": name, "traffic": "sample32",
+                                      "chips": 1, "why": "h0 on the fused path"})
+    (copy / "BENCHMARK.json").write_text(json.dumps(manifest))
+    assert _changed_files(BENCH, copy / "bench") == []
+    assert (copy / "BENCHMARK.json").read_bytes() != (ROOT / "BENCHMARK.json").read_bytes()
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    script = (
+        "import json, re, sys; sys.path.insert(0, 'bench'); from bcbench import harness; "
+        "rows = []\n"
+        "for w in sys.argv[1:]:\n"
+        "    logged = []; out = harness.run(w, 2**31 + 13, 0.2, False, device='cpu', "
+        "log=logged.append)\n"
+        "    got = re.search(r'credited R (\\d+) \\(eligible [^)]*\\) (\\d+)\\)', logged[-1])\n"
+        "    rows.append([out, int(got.group(1)), int(got.group(2))])\n"
+        "print(json.dumps(rows))")
+    proc = subprocess.run([sys.executable, "-c", script, *added], cwd=copy, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = json.loads(proc.stdout.splitlines()[-1])
+    for (out, credit, r_total), (name, _, k) in zip(rows, added.values()):
+        assert out["correct"] is True and out["failed"] == 0, (name, out["checks"])
+        assert out["checks"]["plan_errors"]["value"] == 0
+        assert out["attempted"] >= 2 and set(out["metrics"]) == {"bc_gteps", "peak_gib", "setup_s"}
+        assert credit == (r_total if k is None else k)
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:randomly",
+         "bench/tests", "-k", " or ".join(added)],
+        cwd=copy, env=env, capture_output=True, text=True, timeout=900)
+    tail = proc.stdout[-4000:]
+    assert proc.returncode == 0, tail
+    summary = tail.strip().splitlines()[-1]
+    assert int(re.search(r"(\d+) passed", summary).group(1)) >= 20, tail
+    assert "failed" not in summary and "error" not in summary, tail

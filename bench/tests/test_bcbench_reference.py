@@ -107,6 +107,35 @@ def test_reference_with_leaves_matches_brute_force_where_no_leaf_hangs(seed):
         assert ns == len(_bfs(adj, root)[0])
 
 
+@pytest.mark.parametrize("seed", [3, 4, 5, 6])
+def test_unreduced_reference_matches_brute_force_everywhere(seed):
+    # without the 1-degree reduction (h0, h2) every arc stays and ω = 0, so
+    # the sweep over every vertex of degree >= 1 is the exact BC of every
+    # vertex, leaves included
+    n = 18
+    src, dst = _random_graph(n, 24, seed)
+    dec = reference.decompose(n, src, dst, reduce=False)
+    assert not dec.omega.any() and dec.residual_arcs == src.size
+    deg = np.bincount(src, minlength=n)
+    assert np.array_equal(dec.eligible, deg >= 1) and (deg == 1).any()
+    bc, sizes = _all_columns(dec, reference.Brandes(dec, torch.device("cpu")))
+    np.testing.assert_allclose(bc, brute_bc(n, src, dst), rtol=1e-12, atol=1e-12)
+    adj = [[] for _ in range(n)]
+    for u, v in zip(src.tolist(), dst.tolist()):
+        adj[u].append(v)
+    for root, ns in sizes.items():
+        assert ns == len(_bfs(adj, root)[0])
+
+
+def test_sample_roots_are_a_sorted_seeded_subset():
+    eligible = np.arange(3, 400, 3)
+    roots = reference.sample_roots(eligible, 20, 2**31 + 5)
+    assert roots.size == 20 and np.all(np.diff(roots) > 0) and np.isin(roots, eligible).all()
+    assert np.array_equal(roots, reference.sample_roots(eligible, 20, 2**31 + 5))
+    assert not np.array_equal(roots, reference.sample_roots(eligible, 20, 2**31 + 6))
+    assert np.array_equal(reference.sample_roots(eligible, eligible.size, 1), eligible)
+
+
 def test_bfloat16_control_departs_from_the_reference():
     n, src, dst = rmat.rmat_arcs(10, 16, seed=1)
     dec = reference.decompose(n, src, dst)
@@ -146,9 +175,16 @@ def test_plan_checks_catch_a_missing_root_and_a_wrong_triple():
     n = 5
     src, dst = _arcs(n, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 0)])
     dec = reference.decompose(n, src, dst)
-    assert reference.coverage_errors(dec, np.arange(n)) == 0
-    assert reference.coverage_errors(dec, np.array([0, 1, 2, 3])) == 1
-    assert reference.coverage_errors(dec, np.array([0, 1, 2, 3, 4, 4])) == 1
+    every = np.flatnonzero(dec.eligible)
+    assert reference.coverage_errors(dec, np.arange(n), every) == 0
+    assert reference.coverage_errors(dec, np.array([0, 1, 2, 3]), every) == 1
+    assert reference.coverage_errors(dec, np.array([0, 1, 2, 3, 4, 4]), every) == 1
+    # a sample: exactly the roots wanted, each once
+    want = np.array([1, 3])
+    assert reference.coverage_errors(dec, np.array([1, 3]), want) == 0
+    assert reference.coverage_errors(dec, np.array([1, 2]), want) == 2
+    assert reference.coverage_errors(dec, np.array([1, 3, 3]), want) == 1
+    assert reference.coverage_errors(dec, np.arange(n), want) == 3
     sources = np.array([0, 2, -1], np.int32)
     good = np.array([[1, 0, 1], [-1, -1, -1]], np.int32)
     bad = np.array([[3, 0, 1], [-1, -1, -1]], np.int32)

@@ -20,20 +20,22 @@ sys.path.insert(0, str(BENCH))
 sys.path.insert(0, str(ROOT / "src"))
 
 from bcbench import harness  # noqa: E402
+from bcbench.cell import program_schedule  # noqa: E402
 from bcbench.spans import COLLECTIVE, HOST, SYNC, gap_seconds  # noqa: E402
 from bcbench.trace import Trace  # noqa: E402
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 WORKLOADS = [w["name"] for w in MANIFEST["workloads"]]
-#: small sizes of each configuration for the CPU (``test_bcbench_harness.py``'s)
-SMALL = {"bc-rmat-s17-fused": {"scale": 8, "batch_size": 16}, "bc-rmat-s23": {"scale": 9}}
 GAP_METRICS = ("sync_gap_ms_per_round", "collective_gap_ms_per_round", "host_gap_ms_per_round")
 
 
+def _sizes(workload: str, kind: str) -> dict:
+    """The configuration's ``test_sizes[kind]`` (``cpu``: the harness tests' sizes)."""
+    return harness.load_cell(ROOT, workload)[2]["test_sizes"][kind]
+
+
 def _cfg(workload: str) -> dict:
-    config = next(w["config"] for w in MANIFEST["workloads"] if w["name"] == workload)
-    conf = next(c for c in MANIFEST["configs"] if c["name"] == config)
-    return harness._merge(json.loads((ROOT / conf["file"]).read_text()), SMALL[config])
+    return harness.load_cell(ROOT, workload, _sizes(workload, "cpu"))[2]
 
 
 def _read(name: str, ctx):
@@ -43,7 +45,7 @@ def _read(name: str, ctx):
 def _traced_run(workload: str, mix=None):
     logged = []
     out = harness.run(workload, 2**31 + 5, 0.0, True, device="cpu",
-                      overrides=SMALL[_cfg(workload)["name"]], mix=mix, log=logged.append)
+                      overrides=_sizes(workload, "cpu"), mix=mix, log=logged.append)
     assert out["correct"] is True, out["checks"]
     levels = re.search(r"levels (\d+)-(\d+).*?; (\d+) level steps\)", logged[-1])
     return out, int(levels.group(1)), int(levels.group(2)), int(levels.group(3))
@@ -100,7 +102,7 @@ def test_program_level_steps_equal_the_benchmarks_count(workload):
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_empty_level_pct_follows_the_loops_bounds(workload):
-    from repro_torch.core.scheduler import bfs_depths, build_schedule
+    from repro_torch.core.scheduler import bfs_depths
 
     cfg = _cfg(workload)
     # one round, the schedule's first, so its depths can be worked out here
@@ -111,9 +113,7 @@ def test_empty_level_pct_follows_the_loops_bounds(workload):
         # the liveness loop: only its last forward step finds nothing
         want = 100.0 * out["attempted"] / steps
     else:
-        schedule, _, residual, _ = build_schedule(harness._graph(cfg, None),
-                                                  batch_size=cfg["batch_size"],
-                                                  heuristics=cfg["heuristics"])
+        (schedule, _, residual, _), _ = program_schedule(cfg, harness._graph(cfg, None))
         d_src = max(int(bfs_depths(residual, int(v)).max())
                     for v in schedule.rounds[0].sources if v >= 0)
         depth = levels - 1
@@ -131,10 +131,8 @@ def test_empty_level_pct_follows_the_loops_bounds(workload):
 def test_gap_metrics_on_the_card_fit_in_the_idle_time(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    small = {"bc-rmat-s17-fused": {"scale": 11}, "bc-rmat-s23": {"scale": 12}}
-    config = _cfg(workload)["name"]
-    out = harness.run(workload, 2**31 + 7, 1.0, True, device="cuda", overrides=small[config],
-                      log=lambda msg: None)
+    out = harness.run(workload, 2**31 + 7, 1.0, True, device="cuda",
+                      overrides=_sizes(workload, "card"), log=lambda msg: None)
     assert out["correct"] is True, out["checks"]
     dev, metrics = out["device"], out["metrics"]
     idle_ms = 1e3 * (dev["window_s"] - dev["busy_s"]) / out["attempted"]
