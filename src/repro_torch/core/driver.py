@@ -171,7 +171,8 @@ def traversal_round(
         src_onehot = (
             (row_ids[:, None] == sources[None, :]) & (sources[None, :] >= 0)
         ).to(torch.float32)
-        fwd = engine.forward_counting(op, src_onehot, num_levels=num_levels, checksum=checksum)
+        fwd = engine.forward_counting(op, src_onehot, num_levels=num_levels, checksum=checksum,
+                                      roots=sources)
 
         # ------------------------------------------- derived 2-degree columns
         sigma_c, depth_c = derive_two_degree_columns(
@@ -179,6 +180,7 @@ def traversal_round(
         )
         sigma_all = torch.cat([fwd.sigma, sigma_c], dim=1)
         depth_all = torch.cat([fwd.depth, depth_c], dim=1)
+        roots = torch.cat([sources, derived[:, 0]])
 
         # ---------------------------------------------------------- backward
         # decomposed max: grid first (this replica's own depth, the round's
@@ -188,12 +190,12 @@ def traversal_round(
         with tracing.span("bc.readback"):
             max_depth = int(op.reduce_max_sync(grid_max))
         bwd = engine.backward_accumulation(
-            op, sigma_all, depth_all, omega, max_depth, num_levels=num_levels, checksum=checksum
+            op, sigma_all, depth_all, omega, max_depth, num_levels=num_levels, checksum=checksum,
+            roots=roots,
         )
         delta, bwd_err = bwd if checksum else (bwd, None)
 
         # --------------------------------------------------------- BC + n_s
-        roots = torch.cat([sources, derived[:, 0]])
         mult = torch.where(roots >= 0, op.root_omega(roots, omega) + 1.0, 0.0)
         root_onehot = row_ids[:, None] == roots[None, :]
         bc_local = torch.where(root_onehot, 0.0, delta * mult[None, :]).sum(dim=1)

@@ -83,7 +83,7 @@ class ForwardState(NamedTuple):
 
 def forward_counting(
     operator, src_onehot: torch.Tensor, num_levels: int | None = None, *,
-    checksum: bool = False,
+    checksum: bool = False, roots: torch.Tensor | None = None,
 ) -> ForwardState:
     """Multi-source shortest-path counting (Alg. 2 analogue).
 
@@ -98,6 +98,8 @@ def forward_counting(
       checksum:   run the ABFT-checked level steps and carry the running
                   max column-sum residual in ``ForwardState.check_err``
                   (the lane is transient inside each level).
+      roots:      i32 [s], each column's root (-1 = padding), for the
+                  tracing counters only; None counts no column as padded.
     """
     op = as_operator(operator, n_rows=src_onehot.shape[0], device=src_onehot.device)
     sigma = src_onehot.to(torch.float32)
@@ -129,7 +131,7 @@ def forward_counting(
             max_depth = int(op.reduce_max(depth.max())) if depth.numel() else 0
         steps = num_levels
     if tracing.on():
-        tracing.count_levels(steps, max_depth, depth, 0)
+        tracing.count_levels(steps, max_depth, depth, 0, roots)
     return ForwardState(sigma=sigma, depth=depth, max_depth=max_depth,
                         check_err=err if checksum else None)
 
@@ -143,6 +145,7 @@ def backward_accumulation(
     num_levels: int | None = None,
     *,
     checksum: bool = False,
+    roots: torch.Tensor | None = None,
 ):
     """Dependency accumulation (Alg. 4/5 analogue, checking successors).
 
@@ -156,7 +159,8 @@ def backward_accumulation(
 
     With ``checksum=True`` every level runs the ABFT-checked step and the
     return value is the pair ``(δ, err)``, ``err`` the f32 0-d max
-    relative column-sum residual across the sweep.
+    relative column-sum residual across the sweep.  ``roots`` is as for
+    :func:`forward_counting`, over the columns of ``sigma``.
     """
     op = as_operator(operator, n_rows=sigma.shape[0], device=sigma.device)
     delta = torch.zeros_like(sigma)
@@ -170,7 +174,7 @@ def backward_accumulation(
             else:
                 delta = op.backward_level(lvl, sigma, depth, omega, delta)
     if tracing.on():
-        tracing.count_levels(max(top, 0), max_depth - 1, depth, 1)
+        tracing.count_levels(max(top, 0), max_depth - 1, depth, 1, roots)
     return (delta, err) if checksum else delta
 
 

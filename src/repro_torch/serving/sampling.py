@@ -17,6 +17,8 @@ import dataclasses
 
 import numpy as np
 
+from .. import tracing
+
 __all__ = [
     "SAMPLING_MODES",
     "normalize_sampling",
@@ -118,8 +120,9 @@ def plan_sampling(
     if k >= num_eligible:
         roots = None  # exact-schedule identity, no rescale drift
     else:
-        rng = np.random.default_rng(seed)
-        roots = np.sort(rng.permutation(eligible)[:k])
+        with tracing.phase("bc.sample.plan"):
+            rng = np.random.default_rng(seed)
+            roots = np.sort(rng.permutation(eligible)[:k])
     return SamplePlan(
         mode=mode, roots=roots, num_eligible=num_eligible, k=k, seed=seed
     )

@@ -19,16 +19,20 @@ Spans:
 * ``bc.collective.<kind>``: ``all_gather``, ``reduce_scatter``,
   ``all_reduce`` and ``ring_hop`` of ``distributed/groups.py``;
 * ``bc.schedule.one_degree`` / ``.two_degree`` / ``.pack``: the phases of
-  ``build_schedule``.  These keep their host seconds whether tracing is
-  on or not (:func:`seconds`): set-up runs before a profiler starts.
+  ``build_schedule``, and ``bc.sample.plan``: ``plan_sampling``'s draw of
+  a fixed sample of roots.  These keep their host seconds whether tracing
+  is on or not (:func:`seconds`): set-up runs before a profiler starts.
 
 Counters, recorded only while on (:func:`counts`): ``level_steps``,
 ``empty_level_steps`` (steps in which no column can change),
 ``live_columns`` (column-steps that can change their column: forward step
 ℓ for a column with a vertex at depth ℓ, backward step ℓ for one with a
-vertex at depth ℓ + 1) and ``operand_columns`` (the columns the steps
-ran, live or not).  They start from zero at the first record under a
-profiler session after :func:`on` last saw no profiler running.
+vertex at depth ℓ + 1), ``operand_columns`` (the columns the steps
+ran, live or not) and ``padded_columns`` (those of them whose column has
+no root: an unfilled source slot in the forward loop, an unfilled source
+or derived slot in the backward loop).  They start from zero at the
+first record under a profiler session after :func:`on` last saw no
+profiler running.
 
 Run BC under ``torch.profiler.profile`` and call :func:`counts` and
 :func:`seconds` afterwards; ``bench/metrics/`` reads them.
@@ -49,18 +53,20 @@ _OFF = contextlib.nullcontext()
 #: under a profiler then starts the counters from zero
 _saw_off = True
 _steps = {"level_steps": 0, "empty_level_steps": 0, "operand_columns": 0}
-_live: torch.Tensor | None = None  # i64 0-d on the round's device
+#: the live and the padded columns: i64 0-d on the round's device once counted
+_live: torch.Tensor | int = 0
+_padded: torch.Tensor | int = 0
 _seconds: dict[str, float] = {}
 
 
 def on() -> bool:
     """Whether a profiler records now (the one check every hook makes)."""
-    global _saw_off, _live
+    global _saw_off, _live, _padded
     if _profiler_enabled():
         if _saw_off:
             _saw_off = False
             _steps.update(dict.fromkeys(_steps, 0))
-            _live = None
+            _live = _padded = 0
         return True
     _saw_off = True
     return False
@@ -80,29 +86,34 @@ def phase(name: str):
     _seconds[name] = time.perf_counter() - t
 
 
-def count_levels(steps: int, live_steps: int, depth: torch.Tensor, shift: int) -> None:
+def count_levels(steps: int, live_steps: int, depth: torch.Tensor, shift: int,
+                 roots: torch.Tensor | None = None) -> None:
     """Count one loop's ``steps`` level steps over the columns of
     ``depth`` (i32 [rows, columns]), of which ``live_steps`` (from the
     host ints the loop holds) can change a column.  A column whose deepest
     vertex is at D is live in min(D − shift, steps) of them (none if
     negative): ``shift`` 0 for the forward loop, 1 for the backward.
-    Only while :func:`on`; the live columns are summed on the device."""
-    global _live
+    ``roots`` (i32 [columns]) holds each column's root, −1 where it has
+    none: such a column is padded in every step (None: no column is).
+    Only while :func:`on`; the live and padded columns are summed on the
+    device."""
+    global _live, _padded
     _steps["level_steps"] += steps
     _steps["empty_level_steps"] += steps - min(max(live_steps, 0), steps)
     _steps["operand_columns"] += steps * depth.shape[1]
     if steps and depth.numel():
-        live = (depth.amax(dim=0) - shift).clamp(0, steps).sum()
-        _live = live if _live is None else _live + live
+        _live = _live + (depth.amax(dim=0) - shift).clamp(0, steps).sum()
+    if steps and roots is not None:
+        _padded = _padded + (roots < 0).sum() * steps
 
 
 def counts() -> dict[str, int]:
     """The counters of the latest profiler session ({} if none recorded),
-    with one synchronisation for the live columns."""
+    with a synchronisation each for the live and padded columns."""
     on()
     if not _steps["level_steps"]:
         return {}
-    return dict(_steps, live_columns=0 if _live is None else int(_live))
+    return dict(_steps, live_columns=int(_live), padded_columns=int(_padded))
 
 
 def seconds() -> dict[str, float]:
