@@ -77,7 +77,8 @@ times; a kernel's launches count its plain and its acc mode):
      lane's widths s = 129 / 193 on the square adjacency (parity, bound,
      torch.matmul, phase 10 (b)'s launches), the per-launch device
      time of K1–K4 on the main path (phase 4's and phase 5's traces, real
-     states: main loop plus operand pass) beside their time on the random
+     states: main loop plus operand pass; K2/K4 at s = 128 there, the h0
+     rounds shipping no derived slot) beside their time on the random
      states, the ptxas registers and spills of every K1–K4 instantiation
      and of the operand passes, and the SM clock and power sampled while
      K2 (f32 A, s = 192) runs 60 times;
@@ -114,10 +115,11 @@ times; a kernel's launches count its plain and its acc mode):
      must run exactly the 2 uncommitted rounds and equal phase 4's fused
      BC (rtol 1e-5 / atol 1e-5); the sha1 manifest verified with numpy
      and hashlib; one snapshot's save time; (b) BCDriver with
-     integrity="checksum" on FusedDenseOperator (K3/K4 at s = 129 / 193,
-     no K1/K2): residual under CHECKSUM_TOL, no failures, BC equal to the
-     unchecked run; (c) integrity="audit" with the first block's BC
-     corrupted (2·bc + 1): quarantined once, retried once, BC still
+     integrity="checksum" on FusedDenseOperator (K3/K4 at s = 129, the h0
+     rounds shipping no derived slot; no K1/K2): residual under
+     CHECKSUM_TOL, no failures, BC equal to the unchecked run; (c)
+     integrity="audit" with the first block's BC corrupted (2·bc + 1):
+     quarantined once, retried once, BC still
      equal; (d) run_serving on one device (1024 roots in 3 slices): every
      query accounted once, the final top 10 equal to a straight sampled
      call's; again on the same checkpoint (the committed generation
@@ -1328,7 +1330,8 @@ def durable_phase(dev, graph, groups, fused_ref) -> dict:
         print(f"[10] (b) max checksum residual {ist['max_checksum_residual']:.3g} (CHECKSUM_TOL "
               f"{CHECKSUM_TOL:g}), checksum failures {ist['checksum_failures']}, audit "
               f"failures {ist['audit_failures']}; K3 (s = {MAIN_BATCH + 1}) "
-              f"x{lb['frontier_spmm_partial']}, K4 (s = {MAIN_BATCH + MAIN_BATCH // 2 + 1}) "
+              f"x{lb['frontier_spmm_partial']}, K4 (s = {MAIN_BATCH + 1}: the h0 rounds ship "
+              f"no derived slot) "
               f"x{lb['dependency_spmm_partial']}; levels per round {checked.round_levels}; "
               f"wall {wall_b:.3f}s against (a)'s {wall_a1:.3f} + {wall_a2:.3f}s and phase 4's "
               f"unchecked fused call")

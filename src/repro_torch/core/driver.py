@@ -13,7 +13,9 @@ return contract.
 in *dispatch blocks* of ``rounds_per_dispatch`` (1 on a single device;
 the sub-cluster count ``fr`` on a grid, one round per replica), skips
 rounds a :class:`RoundLedger` (or a resumed :class:`BCCheckpoint`) has
-committed, adds each block's contribution into an f32 accumulator on the
+committed, ships a block's derived slots only up to its last claimed one
+(the rest are padding in every lane, and would widen the backward loop),
+adds each block's contribution into an f32 accumulator on the
 device, reads the block's n_s and roots back to the host (the 1-degree
 corrections need them), and fetches the accumulator as f64 at the end,
 summing the replicas onto the checkpoint's f64 seed.  Every block goes
@@ -330,6 +332,20 @@ def _unpack_block(out) -> tuple:
     return out + (None,) * (5 - len(out))
 
 
+def _shipped_derived(ders: np.ndarray) -> np.ndarray:
+    """The derived slots ``[fr, w, 3]`` a dispatch block ships of its
+    ``[fr, k, 3]``: ``w`` is one past the last slot with a root (c ≥ 0) in
+    any lane, 0 when no slot has one.  The slots past ``w`` are padding in
+    every lane: shipped, they would only widen the backward loop's
+    operand.  While tracing is on, the ``fr · (k − w)`` slots left out
+    count as ``trimmed_slots``."""
+    claimed = np.flatnonzero((ders[:, :, 0] >= 0).any(axis=0))
+    w = int(claimed[-1]) + 1 if claimed.size else 0
+    if tracing.on():
+        tracing.count_trimmed(ders.shape[0] * (ders.shape[1] - w))
+    return np.ascontiguousarray(ders[:, :w])
+
+
 def _host(x) -> np.ndarray:
     """A tensor (any device) or a list of ints as a flat numpy array."""
     if isinstance(x, torch.Tensor):
@@ -340,10 +356,12 @@ def _host(x) -> np.ndarray:
 class BCDriver:
     """Host round loop (see module docstring).
 
-    ``round_fn(sources i32 [fr, s], derived i32 [fr, k, 3])`` (tensors on
-    the run's device, one round per lane, ``fr = rounds_per_dispatch``)
-    must return ``(bc_block f32 [fr, ≥n], ns f32 [fr, s+k],
-    roots i32 [fr, s+k], levels [fr])`` — per lane what
+    ``round_fn(sources i32 [fr, s], derived i32 [fr, w, 3])`` (tensors on
+    the run's device, one round per lane, ``fr = rounds_per_dispatch``;
+    ``w ≤ k`` the block's derived slots up to its last claimed one, so 0
+    on a block whose derived slots are all padding, :func:`_shipped_derived`)
+    must return ``(bc_block f32 [fr, ≥n], ns f32 [fr, s+w],
+    roots i32 [fr, s+w], levels [fr])`` — per lane what
     :func:`traversal_round` returns — plus ``integ f32 [fr, 2]`` when
     ``integrity != "off"``.  A short last block and committed rounds are
     dealt as all-padding lanes (sources -1), which contribute nothing;
@@ -657,10 +675,12 @@ class BCDriver:
         raised.  Returns the unpacked 5-tuple.
         """
         fn, attempt = self.round_fn, 0
+        left_out = self.schedule.derived_per_round - ders.shape[1]
         while True:
             try:
                 t0 = self._clock()
-                out = _unpack_block(fn(srcs, ders))
+                with tracing.trimming(left_out):
+                    out = _unpack_block(fn(srcs, ders))
             except Exception as e:
                 if is_transient_error(e) and attempt < self.max_retries:
                     backoff = self.retry_backoff_s * (2.0 ** attempt)
@@ -720,8 +740,9 @@ class BCDriver:
 
     # ------------------------------------------------------------ loop
     def _blocks(self):
-        """Yield ``(sources [fr, s], derived [fr, k, 3], live)`` dispatch
-        blocks as int32 tensors on the device, ``live`` listing the
+        """Yield ``(sources [fr, s], derived [fr, w, 3], live)`` dispatch
+        blocks as int32 tensors on the device (``w ≤ k`` the block's
+        shipped derived slots, :func:`_shipped_derived`), ``live`` listing the
         ``(lane, round_id)`` pairs that carry an uncommitted round; blocks
         with none are skipped."""
         s = self.schedule.batch_size
@@ -741,7 +762,7 @@ class BCDriver:
             if live:
                 yield (
                     torch.from_numpy(srcs).to(self.device),
-                    torch.from_numpy(ders).to(self.device),
+                    torch.from_numpy(_shipped_derived(ders)).to(self.device),
                     live,
                 )
 
@@ -1060,8 +1081,9 @@ class BCDriver:
             # ------------------------------------- dispatch + observe
             t_blk = self._clock()
             try:
-                out = self._dispatch_block(torch.from_numpy(srcs).to(self.device),
-                                           torch.from_numpy(ders).to(self.device))
+                out = self._dispatch_block(
+                    torch.from_numpy(srcs).to(self.device),
+                    torch.from_numpy(_shipped_derived(ders)).to(self.device))
             except ReplicaLostError as e:
                 if int(getattr(e, "replica", -1)) < 0:
                     # the watchdog escalated without knowing which lane

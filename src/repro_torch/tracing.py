@@ -30,7 +30,13 @@ Counters, recorded only while on (:func:`counts`): ``level_steps``,
 vertex at depth ℓ + 1), ``operand_columns`` (the columns the steps
 ran, live or not) and ``padded_columns`` (those of them whose column has
 no root: an unfilled source slot in the forward loop, an unfilled source
-or derived slot in the backward loop).  They start from zero at the
+or derived slot in the backward loop), and ``trimmed_slots``, the derived
+slots ``BCDriver`` left out of its dispatch blocks (those past a block's
+last claimed slot, in every lane).  The column counts keep the schedule's
+width: a backward step counts the slots its block left out (:func:`trimming`)
+as padded operand columns, though it does not run them, so the trim shows
+in ``trimmed_slots`` and leaves ``padding_column_pct`` and
+``live_column_pct`` as the schedule has them.  They start from zero at the
 first record under a profiler session after :func:`on` last saw no
 profiler running.
 
@@ -44,7 +50,8 @@ import time
 
 import torch
 
-__all__ = ["on", "span", "phase", "count_levels", "counts", "seconds"]
+__all__ = ["on", "span", "phase", "count_levels", "count_trimmed", "trimming", "counts",
+           "seconds"]
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
@@ -52,10 +59,12 @@ _OFF = contextlib.nullcontext()
 #: whether the last :func:`on` saw no profiler running: the next record
 #: under a profiler then starts the counters from zero
 _saw_off = True
-_steps = {"level_steps": 0, "empty_level_steps": 0, "operand_columns": 0}
+_steps = {"level_steps": 0, "empty_level_steps": 0, "operand_columns": 0, "trimmed_slots": 0}
 #: the live and the padded columns: i64 0-d on the round's device once counted
 _live: torch.Tensor | int = 0
 _padded: torch.Tensor | int = 0
+#: the derived slots of each lane that the running dispatch block left out
+_trimmed_lane = 0
 _seconds: dict[str, float] = {}
 
 
@@ -94,17 +103,38 @@ def count_levels(steps: int, live_steps: int, depth: torch.Tensor, shift: int,
     vertex is at D is live in min(D − shift, steps) of them (none if
     negative): ``shift`` 0 for the forward loop, 1 for the backward.
     ``roots`` (i32 [columns]) holds each column's root, −1 where it has
-    none: such a column is padded in every step (None: no column is).
-    Only while :func:`on`; the live and padded columns are summed on the
-    device."""
+    none: such a column is padded in every step (None: no column is).  The
+    backward loop (the one over the derived columns) also counts the
+    derived slots its dispatch block left out (:func:`trimming`) as padded
+    operand columns.  Only while :func:`on`; the live and padded columns
+    are summed on the device."""
     global _live, _padded
+    left_out = _trimmed_lane if shift else 0
     _steps["level_steps"] += steps
     _steps["empty_level_steps"] += steps - min(max(live_steps, 0), steps)
-    _steps["operand_columns"] += steps * depth.shape[1]
+    _steps["operand_columns"] += steps * (depth.shape[1] + left_out)
     if steps and depth.numel():
         _live = _live + (depth.amax(dim=0) - shift).clamp(0, steps).sum()
     if steps and roots is not None:
-        _padded = _padded + (roots < 0).sum() * steps
+        _padded = _padded + ((roots < 0).sum() + left_out) * steps
+
+
+def count_trimmed(slots: int) -> None:
+    """Count ``slots`` derived slots a dispatch block did not ship.  Only
+    while :func:`on`."""
+    _steps["trimmed_slots"] += slots
+
+
+@contextlib.contextmanager
+def trimming(slots: int):
+    """While a dispatch block runs that left ``slots`` derived slots out of
+    each lane: :func:`count_levels` counts them in its backward steps."""
+    global _trimmed_lane
+    _trimmed_lane = slots
+    try:
+        yield
+    finally:
+        _trimmed_lane = 0
 
 
 def counts() -> dict[str, int]:

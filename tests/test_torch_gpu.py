@@ -583,6 +583,43 @@ def test_checkpoint_round_trip_of_a_card_run(cuda, tmp_path):
         np.testing.assert_allclose(rest.bc, full.bc, rtol=1e-5, atol=1e-5)
 
 
+def test_a_fused_round_without_its_padding_derived_slots_gives_the_same_bits(cuda, monkeypatch):
+    """R-MAT 12 under h0, batch 128: every derived slot is padding, so the
+    driver ships none and K2 runs at s = 128 (the 128 column tile) where
+    the whole round runs it at s = 192 (the 192 tile).  Each column's δ is
+    bit-equal between the two (a column's sum over A's rows runs in the
+    same order under either tile), the padding columns' δ is 0, n_s, the
+    roots and the depth are equal, and K2 launches once a backward step in
+    both."""
+    from repro_torch.core import driver as pdriver
+
+    g = pg.rmat_graph(12, 16, seed=1)
+    schedule, _, residual, omega_np = build_schedule(g, batch_size=128, heuristics="h0")
+    rnd = schedule.rounds[0]
+    assert rnd.derived.shape == (64, 3) and (rnd.derived[:, 0] < 0).all()
+    op = pbc.make_operator(residual, "fused", cuda)
+    omega = torch.from_numpy(omega_np).to(device=cuda, dtype=torch.float32)
+    sources = torch.from_numpy(rnd.sources).to(cuda)
+    deltas = []
+    real = pdriver.engine.backward_accumulation
+    monkeypatch.setattr(pdriver.engine, "backward_accumulation",
+                        lambda *a, **k: deltas.append(real(*a, **k)) or deltas[-1])
+    runs = []
+    for derived in (rnd.derived, rnd.derived[:0]):
+        ops.reset_launches()
+        out = pdriver.traversal_round(op, sources, torch.from_numpy(derived).to(cuda), omega)
+        torch.cuda.synchronize()
+        runs.append((out, ops.LAUNCHES["dependency_spmm"]))
+    (whole, k2_whole), (trimmed, k2_trimmed) = runs
+    assert deltas[0].shape[1] == 192 and deltas[1].shape[1] == 128
+    assert torch.equal(deltas[0][:, :128], deltas[1])
+    assert not bool(deltas[0][:, 128:].any())
+    assert torch.equal(whole[1][:128], trimmed[1]) and torch.equal(whole[2][:128], trimmed[2])
+    assert whole[3] == trimmed[3] > 2
+    assert k2_whole == k2_trimmed == whole[3] - 2
+    torch.testing.assert_close(trimmed[0], whole[0], rtol=1e-6, atol=0.0)
+
+
 def test_serve_bc_defaults_to_the_card(cuda, tmp_path, capsys):
     from repro_torch.launch import serve_bc
 

@@ -100,11 +100,14 @@ def _path_round(num_levels):
     # liveness: 10 forward steps (the last finds nothing), live 9 + 5;
     # 8 backward steps (from depth 9 - 1), live 8 + 4; s = 3, k = 1; the
     # padding source column in every step, the padding derived one backward
+    # (a round called directly: no dispatch block trims it)
     (None, {"level_steps": 18, "empty_level_steps": 1, "live_columns": 26,
-            "operand_columns": 10 * 3 + 8 * 4, "padded_columns": 10 * 1 + 8 * 2}),
+            "operand_columns": 10 * 3 + 8 * 4, "padded_columns": 10 * 1 + 8 * 2,
+            "trimmed_slots": 0}),
     # a static 12: forward steps 10-12 and backward steps 9-11 are empty
     (12, {"level_steps": 23, "empty_level_steps": 6, "live_columns": 26,
-          "operand_columns": 12 * 3 + 11 * 4, "padded_columns": 12 * 1 + 11 * 2}),
+          "operand_columns": 12 * 3 + 11 * 4, "padded_columns": 12 * 1 + 11 * 2,
+          "trimmed_slots": 0}),
 ])
 def test_counters_on_a_path_graph_match_the_hand_count(num_levels, want):
     _path_round(num_levels)  # unprofiled: the next session counts from zero
@@ -162,7 +165,10 @@ def test_sampled_h0_run_pads_its_unfilled_slots_in_every_step():
     _profiled(lambda: pbc.betweenness_centrality(graph, batch_size=8, heuristics="h0",
                                                  engine_kind="dense", device=CPU, **kw))
     got = tracing.counts()
+    # the driver ships none of the 4 derived slots; the counters still
+    # count them as padded backward columns, as the schedule has them
     assert got["padded_columns"] == _padded_by_hand(graph, schedule.rounds) > 0
+    assert got["trimmed_slots"] == 2 * 4
     assert got["padded_columns"] + got["live_columns"] <= got["operand_columns"]
 
 
